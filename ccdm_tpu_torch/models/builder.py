@@ -1,0 +1,145 @@
+"""Model assembly from the `params.yml` config surface (port of
+`ccdm_tpu/models/builder.py`).
+
+`in_channels = num_classes + image_channels` (the UNet consumes
+`concat([x_t, condition])`), `out_channels = num_classes`. `compute_dtype`
+sets the torso's dtype; GroupNorm parameters and the output heads stay fp32,
+as the JAX package's `param_dtype=float32` and `norm_fp32=True` keep them.
+
+Modules are constructed on the meta device and their weights drawn from an
+explicit CPU `torch.Generator`, so building a model touches no global RNG
+and gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ccdm_tpu_torch.diffusion.categorical import CategoricalDiffusion
+from ccdm_tpu_torch.diffusion.sampling import SamplerConfig, ancestral_sampler
+from ccdm_tpu_torch.models.layers import GroupNorm32
+from ccdm_tpu_torch.models.unet import UNetModel, create_unet
+
+
+@dataclasses.dataclass(frozen=True)
+class DenoisingModel:
+    """Diffusion math + UNet + sampler entry points.
+
+    As in the JAX package, the weights are an argument: `net` plays the role
+    of Flax's `params` (the module holding the weights, e.g. `self.unet` or
+    an EMA copy of it); `unet` is the module `build_model` made.
+    """
+
+    diffusion: CategoricalDiffusion
+    unet: UNetModel
+    step_T_sample: str = "majority"
+
+    @property
+    def time_steps(self) -> int:
+        return self.diffusion.time_steps
+
+    def apply(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
+              t: torch.Tensor) -> dict:
+        """One UNet call: `xt` `[B,H,W,C]`, `condition` `[B,H,W,Ci]`, `t` `[B]`."""
+        return net(xt, condition, t)
+
+    def denoise_fn(self, net: UNetModel, condition: torch.Tensor):
+        """Close over the conditioning -> `(xt, t) -> p0` for the sampler."""
+        def fn(xt, t):
+            return self.apply(net, xt, condition, t)["diffusion_out"]
+        return fn
+
+    def sample(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               num_steps: Optional[int] = None, *,
+               gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Ancestral sampling from the prior draw `xt` -> `[B,H,W,C]`."""
+        cfg = SamplerConfig(num_steps=num_steps or self.time_steps,
+                            step_T_sample=self.step_T_sample)
+        return ancestral_sampler(self.diffusion, self.denoise_fn(net, condition),
+                                 xt, cfg, generator, gumbel=gumbel)
+
+
+@torch.no_grad()
+def init_weights_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every weight from `generator` (a CPU generator): conv and linear
+    weights ~ N(0, 1/fan_in) (lecun normal), biases 0, GroupNorm 1/0, and
+    zeros for modules marked `zero_init` (output projections and heads)."""
+    for module in net.modules():
+        if isinstance(module, GroupNorm32):
+            module.weight.fill_(1.0)
+            module.bias.fill_(0.0)
+        elif isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            w = module.weight
+            if getattr(module, "zero_init", False):
+                w.zero_()
+            else:
+                fan_in = math.prod(w.shape[1:])
+                w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
+            if module.bias is not None:
+                module.bias.zero_()
+    return net
+
+
+def build_model(
+    params: Dict[str, Any],
+    num_classes: int,
+    image_channels: int = 1,
+    image_size: Optional[int] = None,
+    *,
+    device=None,
+    generator: Optional[torch.Generator] = None,
+) -> DenoisingModel:
+    """Assemble diffusion + UNet from a reference-format `params` dict, on
+    `device`, with weights drawn from `generator` (default: seed 0)."""
+    backbone = params.get("backbone", "unet_openai")
+    if backbone != "unet_openai":
+        raise ValueError(f"unsupported backbone {backbone!r}")
+    bb = dict(params.get("unet_openai") or {})
+    fce = params.get("feature_cond_encoder") or {"type": "none"}
+    if fce.get("type") not in (None, "none"):
+        raise NotImplementedError(
+            f"feature_cond_encoder {fce.get('type')!r} is not ported yet")
+    if params.get("quantized_inference", False):
+        raise NotImplementedError("quantized_inference is not ported yet")
+
+    device = torch.device("cpu" if device is None else device)
+    diffusion = CategoricalDiffusion.create(
+        params.get("beta_schedule", "cosine"),
+        int(params.get("time_steps", 250)),
+        num_classes,
+        params.get("beta_schedule_params"),
+        device,
+    )
+    dtype = (torch.bfloat16 if params.get("compute_dtype", "bfloat16") == "bfloat16"
+             else torch.float32)
+    with torch.device("meta"):
+        unet = create_unet(
+            image_size=image_size or int(bb.get("image_size", 128)),
+            base_channels=int(bb.get("base_channels", 32)),
+            out_channels=num_classes,
+            in_channels=num_classes + image_channels,
+            num_res_blocks=int(bb.get("num_res_blocks", 2)),
+            channel_mult=bb.get("channel_mult"),
+            attention_resolutions=tuple(bb.get("attention_resolutions", (32, 16, 8))),
+            num_heads=int(bb.get("num_heads", 1)),
+            num_head_channels=int(bb.get("num_head_channels", -1)),
+            use_scale_shift_norm=bool(bb.get("use_scale_shift_norm", False)),
+            dropout=float(bb.get("dropout", 0.0)),
+            softmax_output=bool(bb.get("softmax_output", True)),
+            ce_head=bool(bb.get("ce_head", False)),
+            dtype=dtype,
+        )
+    unet = unet.to_empty(device=device)
+    init_weights_(unet, generator or torch.Generator().manual_seed(0))
+    unet.eval()
+    return DenoisingModel(
+        diffusion=diffusion,
+        unet=unet,
+        step_T_sample=params.get("step_T_sample", "majority"),
+    )

@@ -1,0 +1,118 @@
+"""Flax UNet parameters -> the port's `state_dict`, without jax.
+
+`flax_params_to_state_dict` takes the JAX package's UNet parameter tree as
+nested dicts of numpy arrays (e.g. `jax.device_get(params)` saved with
+numpy) and returns the port's state dict. It applies the same name map and
+layout inversions as `ccdm_tpu/models/torch_convert.py::flax_unet_to_torch`
+(Conv2d HWIO -> OIHW; attention qkv/proj Dense [I,O] -> Conv1d [O,I,1];
+other Dense [I,O] -> Linear [O,I]; GroupNorm scale/bias -> weight/bias), so
+the result loads into `UNetModel` with `strict=True`.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_FIXED_PREFIXES = {
+    "in_conv": "input_blocks.0.0",
+    "time_mlp1": "time_embed.0",
+    "time_mlp2": "time_embed.2",
+    "out_norm": "out.0",
+    "out_conv": "out.2",
+    "out_ce_norm": "out_ce.0",
+    "out_ce_conv": "out_ce.2",
+    "mid_res1": "middle_block.0",
+    "mid_attn": "middle_block.1",
+    "mid_res2": "middle_block.2",
+}
+
+_SUBMAP = {
+    # ResBlock
+    ("in_norm", "GroupNorm_0", "scale"): "in_layers.0.weight",
+    ("in_norm", "GroupNorm_0", "bias"): "in_layers.0.bias",
+    ("in_conv", "kernel"): "in_layers.2.weight",
+    ("in_conv", "bias"): "in_layers.2.bias",
+    ("emb_proj", "kernel"): "emb_layers.1.weight",
+    ("emb_proj", "bias"): "emb_layers.1.bias",
+    ("out_norm", "GroupNorm_0", "scale"): "out_layers.0.weight",
+    ("out_norm", "GroupNorm_0", "bias"): "out_layers.0.bias",
+    ("out_conv", "kernel"): "out_layers.3.weight",
+    ("out_conv", "bias"): "out_layers.3.bias",
+    ("skip", "kernel"): "skip_connection.weight",
+    ("skip", "bias"): "skip_connection.bias",
+    # AttentionBlock
+    ("norm", "GroupNorm_0", "scale"): "norm.weight",
+    ("norm", "GroupNorm_0", "bias"): "norm.bias",
+    ("qkv", "kernel"): "qkv.weight",
+    ("qkv", "bias"): "qkv.bias",
+    ("proj", "kernel"): "proj_out.weight",
+    ("proj", "bias"): "proj_out.bias",
+    # Up/Downsample
+    ("conv", "kernel"): "conv.weight",
+    ("conv", "bias"): "conv.bias",
+    ("op", "kernel"): "op.weight",
+    ("op", "bias"): "op.bias",
+    # bare GroupNorm/conv heads and the time MLP
+    ("GroupNorm_0", "scale"): "weight",
+    ("GroupNorm_0", "bias"): "bias",
+    ("kernel",): "weight",
+    ("bias",): "bias",
+}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), np.asarray(value, dtype=np.float32)
+
+
+def _prefix(module: str, last_index: Dict[int, int]) -> str:
+    if module in _FIXED_PREFIXES:
+        return _FIXED_PREFIXES[module]
+    m = re.fullmatch(r"down_(\d+)_(res|attn|downsample)", module)
+    if m:
+        return f"input_blocks.{m.group(1)}.{1 if m.group(2) == 'attn' else 0}"
+    m = re.fullmatch(r"up_(\d+)_(res|attn|upsample)", module)
+    if m:
+        j = int(m.group(1))
+        pos = {"res": 0, "attn": 1}.get(m.group(2), last_index.get(j))
+        return f"output_blocks.{j}.{pos}"
+    raise KeyError(f"no torch mapping for flax module {module!r}")
+
+
+def flax_params_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert a Flax UNet param tree (nested dicts of arrays) to the port's
+    state dict (float32 CPU tensors; `load_state_dict` casts to the
+    module's dtype and device)."""
+    leaves = list(_leaves(tree))
+    modules = {parts[0] for parts, _ in leaves}
+    # an output block is [ResBlock, AttentionBlock?, Upsample]: the upsample
+    # sits at index 2 with attention, 1 without
+    last_index = {}
+    for module in modules:
+        m = re.fullmatch(r"up_(\d+)_upsample", module)
+        if m:
+            j = int(m.group(1))
+            last_index[j] = 2 if f"up_{j}_attn" in modules else 1
+
+    state_dict: Dict[str, torch.Tensor] = {}
+    for parts, value in leaves:
+        sub = _SUBMAP.get(parts[1:])
+        if sub is None:
+            raise KeyError(f"no torch mapping for flax path {'/'.join(parts)}")
+        if value.ndim == 4:  # HWIO -> OIHW
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif value.ndim == 2:
+            value = np.transpose(value)  # Dense [I,O] -> Linear [O,I]
+            if parts[0].endswith("attn") and parts[1] in ("qkv", "proj"):
+                value = value[:, :, None]  # -> Conv1d [O,I,1]
+        state_dict[f"{_prefix(parts[0], last_index)}.{sub}"] = torch.from_numpy(
+            np.array(value, dtype=np.float32))  # a writable, contiguous copy
+    return state_dict

@@ -1,0 +1,188 @@
+"""The image-conditioned diffusion UNet (port of `ccdm_tpu/models/unet.py`).
+
+At its boundary the UNet keeps the JAX layout: `x` `[B,H,W,C]`, `condition`
+`[B,H,W,Ci]`, and `diffusion_out` `[B,H,W,C]` (a permuted view of the NCHW
+result). Inside it is NCHW.
+
+Structure: input = concat([x_t one-hot, condition]); sinusoidal timestep
+embedding -> 2-layer SiLU MLP; encoder of `num_res_blocks` ResBlocks per
+level (+ attention where the downsample rate `ds` is in
+`attention_resolutions`) with a Downsample between levels; middle
+Res+Attn+Res; decoder mirroring it with skip concats; fp32 head
+GroupNorm -> SiLU -> zero-init 3x3 conv -> softmax over classes, and an
+optional CE-logits head with its own norm.
+
+Module names are the reference torch UNet's (`time_embed.0/2`,
+`input_blocks.i.j`, `middle_block.k`, `output_blocks.j.k`, `out.0/2`,
+`out_ce.0/2`). Not ported yet: DINO feature concat, `cached_skips` /
+`return_skips` (encoder reuse) and int8 convs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ccdm_tpu_torch.models.layers import (
+    AttentionBlock,
+    Downsample,
+    GroupNorm32,
+    ResBlock,
+    Upsample,
+    conv3x3,
+    timestep_embedding,
+    zero_init,
+)
+
+
+def default_channel_mult(image_size: int) -> Tuple[float, ...]:
+    """Channel-multiplier table by image size."""
+    table = {
+        512: (0.5, 1, 1, 2, 2, 4, 4),
+        256: (1, 1, 2, 2, 4, 4),
+        128: (1, 1, 2, 3, 4),
+        64: (1, 2, 3, 4),
+    }
+    if image_size not in table:
+        raise ValueError(f"unsupported image size: {image_size}")
+    return table[image_size]
+
+
+class TimestepBlock(nn.Sequential):
+    """A container whose ResBlocks also take the time embedding."""
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        for layer in self:
+            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+        return x
+
+
+class UNetModel(nn.Module):
+    """See the module docstring. `forward` returns
+    `{"diffusion_out": probs [B,H,W,C], "logits": [B,H,W,C-1] or None}`."""
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Sequence[int],
+                 channel_mult: Sequence[float], dropout: float = 0.0,
+                 num_heads: int = 1, num_head_channels: int = -1,
+                 use_scale_shift_norm: bool = False, softmax_output: bool = True,
+                 ce_head: bool = False, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.softmax_output = softmax_output
+        mc = model_channels
+        time_dim = mc * 4
+        self.time_embed = nn.Sequential(
+            nn.Linear(mc, time_dim, dtype=dtype), nn.SiLU(),
+            nn.Linear(time_dim, time_dim, dtype=dtype))
+
+        def res(in_ch, out_ch):
+            return ResBlock(in_ch, time_dim, out_ch, dropout, use_scale_shift_norm, dtype)
+
+        def attn(ch):
+            return AttentionBlock(ch, num_heads, num_head_channels, dtype)
+
+        ch = int(channel_mult[0] * mc)
+        self.input_blocks = nn.ModuleList([TimestepBlock(conv3x3(in_channels, ch, dtype))])
+        skip_chs = [ch]
+        ds = 1
+        for level, mult in enumerate(channel_mult):
+            for _ in range(num_res_blocks):
+                out_ch = int(mult * mc)
+                layers = [res(ch, out_ch)]
+                ch = out_ch
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                self.input_blocks.append(TimestepBlock(*layers))
+                skip_chs.append(ch)
+            if level != len(channel_mult) - 1:
+                self.input_blocks.append(TimestepBlock(Downsample(ch, ch, dtype)))
+                skip_chs.append(ch)
+                ds *= 2
+
+        self.middle_block = TimestepBlock(res(ch, ch), attn(ch), res(ch, ch))
+
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(channel_mult))):
+            for i in range(num_res_blocks + 1):
+                out_ch = int(mult * mc)
+                layers = [res(ch + skip_chs.pop(), out_ch)]
+                ch = out_ch
+                if ds in attention_resolutions:
+                    layers.append(attn(ch))
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch, ch, dtype))
+                    ds //= 2
+                self.output_blocks.append(TimestepBlock(*layers))
+        assert not skip_chs
+
+        # heads run in fp32 (the JAX package's fp32 islands)
+        self.out = nn.Sequential(
+            GroupNorm32(ch), nn.SiLU(), zero_init(conv3x3(ch, out_channels, torch.float32)))
+        self.out_ce = (nn.Sequential(
+            GroupNorm32(ch), nn.SiLU(),
+            zero_init(conv3x3(ch, out_channels - 1, torch.float32))) if ce_head else None)
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor, t: torch.Tensor) -> dict:
+        emb = self.time_embed(
+            timestep_embedding(t, self.time_embed[0].in_features).to(self.dtype))
+        # NHWC in, NCHW inside; contiguous so the kernels see dense NCHW
+        h = torch.cat([x, condition], dim=-1).to(self.dtype).permute(0, 3, 1, 2).contiguous()
+        skips = []
+        for block in self.input_blocks:
+            h = block(h, emb)
+            skips.append(h)
+        h = self.middle_block(h, emb)
+        for block in self.output_blocks:
+            h = block(torch.cat([h, skips.pop()], dim=1), emb)
+
+        h = h.float()
+        norm, _, conv = self.out
+        out = conv(norm(h, silu=True))
+        if self.softmax_output:
+            out = torch.softmax(out, dim=1)
+        ret = {"diffusion_out": out.permute(0, 2, 3, 1), "logits": None}
+        if self.out_ce is not None:
+            norm, _, conv = self.out_ce
+            ret["logits"] = conv(norm(h, silu=True)).permute(0, 2, 3, 1)
+        return ret
+
+
+def create_unet(
+    image_size: int,
+    base_channels: int,
+    out_channels: int,
+    in_channels: Optional[int] = None,
+    num_res_blocks: int = 2,
+    channel_mult: Optional[Sequence[float]] = None,
+    attention_resolutions: Sequence[int] = (32, 16, 8),
+    num_heads: int = 1,
+    num_head_channels: int = -1,
+    use_scale_shift_norm: bool = False,
+    dropout: float = 0.0,
+    softmax_output: bool = True,
+    ce_head: bool = False,
+    dtype=torch.bfloat16,
+) -> UNetModel:
+    """Factory with the JAX `create_unet`'s arguments. `in_channels`
+    defaults to `out_channels + 1` (the one-hot state plus one image
+    channel); Flax infers it, a torch module must be told."""
+    if channel_mult is None:
+        channel_mult = default_channel_mult(image_size)
+    return UNetModel(
+        in_channels=out_channels + 1 if in_channels is None else in_channels,
+        model_channels=base_channels,
+        out_channels=out_channels,
+        num_res_blocks=num_res_blocks,
+        attention_resolutions=tuple(attention_resolutions),
+        channel_mult=tuple(channel_mult),
+        dropout=dropout,
+        num_heads=num_heads,
+        num_head_channels=num_head_channels,
+        use_scale_shift_norm=use_scale_shift_norm,
+        softmax_output=softmax_output,
+        ce_head=ce_head,
+        dtype=dtype,
+    )

@@ -1,0 +1,88 @@
+"""Port parity: the port's UNet against the Flax UNet, through the jax-free
+converter `flax_params_to_state_dict`, in fp32 on the same inputs."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ccdm_tpu.models.torch_convert import flax_unet_to_torch
+from ccdm_tpu.models.unet import create_unet as jax_create_unet
+from ccdm_tpu_torch.models.convert import flax_params_to_state_dict
+from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32, timestep_embedding
+from ccdm_tpu_torch.models.unet import create_unet
+from torch_port_util import TINY_UNET, load_port_weights, unzero
+
+torch.set_num_threads(2)
+
+B, H, W, C = 2, 32, 32, 2
+
+
+def _build(scale_shift, ce_head):
+    kw = dict(image_size=TINY_UNET["image_size"], base_channels=TINY_UNET["base_channels"],
+              out_channels=C, num_res_blocks=2, channel_mult=TINY_UNET["channel_mult"],
+              attention_resolutions=TINY_UNET["attention_resolutions"],
+              num_head_channels=TINY_UNET["num_head_channels"],
+              use_scale_shift_norm=scale_shift, ce_head=ce_head)
+    flax_unet = jax_create_unet(**kw, dtype=jnp.float32)
+    rng = np.random.default_rng(0)
+    xt = np.eye(C, dtype=np.float32)[rng.integers(0, C, (B, H, W))]
+    cond = rng.standard_normal((B, H, W, 1)).astype(np.float32)
+    params = flax_unet.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(xt),
+                            jnp.asarray(cond), jnp.ones((B,), jnp.int32))["params"]
+    params = unzero(params)
+    port = load_port_weights(create_unet(**kw, dtype=torch.float32), params).eval()
+    return flax_unet, params, port, xt, cond
+
+
+@pytest.mark.parametrize("scale_shift,ce_head", [(False, False), (True, True)])
+@pytest.mark.parametrize("t", [(7, 201), (1, 250)])
+def test_forward_matches_flax(scale_shift, ce_head, t):
+    flax_unet, params, port, xt, cond = _build(scale_shift, ce_head)
+    t = np.array(t, dtype=np.int32)
+    ref = flax_unet.apply({"params": params}, jnp.asarray(xt), jnp.asarray(cond),
+                          jnp.asarray(t))
+    with torch.no_grad():
+        ours = port(torch.from_numpy(xt), torch.from_numpy(cond), torch.from_numpy(t))
+    out = ours["diffusion_out"].numpy()
+    assert out.shape == (B, H, W, C)
+    # fp32 through ~40 layers: the JAX-vs-reference-torch parity test held
+    # the same network to 2e-5
+    np.testing.assert_allclose(out, np.asarray(ref["diffusion_out"]), atol=2e-5, rtol=0)
+    # the softmax is not degenerate: the un-zeroed heads make the torso matter
+    assert np.abs(out - 0.5).max() > 1e-2
+    if ce_head:
+        np.testing.assert_allclose(ours["logits"].numpy(), np.asarray(ref["logits"]),
+                                   atol=2e-5, rtol=0)
+    else:
+        assert ours["logits"] is None
+
+
+def test_converter_equals_flax_unet_to_torch():
+    _, params, port, _, _ = _build(False, True)
+    ours = flax_params_to_state_dict(params)
+    ref = flax_unet_to_torch(params)
+    assert set(ours) == set(ref) == set(port.state_dict())
+    for key, value in ref.items():
+        np.testing.assert_array_equal(ours[key].numpy(), value, err_msg=key)
+
+
+def test_kernel_sites_per_forward():
+    """Every GroupNorm and attention of the tiny UNet is a kernel site: 2 per
+    ResBlock (4 encoder, 2 middle, 6 decoder), 1 per attention block (2
+    encoder, 1 middle, 3 decoder) and the head's."""
+    *_, port, _, _ = _build(False, False)
+    assert sum(isinstance(m, GroupNorm32) for m in port.modules()) == 12 * 2 + 6 + 1
+    assert sum(isinstance(m, AttentionBlock) for m in port.modules()) == 6
+
+
+def test_timestep_embedding_matches_jax():
+    from ccdm_tpu.models.layers import timestep_embedding as jax_embedding
+
+    t = np.array([1, 17, 250], dtype=np.int32)
+    for dim in (16, 33):
+        ours = timestep_embedding(torch.from_numpy(t), dim).numpy()
+        ref = np.asarray(jax_embedding(jnp.asarray(t), dim))
+        # cos/sin of arguments up to 250 rad: libm ulps of the argument
+        np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=0)
