@@ -96,7 +96,8 @@ def build_model(
     generator: Optional[torch.Generator] = None,
 ) -> DenoisingModel:
     """Assemble diffusion + UNet from a reference-format `params` dict, on
-    `device`, with weights drawn from `generator` (default: seed 0)."""
+    `device` (default: the CUDA card; the CPU only when asked for with
+    `device="cpu"`), with weights drawn from `generator` (default: seed 0)."""
     backbone = params.get("backbone", "unet_openai")
     if backbone != "unet_openai":
         raise ValueError(f"unsupported backbone {backbone!r}")
@@ -108,7 +109,12 @@ def build_model(
     if params.get("quantized_inference", False):
         raise NotImplementedError("quantized_inference is not ported yet")
 
-    device = torch.device("cpu" if device is None else device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_model: no CUDA device; the model builds on the card "
+                               "unless the caller passes device='cpu'")
+        device = "cuda"
+    device = torch.device(device)
     diffusion = CategoricalDiffusion.create(
         params.get("beta_schedule", "cosine"),
         int(params.get("time_steps", 250)),

@@ -20,6 +20,7 @@ kernels on the card, their plain versions on the CPU.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -69,8 +70,11 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.groups, 1e-5, silu)
+    def forward(self, x: torch.Tensor, silu: bool = False,
+                add: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`add` `[B, C]` in x's dtype is added to x (rounded to its dtype)
+        before the statistics, inside the same kernel."""
+        return group_norm(x, self.weight, self.bias, self.groups, 1e-5, silu, add)
 
 
 def conv3x3(in_ch: int, out_ch: int, dtype, stride: int = 1) -> nn.Conv2d:
@@ -134,13 +138,14 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         norm_in, _, conv_in = self.in_layers
         h = conv_in(norm_in(x, silu=True))
-        emb_out = self.emb_layers(emb).to(h.dtype)[:, :, None, None]
+        emb_out = self.emb_layers(emb).to(h.dtype)  # [B, C] or [B, 2C]
         norm_out, _, dropout, conv_out = self.out_layers
         if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=1)
+            scale, shift = emb_out[:, :, None, None].chunk(2, dim=1)
             h = F.silu(norm_out(h) * (1 + scale) + shift)
         else:
-            h = norm_out(h + emb_out, silu=True)
+            # h + emb_out, GroupNorm and SiLU in one kernel call
+            h = norm_out(h, silu=True, add=emb_out)
         h = conv_out(dropout(h))
         return self.skip_connection(x) + h
 

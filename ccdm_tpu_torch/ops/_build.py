@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`ccdm_tpu_torch/csrc/*.cu`).
 
-All kernel sources compile with `nvcc` into one shared library with a plain
-C interface, `libccdm_kernels.so`, which is loaded with `ctypes`. In a source
+Each kernel source compiles in its own `nvcc` process, all at once, and the
+objects link into one shared library with a plain C interface,
+`libccdm_kernels.so`, which is loaded with `ctypes`. In a source
 checkout it goes to `build/ccdm_tpu_torch/` at the repository root (git
 ignores `build/`); an installed copy of the package builds into `build/`
 beside its own `csrc/`, as `ccdm_tpu/native` does. The build runs on first
@@ -27,7 +28,9 @@ BUILD_DIR = (_PACKAGE.parent / "build" / "ccdm_tpu_torch"
              if (_PACKAGE.parent / "pyproject.toml").is_file() else _PACKAGE / "build")
 LIB_PATH = BUILD_DIR / "libccdm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
+# ptxas's registers, shared memory and spills per kernel, from the last build
+build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,11 +40,16 @@ _F = ctypes.c_float
 # C entry points (see the .cu files) -> argtypes. Every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
-    # x, y, gamma, beta, partial, dtype, batch, channels, hw, groups, splits, eps, silu, stream
-    "ccdm_group_norm": [_P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I, _F, _I, _P],
-    # q, k, v, out, dtype, bh, t, dh, q_sbh, q_sd, k_sbh, k_sd, v_sbh, v_sd, scale, stream
-    "ccdm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I,
+    # x, y, gamma, beta, add, partial, dtype, batch, channels, hw, groups, path, vec,
+    # param, chunk, eps, silu, stream
+    "ccdm_group_norm": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I, _I,
+                        _I, _LL, _F, _I, _P],
+    # q, k, v, out, dtype, path, bh, t, dh, q_sbh, q_sd, k_sbh, k_sd, v_sbh, v_sd,
+    # scale, stream
+    "ccdm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
+    # q, k, out, bh, t, dh, q_sbh, q_sd, k_sbh, k_sd, stream
+    "ccdm_attention_logits": [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _P],
 }
 
 _lock = threading.Lock()
@@ -68,27 +76,49 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in cu + cuh)
 
 
+def _run(procs) -> str:
+    """Wait for every (command, Popen); raise on the first failure."""
+    logs = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        logs.append(out)
+    return "".join(logs)
+
+
 def build(force: bool = False) -> float:
-    """Compile `csrc/*.cu` into `LIB_PATH` if stale (or `force`); returns the
-    seconds spent compiling (0.0 when the library was current)."""
+    """Compile `csrc/*.cu` into `LIB_PATH` if stale (or `force`): one nvcc per
+    source, all started together, then one link. Returns the seconds spent
+    (0.0 when the library was current)."""
+    global build_log
     if not force and not _stale():
         return 0.0
     cu, _ = _sources()
     if not cu:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
+    # objects and the library go to private names first, then the library is
+    # renamed: concurrent builders never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        compiles = []
+        for src, obj in zip(cu, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+        log = _run(compiles)
+        lib = Path(tmp) / LIB_PATH.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+        log += _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))])
+        os.replace(lib, LIB_PATH)
+    build_log = log
     return time.perf_counter() - start
 
 

@@ -8,20 +8,31 @@ without printing its result:
 
 1. device: requires CUDA (no CPU fallback); prints the card and its power
    limit; turns TF32 off so fp32 comparisons are fp32.
-2. build: compiles `ccdm_tpu_torch/csrc/*.cu` with nvcc into
-   `build/ccdm_tpu_torch/` and prints the seconds.
+2. build: compiles `ccdm_tpu_torch/csrc/*.cu`, one nvcc per source started
+   together, into `build/ccdm_tpu_torch/`; prints the seconds and any kernel
+   that spills registers.
 3. group_norm: the GroupNorm(+SiLU) kernel against its plain PyTorch version
    at the flagship sampler's shapes (B = 8 images x 16 samples = 128), with
-   max-abs errors and median CUDA-event times of both.
+   and without the fused time-embedding add, and at shapes that force each
+   of its paths (S, M with clusters of 1, 4 and 8 blocks, L in bf16 and fp32).
 4. attention: the attention kernel against its plain version at the
-   flagship's attention shapes and at T = 2048 (many K/V tiles).
+   flagship's attention shapes, at T = 70 (element loads), at T = 2048 (many
+   K/V tiles) and with 64-channel heads.
+   Phases 3 and 4 print, per case, the max-abs error, the device time of the
+   kernel, of the plain version and of the one PyTorch call that computes
+   the same function where there is one (`F.group_norm` without SiLU or add,
+   `F.scaled_dot_product_attention`; timed here, never called by the port),
+   and the bound: the larger of the bytes moved (each input read once, each
+   output written once) over 3.35 TB/s and the operations over the peak
+   rate of their type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32).
 5. slice: the flagship LIDC model (128x128, C=2, base 32, bf16, seeded
    random weights with the zero-initialised leaves redrawn) samples 8 images
    x 16 samples x 250 steps through `make_prob_sampler`; the output must be
    finite probabilities of shape [8,16,128,128,2], and each kernel's launch
-   count must equal its sites per UNet call x 250.
-6. reference: on a small input, the fp32 sampler on the card (kernels)
-   against the same sampler on the CPU (plain versions), same noise.
+   count must equal its sites per UNet call x 250 (split by kernel path).
+6. reference: on a small input, the fp32 sampler on the card (kernels, the
+   model built on the default device) against the same sampler on the CPU
+   (plain versions), same noise.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -38,27 +49,51 @@ from pathlib import Path
 
 IMAGES, SAMPLES, STEPS = 8, 16, 250
 
+# NVIDIA H100 SXM peaks (data sheet, dense): device memory, bf16 tensor
+# cores, fp32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event timings."""
+def time_ms(fn, reps: int = 5, calls: int = 20) -> float:
+    """Device milliseconds per call: `calls` back-to-back calls between two
+    CUDA events, queued behind a sleep kernel that outlasts their enqueueing,
+    so the host's launch overhead does not show; median over `reps`."""
     import torch
 
-    for _ in range(warmup):
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
         fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - start
+    # 2x the enqueue time at ~2 GHz; at most ~1 s
+    cycles = int(min(2e9, 2 * host_s * 2e9))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
+        begin = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
+        torch.cuda._sleep(cycles)
+        begin.record()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(begin.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float, dtype: str):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bf16_excess(out, ref, atol: float = 3e-2) -> float:
@@ -94,72 +129,117 @@ def phase_build():
 
     seconds = _build.build(force=True)
     _build.library()
-    log("build", f"nvcc built {_build.LIB_PATH} in {seconds:.1f} s")
+    spills, kernel = [], ""
+    for line in _build.build_log.splitlines():  # ptxas -v: a kernel's name, then its spills
+        if "Function properties for" in line:
+            kernel = line.split("for", 1)[1].strip()
+        elif "spill" in line and " 0 bytes spill stores" not in line:
+            spills.append(f"{kernel}: {line.strip()}")
+    log("build", f"nvcc built {_build.LIB_PATH} in {seconds:.1f} s (one nvcc per source, "
+        f"in parallel); kernels that spill: {spills or 'none'}")
 
 
 def phase_group_norm(gen):
     import torch
+    import torch.nn.functional as F
 
     from ccdm_tpu_torch.ops import group_norm as gn
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [  # (shape, dtype, groups, silu)
-        ((128, 32, 128, 128), bf16, 32, True),
-        ((128, 64, 128, 128), bf16, 32, True),   # first decoder level
-        ((128, 256, 8, 8), bf16, 32, False),
-        ((128, 32, 128, 128), fp32, 32, True),   # the fp32 head
-        ((128, 96, 13, 13), fp32, 32, True),     # H*W = 169: ragged, scalar loads
+    cases = [  # (shape, dtype, groups, silu, add)
+        ((128, 32, 128, 128), bf16, 32, True, False),
+        ((128, 64, 128, 128), bf16, 32, True, False),   # first decoder level
+        ((128, 64, 128, 128), bf16, 32, False, False),  # the same, F.group_norm's function
+        ((128, 64, 128, 128), bf16, 32, True, True),    # fused time-embedding add
+        ((128, 32, 64, 64), bf16, 32, True, True),      # 4096-element slabs: past S, on M
+        ((128, 256, 8, 8), bf16, 32, False, False),
+        ((128, 32, 128, 128), fp32, 32, True, False),   # the fp32 head
+        ((128, 32, 128, 128), fp32, 32, True, True),
+        ((128, 96, 13, 13), fp32, 32, True, False),     # H*W = 169: ragged, element loads
+        ((128, 32, 13, 13), fp32, 32, True, False),     # the same on path S
+        ((16, 64, 256, 256), bf16, 32, True, False),    # 256 KB slabs: a cluster of 4
+        ((16, 64, 256, 512), bf16, 32, True, False),    # 512 KB slabs: a cluster of 8
+        ((16, 128, 256, 512), bf16, 32, True, False),   # Cityscapes torso, 1 MB slabs: path L
+        ((16, 128, 256, 512), fp32, 32, True, False),   # Cityscapes head, 2 MB slabs: path L
     ]
-    worst, timed = 0.0, None
-    for shape, dtype, groups, silu in cases:
+    worst, row = 0.0, None
+    for shape, dtype, groups, silu, with_add in cases:
         # unit scale: x ~ N(0,1), gamma ~ 1 + N(0, 0.1^2), beta ~ N(0, 0.1^2)
         x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
         b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
-        out = gn.group_norm(x, w, b, groups, silu=silu)
-        ref = gn.torch_group_norm(x, w, b, groups, silu=silu)
+        e = torch.randn(shape[:2], generator=gen, device="cuda").to(dtype) if with_add else None
+        plan = gn._plan(shape, dtype, groups)
+        out = gn.group_norm(x, w, b, groups, silu=silu, add=e)
+        ref = gn.torch_group_norm(x, w, b, groups, silu=silu, add=e)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
+        name = f"{list(shape)} {str(dtype)[6:]} silu={silu} add={with_add}"
         if dtype == fp32 and not err <= 2e-5:
-            raise AssertionError(f"group_norm {shape} fp32: max err {err} > 2e-5")
+            raise AssertionError(f"group_norm {name}: max err {err} > 2e-5")
         if dtype == bf16 and bf16_excess(out.float(), ref.float()) > 0:
-            raise AssertionError(f"group_norm {shape} bf16: max err {err} beyond "
-                                 f"max(3e-2, 1 ulp)")
-        ms = time_ms(lambda: gn.group_norm(x, w, b, groups, silu=silu))
-        plain_ms = time_ms(lambda: gn.torch_group_norm(x, w, b, groups, silu=silu))
+            raise AssertionError(f"group_norm {name}: max err {err} beyond max(3e-2, 1 ulp)")
+        del out, ref
+        ms = time_ms(lambda: gn.group_norm(x, w, b, groups, silu=silu, add=e))
+        plain_ms = time_ms(lambda: gn.torch_group_norm(x, w, b, groups, silu=silu, add=e))
+        library_ms, lib_note = None, ""
+        if not silu and e is None:
+            try:
+                F.group_norm(x, groups, w, b, 1e-5)
+                lw, lb = w, b
+            except RuntimeError:
+                lw, lb = w.to(dtype), b.to(dtype)
+                lib_note = f" (weights cast to {str(dtype)[6:]})"
+            library_ms = time_ms(lambda: F.group_norm(x, groups, lw, lb, 1e-5))
+        nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * shape[1] + (
+            e.numel() * e.element_size() if e is not None else 0)
+        ops = x.numel() * (6 + 3 * silu + (e is not None))
+        bound, bound_by = bound_ms(nbytes, ops, "float32")
         worst = max(worst, err)
-        if shape == (128, 64, 128, 128):
-            timed = (ms, plain_ms)
-        log("group_norm", f"{list(shape)} {str(dtype)[6:]} silu={silu}: max_abs_err "
-            f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return worst, timed
+        if (shape, dtype, silu, with_add) == ((128, 64, 128, 128), bf16, True, False):
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        library = "none" if library_ms is None else f"{library_ms:.4f} ms{lib_note}"
+        log("group_norm", f"{name} path {plan.path} (vec {plan.vec}, param {plan.param}): "
+            f"max_abs_err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {library}, bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
+        del x, e
+    torch.cuda.empty_cache()
+    return worst, row
 
 
 def phase_attention(gen):
     import torch
+    import torch.nn.functional as F
 
     from ccdm_tpu_torch.ops import flash_attention as fa
 
+    bf16, fp32 = torch.bfloat16, torch.float32
     cases = [  # (BH, T, dh, dtype)
-        (384, 256, 32, torch.float32),    # ds=8: 128 x 3 heads, 16x16 tokens
-        (384, 256, 32, torch.bfloat16),
-        (512, 64, 32, torch.float32),     # ds=16 and the middle: 128 x 4 heads
-        (512, 64, 32, torch.bfloat16),
-        (64, 2048, 32, torch.float32),    # Cityscapes-size T: 32 K/V tiles
-        (64, 2048, 32, torch.bfloat16),
+        (384, 256, 32, fp32),    # ds=8: 128 x 3 heads, 16x16 tokens
+        (384, 256, 32, bf16),
+        (512, 64, 32, fp32),     # ds=16 and the middle: 128 x 4 heads
+        (512, 64, 32, bf16),
+        (512, 70, 32, bf16),     # T % 8 != 0: element loads
+        (64, 2048, 32, fp32),    # Cityscapes-size T: 32 K/V tiles
+        (64, 2048, 32, bf16),
+        (192, 256, 64, bf16),    # 64-channel heads
+        (32, 2048, 64, bf16),
     ]
-    worst, timed = 0.0, None
+    worst, row = 0.0, None
     for bh, t, dh, dtype in cases:
         # the model's layout: q, k, v are views of one packed [BH, 3*dh, T]
         qkv = torch.randn(bh, 3 * dh, t, generator=gen, device="cuda").to(dtype)
         q, k, v = qkv[:, :dh], qkv[:, dh:2 * dh], qkv[:, 2 * dh:]
+        path = fa._path(q, k, v)
         out = fa.flash_attention(q, k, v)
         ref = fa.dense_attention(q, k, v)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
-        if dtype == torch.float32:
+        name = f"BH={bh} T={t} dh={dh} {str(dtype)[6:]}"
+        if dtype == fp32:
             if not err <= 2e-5:
-                raise AssertionError(f"attention {bh}x{t}x{dh} fp32: max err {err} > 2e-5")
+                raise AssertionError(f"attention {name}: max err {err} > 2e-5")
             detail = ""
         else:
             # bf16: no worse than the plain bf16 path against fp32 truth
@@ -167,17 +247,29 @@ def phase_attention(gen):
             err_kernel = float((out.float() - truth).abs().max())
             err_plain = float((ref.float() - truth).abs().max())
             if not err_kernel <= err_plain + 1e-3:
-                raise AssertionError(f"attention {bh}x{t}x{dh} bf16: kernel err {err_kernel}"
-                                     f" > plain err {err_plain} + 1e-3")
+                raise AssertionError(f"attention {name}: kernel err {err_kernel} > plain err "
+                                     f"{err_plain} + 1e-3")
             detail = f" (vs fp32 truth: kernel {err_kernel:.3g}, plain {err_plain:.3g})"
+            del truth
+        del out, ref
         ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: fa.dense_attention(q, k, v))
+        # SDPA on contiguous [BH, 1, T, dh] copies made outside the timed region;
+        # its default scale 1/sqrt(dh) is the kernel's
+        q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous() for x in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        nbytes = 4 * bh * dh * t * q.element_size()
+        bound, bound_by = bound_ms(nbytes, 4 * bh * t * t * dh, str(dtype)[6:])
         worst = max(worst, err)
-        if (bh, t, dtype) == (384, 256, torch.bfloat16):
-            timed = (ms, plain_ms)
-        log("attention", f"BH={bh} T={t} dh={dh} {str(dtype)[6:]}: max_abs_err {err:.3g}"
-            f"{detail}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return worst, timed
+        if (bh, t, dh, dtype) == (384, 256, 32, bf16):
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        log("attention", f"{name} path {path}: max_abs_err {err:.3g}{detail}, kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA) {library_ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
+        del qkv, q, k, v, q4, k4, v4
+    torch.cuda.empty_cache()
+    return worst, row
 
 
 def unzero_(net, seed: int) -> None:
@@ -217,11 +309,14 @@ def phase_slice(smi):
     torch.cuda.reset_peak_memory_stats()
     gn.launches = 0
     fa.launches = 0
+    for counts in (gn.path_launches, fa.path_launches):
+        counts.update(dict.fromkeys(counts, 0))
     start = time.perf_counter()
     probs = run(model.unet, images, gen)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches = {"group_norm": gn.launches, "flash_attention": fa.launches}
+    paths = {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches)}
 
     expected = (IMAGES, SAMPLES, 128, 128, 2)
     if tuple(probs.shape) != expected:
@@ -238,9 +333,10 @@ def phase_slice(smi):
     log("slice", f"flagship bf16 {IMAGES} images x {SAMPLES} samples x {STEPS} steps: "
         f"wall {wall:.2f} s, {n / wall:.2f} samples/s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi}); launches "
-        f"{launches} = sites ({gn_sites} GN, {attn_sites} attention) x {STEPS}; "
-        f"sum err {sum_err:.2g}, foreground share {float((probs.argmax(-1) == 1).float().mean()):.3f}")
-    return launches
+        f"{launches} = sites ({gn_sites} GN, {attn_sites} attention) x {STEPS}, by path "
+        f"{paths}; sum err {sum_err:.2g}, foreground share "
+        f"{float((probs.argmax(-1) == 1).float().mean()):.3f}")
+    return launches, paths
 
 
 def phase_reference():
@@ -254,9 +350,11 @@ def phase_reference():
     from ccdm_tpu_torch.models.builder import build_model
 
     params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence", compute_dtype="float32")
-    cpu = build_model(params, 2, 1, 128)
+    cpu = build_model(params, 2, 1, 128, device="cpu")
     unzero_(cpu.unet, seed=3)
-    card = build_model(params, 2, 1, 128, device="cuda")
+    card = build_model(params, 2, 1, 128)  # the default device is the card
+    if next(card.unet.parameters()).device.type != "cuda":
+        raise AssertionError("build_model without a device did not build on the card")
     card.unet.load_state_dict(cpu.unet.state_dict())
     gen = torch.Generator().manual_seed(4)
     s, k = 2, 3
@@ -285,20 +383,20 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gn_err, (gn_ms, gn_plain_ms) = phase_group_norm(gen)
-    attn_err, (attn_ms, attn_plain_ms) = phase_attention(gen)
-    launches = phase_slice(smi)
+    gn_err, gn_row = phase_group_norm(gen)
+    attn_err, attn_row = phase_attention(gen)
+    launches, paths = phase_slice(smi)
     phase_reference()
 
     kernels = [
         {"name": "group_norm", "route": "cuda", "source": "ccdm_tpu_torch/csrc/group_norm.cu",
          "replaces": "ccdm_tpu/ops/group_norm.py:40", "launches": launches["group_norm"],
-         "max_abs_err": gn_err, "ms": gn_ms, "plain_ms": gn_plain_ms},
+         "max_abs_err": gn_err, **gn_row, "path_launches": paths["group_norm"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "ccdm_tpu/ops/flash_attention.py:34",
-         "launches": launches["flash_attention"], "max_abs_err": attn_err,
-         "ms": attn_ms, "plain_ms": attn_plain_ms},
+         "launches": launches["flash_attention"], "max_abs_err": attn_err, **attn_row,
+         "path_launches": paths["flash_attention"]},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

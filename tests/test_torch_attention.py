@@ -71,6 +71,19 @@ def test_strided_qkv_views_match_contiguous():
     torch.testing.assert_close(strided, dense, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("t,dtype,path", [
+    (256, torch.bfloat16, "mma"),
+    (64, torch.bfloat16, "mma"),
+    (2048, torch.bfloat16, "mma"),
+    (70, torch.bfloat16, "mma_scalar"),   # rows 140 bytes apart: element loads
+    (256, torch.float32, "simt"),
+])
+def test_path_for_packed_qkv_views(t, dtype, path):
+    dh = 32
+    qkv = torch.zeros(4, 3 * dh, t, dtype=dtype)
+    assert fa._path(qkv[:, :dh], qkv[:, dh:2 * dh], qkv[:, 2 * dh:]) == path
+
+
 def test_wrapper_rejects_unknown_devices():
     x = torch.empty(2, 32, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):

@@ -66,6 +66,84 @@ def test_wrapper_rejects_unknown_devices():
         gn.group_norm(x, w, w, 4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_path_with_add_matches_jax(dtype):
+    """`group_norm(h, ..., add=e)` is GroupNorm(h + e) with the sum in h's
+    dtype, as the ResBlock's unfused `h + emb_out` computes it in JAX."""
+    c, groups = 64, 32
+    h, scale, bias = _inputs(c, seed=11, shape=(2, 8, 8))
+    e = np.random.default_rng(12).standard_normal((2, c)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    hj, ej = jnp.asarray(h, jdt), jnp.asarray(e, jdt)
+    ref = np.asarray(xla_group_norm(hj + ej[:, None, None, :], jnp.asarray(scale),
+                                    jnp.asarray(bias), groups, silu=True), np.float32)
+    tdt = getattr(torch, dtype)
+    ht = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+        np.asarray(hj.astype(jnp.float32)), -1, 1))).to(tdt)
+    et = torch.from_numpy(np.array(ej.astype(jnp.float32))).to(tdt)
+    before = gn.launches
+    y = gn.group_norm(ht, torch.from_numpy(scale), torch.from_numpy(bias), groups,
+                      silu=True, add=et)
+    assert gn.launches == before
+    ours = np.moveaxis(y.float().numpy(), 1, -1)
+    # the bounds of test_plain_path_matches_jax (fp32) and test_plain_path_bf16
+    np.testing.assert_allclose(ours, ref, atol=2e-5 if dtype == "float32" else 3e-2, rtol=0)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("shape,dtype,plan", [
+    # the flagship UNet's 66 GroupNorm sites at B = 8 images x 16 samples, by
+    # (C, *spatial); attention pre-norms are [B, C, T]
+    ((128, 96, 256), BF16, gn.Plan("S", 8, 4)),
+    ((128, 128, 64), BF16, gn.Plan("S", 8, 1)),
+    ((128, 64, 128, 128), BF16, gn.Plan("M", 8, 1, 32768)),
+    ((128, 96, 64, 64), BF16, gn.Plan("M", 8, 1, 12288)),
+    ((128, 160, 32, 32), BF16, gn.Plan("M", 8, 1, 5120)),
+    ((128, 32, 128, 128), BF16, gn.Plan("M", 8, 1, 16384)),
+    ((128, 128, 32, 32), BF16, gn.Plan("M", 8, 1, 4096)),
+    ((128, 64, 64, 64), BF16, gn.Plan("M", 8, 1, 8192)),
+    ((128, 32, 128, 128), F32, gn.Plan("M", 4, 1, 16384)),   # the fp32 head
+    ((128, 224, 16, 16), BF16, gn.Plan("S", 8, 8)),
+    ((128, 192, 16, 16), BF16, gn.Plan("S", 8, 8)),
+    ((128, 96, 32, 32), BF16, gn.Plan("M", 8, 1, 3072)),
+    ((128, 160, 16, 16), BF16, gn.Plan("S", 8, 8)),
+    ((128, 32, 64, 64), BF16, gn.Plan("M", 8, 1, 4096)),
+    ((128, 64, 32, 32), BF16, gn.Plan("S", 8, 8)),
+    ((128, 256, 8, 8), BF16, gn.Plan("S", 8, 2)),
+    ((128, 224, 8, 8), BF16, gn.Plan("S", 8, 2)),
+    ((128, 96, 16, 16), BF16, gn.Plan("S", 8, 4)),
+    ((128, 32, 32, 32), BF16, gn.Plan("S", 8, 4)),
+    ((128, 64, 16, 16), BF16, gn.Plan("S", 8, 2)),
+    ((128, 128, 8, 8), BF16, gn.Plan("S", 8, 1)),
+    ((128, 96, 8, 8), BF16, gn.Plan("S", 8, 1)),
+    # H*W = 169: no 16-byte vectors, element loads
+    ((128, 96, 13, 13), F32, gn.Plan("M", 1, 1, 507)),
+    ((128, 32, 13, 13), F32, gn.Plan("S", 1, 8)),
+    # 256 and 512 KB slabs over clusters of 4 and 8 blocks
+    ((16, 64, 256, 256), BF16, gn.Plan("M", 8, 4, 32768)),
+    ((16, 64, 256, 512), BF16, gn.Plan("M", 8, 8, 32768)),
+    # the Cityscapes torso's largest level (1 MB slabs) and fp32 head (2 MB):
+    # beyond a cluster of 8 blocks of 64 KB
+    ((16, 128, 256, 512), BF16, gn.Plan("L", 8, 32, 16384)),
+    ((16, 128, 256, 512), F32, gn.Plan("L", 4, 64, 8192)),
+])
+def test_plan_per_shape(shape, dtype, plan):
+    got = gn._plan(shape, dtype, 32)
+    assert got == plan
+    slab = shape[1] // 32 * int(np.prod(shape[2:]))
+    if got.path == "S":
+        assert got.param * 32 * got.vec >= slab and got.param <= gn._S_MAX_PACKS
+    else:
+        assert got.param * got.chunk >= slab and got.chunk % got.vec == 0
+    if got.path == "M":
+        assert got.chunk * dtype.itemsize <= gn._M_CHUNK_BYTES
+        assert 1 <= got.param <= gn._M_MAX_CLUSTER
+    # an address that is not 16-byte aligned takes element loads
+    assert gn._plan(shape, dtype, 32, aligned=False).vec == 1
+
+
 def test_splits_cover_the_card():
     # flagship first decoder level, [128,64,128,128] bf16: 2 chunks of 16384
     # elements per (sample, group) slab, 8192 blocks

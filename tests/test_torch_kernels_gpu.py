@@ -37,23 +37,39 @@ def bf16_within(out, ref, atol=3e-2):
     return bool(((out - ref).abs() <= torch.maximum(torch.full_like(ref, atol), ulp)).all())
 
 
-@pytest.mark.parametrize("shape,dtype,groups,silu", [
-    ((4, 32, 64, 64), torch.bfloat16, 32, True),
-    ((2, 64, 32, 32), torch.float32, 32, True),
-    ((8, 256, 8, 8), torch.bfloat16, 32, False),
-    ((3, 96, 13, 13), torch.float32, 32, False),   # H*W odd: scalar loads
-    ((2, 16, 7, 5), torch.bfloat16, 8, True),
-    ((2, 48, 16), torch.float32, 24, False),       # attention tokens [B, C, T]
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("shape,dtype,groups,silu,path", [
+    ((4, 64, 32, 32), BF16, 32, True, "S"),      # 8 vectors a lane: S's limit
+    ((2, 32, 32, 32), F32, 32, True, "S"),
+    ((4, 32, 64, 64), BF16, 32, True, "M"),      # 16 vectors a lane: past S
+    ((2, 64, 32, 32), F32, 32, True, "M"),
+    ((8, 256, 8, 8), BF16, 32, False, "S"),
+    ((3, 32, 13, 13), F32, 32, False, "S"),      # H*W = 169: element loads
+    ((3, 96, 13, 13), F32, 32, False, "M"),
+    ((2, 16, 7, 5), BF16, 8, True, "S"),
+    ((2, 48, 16), F32, 24, False, "S"),          # attention tokens [B, C, T]
+    ((4, 64, 128, 128), BF16, 32, True, "M"),    # the flagship's largest slab, cluster 1
+    ((3, 32, 128, 128), F32, 32, True, "M"),     # the fp32 head, cluster 1
+    ((2, 96, 13, 169), F32, 32, True, "M"),      # ragged, element loads into shared memory
+    ((2, 64, 256, 256), BF16, 32, True, "M"),    # 256 KB slabs: a cluster of 4
+    ((2, 64, 256, 512), BF16, 32, False, "M"),   # 512 KB slabs: a cluster of 8
+    ((2, 128, 256, 512), BF16, 32, True, "L"),   # 1 MB slabs: two passes
+    ((2, 128, 256, 512), F32, 32, True, "L"),    # 2 MB slabs
 ])
-def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu):
+def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu, path, add):
     x = (torch.randn(shape, generator=cuda, device="cuda") * 3 + 1).to(dtype)
     w = torch.randn(shape[1], generator=cuda, device="cuda") + 1
     b = torch.randn(shape[1], generator=cuda, device="cuda")
-    before = gn.launches
-    out = gn.group_norm(x, w, b, groups, silu=silu)
+    e = (torch.randn(shape[:2], generator=cuda, device="cuda").to(dtype) if add else None)
+    assert gn._plan(shape, dtype, groups).path == path
+    before, before_path = gn.launches, gn.path_launches[path]
+    out = gn.group_norm(x, w, b, groups, silu=silu, add=e)
     torch.cuda.synchronize()
-    assert gn.launches == before + 1
-    ref = gn.torch_group_norm(x, w, b, groups, silu=silu)
+    assert gn.launches == before + 1 and gn.path_launches[path] == before_path + 1
+    ref = gn.torch_group_norm(x, w, b, groups, silu=silu, add=e)
     assert out.dtype == dtype and out.shape == x.shape
     if dtype == torch.float32:
         # fp32 stats of the same values summed in another order: the bound
@@ -63,24 +79,41 @@ def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu):
         assert bf16_within(out.float(), ref.float())
 
 
+def test_group_norm_misaligned_input_takes_element_loads(cuda):
+    """A view that starts 2 bytes into its storage cannot take 16-byte loads."""
+    base = torch.randn(2 * 32 * 64 + 1, generator=cuda, device="cuda").to(BF16)
+    x = base[1:].view(2, 32, 8, 8)
+    assert x.data_ptr() % 16 and gn._plan(x.shape, BF16, 32, aligned=False).vec == 1
+    w, b = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    out = gn.group_norm(x, w, b, 32, silu=True)
+    assert bf16_within(out.float(), gn.torch_group_norm(x, w, b, 32, silu=True).float())
+
+
 @pytest.mark.parametrize("bh,t,dh,dtype", [
-    (16, 256, 32, torch.float32),
-    (8, 320, 64, torch.float32),    # ragged key and query tails
-    (12, 70, 32, torch.float32),
-    (2, 2048, 32, torch.float32),   # many K/V tiles
-    (16, 256, 32, torch.bfloat16),
-    (6, 64, 64, torch.bfloat16),
+    (16, 256, 32, F32),
+    (8, 320, 64, F32),    # ragged key and query tails
+    (12, 70, 32, F32),
+    (2, 2048, 32, F32),   # many K/V tiles
+    *[(bh, t, dh, BF16) for t, bh in ((64, 24), (70, 12), (256, 16), (320, 8), (2048, 2))
+      for dh in (32, 64)],
 ])
 def test_attention_kernel_matches_plain(cuda, bh, t, dh, dtype):
+    # the model's layout: q, k, v are views of one packed [BH, 3*dh, T]
     qkv = torch.randn(bh, 3 * dh, t, generator=cuda, device="cuda").to(dtype)
     q, k, v = qkv[:, :dh], qkv[:, dh:2 * dh], qkv[:, 2 * dh:]
-    before = fa.launches
+    path = fa._path(q, k, v)
+    assert path == ("simt" if dtype == F32 else "mma" if t % 8 == 0 else "mma_scalar")
+    before, before_path = fa.launches, fa.path_launches[path]
     out = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches == before + 1 and fa.path_launches[path] == before_path + 1
     assert out.shape == (bh, dh, t) and out.is_contiguous()
+    _check_attention(out, q, k, v)
+
+
+def _check_attention(out, q, k, v):
     ref = fa.dense_attention(q, k, v)
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         # the JAX package's bound for its kernel against the dense path
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
     else:
@@ -88,6 +121,35 @@ def test_attention_kernel_matches_plain(cuda, bh, t, dh, dtype):
         err_kernel = (out.float() - truth).abs().max().item()
         err_plain = (ref.float() - truth).abs().max().item()
         assert err_kernel <= err_plain + 1e-3, (err_kernel, err_plain)
+
+
+def test_attention_misaligned_view_takes_element_loads(cuda):
+    """q, k, v that start 2 bytes past a 16-byte boundary, T % 8 == 0."""
+    bh, dh, t = 6, 32, 128
+    base = torch.randn(bh * 3 * dh * t + 1, generator=cuda, device="cuda").to(BF16)
+    qkv = base[1:].view(bh, 3 * dh, t)
+    q, k, v = qkv[:, :dh], qkv[:, dh:2 * dh], qkv[:, 2 * dh:]
+    assert fa._path(q, k, v) == "mma_scalar"
+    _check_attention(fa.flash_attention(q, k, v), q, k, v)
+
+
+@pytest.mark.parametrize("bh,t,dh", [(3, 64, 32), (2, 192, 64), (2, 136, 32)])
+def test_attention_qk_fragments_match_einsum(cuda, bh, t, dh):
+    """The tensor-core fragment mapping alone: the kernel's tiles and
+    ldmatrix/mma fragments give q^T k as torch.einsum does (fp32 sums of bf16
+    products, in another order: 1e-4 relative to |logit| <= ~30)."""
+    from ccdm_tpu_torch.ops import _build
+
+    qkv = torch.randn(bh, 3 * dh, t, generator=cuda, device="cuda").to(BF16)
+    q, k = qkv[:, :dh], qkv[:, dh:2 * dh]
+    out = torch.full((bh, t, t), float("nan"), device="cuda")
+    status = _build.library().ccdm_attention_logits(
+        q.data_ptr(), k.data_ptr(), out.data_ptr(), bh, t, dh, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "attention_logits")
+    torch.cuda.synchronize()
+    ref = torch.einsum("bdt,bds->bts", q.float(), k.float())
+    torch.testing.assert_close(out, ref, atol=1e-4 * float(ref.abs().max()), rtol=0)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -111,7 +173,7 @@ def test_unet_forward_on_card_matches_cpu(cuda):
     params = {"compute_dtype": "float32", "unet_openai": {
         "base_channels": 32, "image_size": 32, "channel_mult": [1, 2],
         "attention_resolutions": [1, 2], "num_head_channels": 32}}
-    cpu = build_model(params, 2, 1, 32)
+    cpu = build_model(params, 2, 1, 32, device="cpu")
     with torch.no_grad():
         gen = torch.Generator().manual_seed(1)
         for p in cpu.unet.parameters():

@@ -44,7 +44,8 @@ def _jax_noise(key, indices):
 def slice_pair():
     jmodel = jax_build_model(TINY_PARAMS, num_classes=C, image_channels=1, image_size=H)
     params = unzero(jmodel.init(jax.random.PRNGKey(0), (H, W, 1)))
-    tmodel = build_model(TINY_PARAMS, num_classes=C, image_channels=1, image_size=H)
+    tmodel = build_model(TINY_PARAMS, num_classes=C, image_channels=1, image_size=H,
+                         device="cpu")
     load_port_weights(tmodel.unet, params)
     images = np.random.default_rng(0).standard_normal((B, H, W, 1)).astype(np.float32)
     return jmodel, params, tmodel, images
@@ -75,7 +76,8 @@ def test_sampler_matches_jax_under_injected_noise(slice_pair):
 
 def test_generator_run_majority_is_onehot(slice_pair):
     _, _, tmodel, images = slice_pair
-    majority = build_model(dict(TINY_PARAMS, step_T_sample="majority"), C, 1, H)
+    majority = build_model(dict(TINY_PARAMS, step_T_sample="majority"), C, 1, H,
+                           device="cpu")
     majority.unet.load_state_dict(tmodel.unet.state_dict())
     run = make_prob_sampler(majority, num_samples=S, num_steps=3)
     out = run(majority.unet, torch.from_numpy(images), torch.Generator().manual_seed(0))
@@ -104,6 +106,15 @@ def test_denoising_model_sample_is_the_sampler(slice_pair):
 @pytest.mark.parametrize("steps,k", [(250, 250), (250, 4), (250, 1), (1000, 37)])
 def test_subsampled_t_values_match_jax(steps, k):
     np.testing.assert_array_equal(subsampled_t_values(steps, k), jax_t_values(steps, k))
+
+
+def test_build_model_defaults_to_the_card():
+    """Without `device`, the model builds on the card; with no card that
+    raises instead of handing back a CPU model."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(TINY_PARAMS, num_classes=C, image_channels=1, image_size=H)
 
 
 def test_unported_sampler_paths_raise(slice_pair):
