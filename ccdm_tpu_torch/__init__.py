@@ -6,11 +6,14 @@ counterpart sits at the same path (`core/schedules.py`,
 numpy only, never jax, flax or `ccdm_tpu`: the JAX package is the reference
 the port is tested against, not a dependency.
 
-Ported so far: the LIDC ancestral sampler, end to end — schedules, the
-categorical posterior and Gumbel draw, the UNet and its builder, the
-one-hot-state sampler loop and `eval.lidc_uncertainty.make_prob_sampler`.
-Its two hand-written CUDA kernels (`csrc/`) replace the JAX package's two
-Pallas kernels: fused GroupNorm(+SiLU) and attention.
+Ported so far: the LIDC ancestral sampler and the Cityscapes inference
+path, end to end — schedules, the categorical posterior with its Gumbel and
+inverse-CDF draws, the UNet (with the DINO feature concat and encoder
+reuse) and its builder, the DINO ViT encoder, both sampler states,
+`eval.lidc_uncertainty.make_prob_sampler` and
+`eval.cityscapes_eval.CityscapesEvaluator`'s build and prediction. Two
+hand-written CUDA kernels (`csrc/`) replace the JAX package's two Pallas
+kernels: fused GroupNorm(+SiLU) and attention.
 
 Layouts: public sampler functions keep the JAX layout (`[B,H,W,C]` states
 and probabilities, `[B,H,W,Ci]` images); the UNet is NCHW inside.
@@ -40,4 +43,57 @@ FLAGSHIP_PARAMS = {
         "num_head_channels": 32,
         "softmax_output": True,
     },
+}
+
+# `configs/params_cityscapes_eval.yml` after `ccdm_tpu.config.with_defaults`:
+# 256x512 street scenes, C=20 (ignore class 19), base 128, channel mult
+# (1,1,2,2,4,4) from image_size = min(H, W) = 256, attention at ds {8,16,32}
+# with 32-channel heads, DINO ViT-S/8 key facet of block 11 concatenated
+# before input block 10, T=250, bf16 torso, one confidence vote. A copy,
+# because the port reads no YAML (the card's machine has no PyYAML) and
+# imports nothing from the JAX side; a test holds the two equal.
+CITYSCAPES_EVAL_PARAMS = {
+    "class_weights": "uniform",
+    "beta_schedule": "cosine",
+    "beta_schedule_params": {"s": 0.008},
+    "time_steps": 250,
+    "polyak_alpha": 0.999,
+    "backbone": "unet_openai",
+    "batch_size": 2,
+    "samples": 12,
+    "step_T_sample": "majority",   # the evaluator sets its vote strategy
+    "feature_cond_encoder": {
+        "type": "dino",
+        "model": "dino_vits8",
+        "channels": 384,
+        "conditioning": "concat_pixels_concat_features",
+        "output_stride": 8,
+        "scale": "single",
+        "train": False,
+        "source_layer": 11,
+        "target_layer": 10,
+        "weights": None,
+    },
+    "compute_dtype": "bfloat16",
+    "output_path": "./logs/cs_eval_${NOW}",
+    "dataset_file": "datasets.cityscapes",
+    "dataset_val_max_size": None,
+    "seed": 0,
+    "dataset_pipeline_val": ["resize", "torchvision_normalise"],
+    "dataset_pipeline_val_settings": {"target_size": [256, 512],
+                                      "return_original_labels": True},
+    "evaluation": {"resolution": "original", "evaluations": 1,
+                   "evaluation_vote_strategy": "confidence"},
+    "encoder_reuse": 1,
+    "unet_openai": {
+        "base_channels": 128,
+        "channel_mult": None,          # -> (1, 1, 2, 2, 4, 4) @256px
+        "attention_resolutions": [32, 16, 8],
+        "num_heads": 1,
+        "num_head_channels": 32,
+        "softmax_output": True,
+        "ce_head": False,
+    },
+    "quantized_inference": False,
+    "load_from": None,
 }

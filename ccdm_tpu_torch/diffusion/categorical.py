@@ -5,8 +5,9 @@ Layout is the JAX package's: states and probabilities are `[B, H, W, C]`,
 classes on the last axis. All math is float32. Timesteps `t` are 1-based
 int tensors of shape `[B]`.
 
-Random draws take an explicit `torch.Generator`, or an injected Gumbel
-tensor of the probabilities' shape; the port keeps no global RNG state.
+Random draws take an explicit `torch.Generator`, or injected noise (Gumbel
+noise of the probabilities' shape, or one uniform per pixel); the port
+keeps no global RNG state.
 """
 
 from __future__ import annotations
@@ -94,6 +95,22 @@ def theta_post_prob(d: CategoricalDiffusion, xt: torch.Tensor,
     return u * (cab * r + (1.0 - cab) / c * s_r)
 
 
+def theta_post_prob_from_idx(d: CategoricalDiffusion, idx: torch.Tensor,
+                             theta_x0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`theta_post_prob` for an exactly one-hot `x_t` given as indices
+    `[B,H,W]` (the index-state sampler): `u` is analytic and `sum(u) == 1`,
+    so that reduction drops out."""
+    a = _gather_bcast(d.schedule.alphas_eff, t)
+    cab = _gather_bcast(d.schedule.cumalphas_prev, t)
+    c = theta_x0.shape[-1]
+    hit = torch.arange(c, device=idx.device) == idx[..., None]
+    u = (1.0 - a) / c + a * hit.float()
+    denom = cab * u + (1.0 - cab) / c
+    r = theta_x0.float() / denom
+    s_r = r.sum(dim=-1, keepdim=True)
+    return u * (cab * r + (1.0 - cab) / c * s_r)
+
+
 def theta_post_prob_naive(d: CategoricalDiffusion, xt: torch.Tensor,
                           theta_x0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Direct C×C-matrix evaluation of the marginalised posterior (test oracle)."""
@@ -130,6 +147,27 @@ def sample_onehot(probs: torch.Tensor, generator: Optional[torch.Generator] = No
     logits = torch.log(probs.clamp_min(eps))
     idx = torch.argmax(logits + gumbel, dim=-1)
     return F.one_hot(idx, probs.shape[-1]).float()
+
+
+def sample_categorical_icdf(probs: torch.Tensor,
+                            generator: Optional[torch.Generator] = None, *,
+                            uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF draw over the last axis -> int64 indices `probs.shape[:-1]`.
+
+    `probs` need not be normalised: the draw is `min(#(cdf <= u * cdf[-1]),
+    C - 1)` with one uniform `u` per pixel, from `generator` or the injected
+    `uniforms` (the tests feed the JAX package's). The prefix sum is an fp32
+    `cumsum`; it sums in another order than the JAX package's triangular
+    product, so a target within ~1e-6 of a cdf boundary may land on the
+    neighbouring class.
+    """
+    cdf = torch.cumsum(probs.float(), dim=-1)
+    if uniforms is None:
+        uniforms = torch.rand(probs.shape[:-1], generator=generator, device=probs.device,
+                              dtype=torch.float32)
+    target = uniforms[..., None] * cdf[..., -1:]
+    idx = (cdf <= target).sum(dim=-1)
+    return idx.clamp_max(probs.shape[-1] - 1)
 
 
 def max_prob_onehot(probs: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,29 @@
 """LIDC uncertainty evaluation (port of `ccdm_tpu/eval/lidc_uncertainty.py`).
 
-Only `make_prob_sampler` is ported: the batched multi-sample generation
-that the LIDC harness and the benchmark call. The metrics and the harness
-around it are not ported yet.
+Ported: `make_prob_sampler`, the batched multi-sample generation that the
+LIDC harness, the Cityscapes evaluator and the benchmark call, and
+`build_eval_feature_fn`, the DINO conditioning of an eval config. The
+metrics and the harness around them are not ported yet; neither are
+checkpoints (`load_from`) nor per-element noise keys.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import logging
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ccdm_tpu_torch.diffusion.sampling import SamplerConfig, ancestral_sampler, sample_prior
 from ccdm_tpu_torch.models.builder import DenoisingModel
 
+LOGGER = logging.getLogger(__name__)
+
 
 def make_prob_sampler(model: DenoisingModel, num_samples: int,
-                      num_steps: Optional[int] = None):
+                      num_steps: Optional[int] = None, feature_fn=None,
+                      encoder_reuse: int = 1):
     """`(net, images [B,H,W,Ci], generator) -> probs [B,S,H,W,C]`.
 
     Each image is repeated S times, image-major (as `jnp.repeat`), the prior
@@ -25,24 +32,83 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     yields probability maps). `net` is the module holding the weights (the
     JAX version's `params`).
 
-    For the tests, `prior` `[B·S,H,W,C]` and `gumbel` `[K,B·S,H,W,C]`
-    inject the noise that the JAX sampler drew; otherwise both come from
-    `generator`.
+    `feature_fn(feature_net, images)` gives the DINO map of the B images,
+    once, which is then repeated S times; `feature_net` (the encoder's
+    weights, the JAX version's `feature_params`) is passed to each call.
+    `encoder_reuse` R > 1 replays the UNet encoder's activations on the
+    steps between every R-th.
+
+    For the tests, `prior` `[B·S,H,W,C]` and the chain noise (`gumbel`
+    `[K,B·S,H,W,C]` in the one-hot state, `uniforms` `[K,B·S,H,W]` in the
+    index state) inject the noise the JAX sampler drew; otherwise it all
+    comes from `generator`.
     """
     cfg = SamplerConfig(num_steps=num_steps or model.time_steps,
-                        step_T_sample=model.step_T_sample)
+                        step_T_sample=model.step_T_sample,
+                        encoder_reuse=int(encoder_reuse))
     c = model.diffusion.num_classes
 
     def run(net, images: torch.Tensor, generator: Optional[torch.Generator] = None, *,
-            prior: Optional[torch.Tensor] = None,
-            gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+            feature_net=None, prior: Optional[torch.Tensor] = None,
+            gumbel: Optional[torch.Tensor] = None,
+            uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, _ = images.shape
         with torch.inference_mode():
             cond = images.repeat_interleave(num_samples, dim=0)
+            fc = None
+            if feature_fn is not None:
+                fc = feature_fn(feature_net, images).repeat_interleave(num_samples, dim=0)
             xt = (sample_prior(b * num_samples, h, w, c, generator, images.device)
                   if prior is None else prior)
-            out = ancestral_sampler(model.diffusion, model.denoise_fn(net, cond), xt,
-                                    cfg, generator, gumbel=gumbel)
+            pair = (model.denoise_fns_cached(net, cond, fc)
+                    if cfg.encoder_reuse > 1 else None)
+            out = ancestral_sampler(model.diffusion, model.denoise_fn(net, cond, fc), xt,
+                                    cfg, generator, gumbel=gumbel, uniforms=uniforms,
+                                    denoise_pair=pair)
         return out.reshape(b, num_samples, h, w, c)
 
     return run
+
+
+def _unflatten(flat) -> Dict[str, Any]:
+    """`{"a/b/c": array}` (a converted `.npz`) -> nested dicts."""
+    tree: Dict[str, Any] = {}
+    for key in flat:
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(flat[key])
+    return tree
+
+
+def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
+                          generator: Optional[torch.Generator] = None):
+    """Eval-time DINO conditioning: `(feature_fn, feature_shape, encoder
+    net)`, all None when no encoder is configured.
+
+    `feature_fn(net, images)` maps `[B,H,W,3]` to `[B,H/s,W/s,D]`. The
+    weights come from the converted `.npz` named by `weights:` (numpy only),
+    else they are random, from `generator` (default: seed 7), with a
+    warning. The net is built on `device` (default: the CUDA card).
+    Checkpoints (`load_from`) are not ported and raise.
+    """
+    fce = params.get("feature_cond_encoder") or {"type": "none"}
+    if fce.get("type") != "dino":
+        return None, None, None
+    from ccdm_tpu_torch.models.convert import flax_dino_to_state_dict
+    from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
+
+    if params.get("load_from"):
+        raise NotImplementedError("load_from: checkpoints are not ported yet")
+    encoder = DinoFeatureEncoder(fce)
+    net = encoder.init(generator, device)
+    if fce.get("weights"):
+        with np.load(fce["weights"]) as blob:
+            state = flax_dino_to_state_dict(_unflatten(blob))
+        net.load_state_dict(state, strict=True)
+    else:
+        LOGGER.warning("DINO eval conditioning with RANDOM encoder weights")
+    feature_shape = (image_shape[0] // encoder.stride,
+                     image_shape[1] // encoder.stride, encoder.channels)
+    return encoder, feature_shape, net

@@ -22,6 +22,7 @@ from torch import nn
 
 from ccdm_tpu_torch.diffusion.categorical import CategoricalDiffusion
 from ccdm_tpu_torch.diffusion.sampling import SamplerConfig, ancestral_sampler
+from ccdm_tpu_torch.models.dino import VIT_CONFIGS
 from ccdm_tpu_torch.models.layers import GroupNorm32
 from ccdm_tpu_torch.models.unet import UNetModel, create_unet
 
@@ -44,25 +45,45 @@ class DenoisingModel:
         return self.diffusion.time_steps
 
     def apply(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
-              t: torch.Tensor) -> dict:
-        """One UNet call: `xt` `[B,H,W,C]`, `condition` `[B,H,W,Ci]`, `t` `[B]`."""
-        return net(xt, condition, t)
+              t: torch.Tensor, feature_condition: Optional[torch.Tensor] = None) -> dict:
+        """One UNet call: `xt` `[B,H,W,C]`, `condition` `[B,H,W,Ci]`, `t` `[B]`,
+        `feature_condition` `[B,h,w,Cf]` where the UNet concatenates one."""
+        return net(xt, condition, t, feature_condition)
 
-    def denoise_fn(self, net: UNetModel, condition: torch.Tensor):
+    def denoise_fn(self, net: UNetModel, condition: torch.Tensor,
+                   feature_condition: Optional[torch.Tensor] = None):
         """Close over the conditioning -> `(xt, t) -> p0` for the sampler."""
         def fn(xt, t):
-            return self.apply(net, xt, condition, t)["diffusion_out"]
+            return self.apply(net, xt, condition, t, feature_condition)["diffusion_out"]
         return fn
+
+    def denoise_fns_cached(self, net: UNetModel, condition: torch.Tensor,
+                           feature_condition: Optional[torch.Tensor] = None):
+        """The pair for encoder-reuse sampling: `full(xt, t) -> (p0, skips)`
+        runs the whole UNet and returns the encoder activations;
+        `reuse(xt, t, skips) -> p0` replays them through the middle and the
+        decoder with the current step's time embedding."""
+        def full(xt, t):
+            ret = net(xt, condition, t, feature_condition, return_skips=True)
+            return ret["diffusion_out"], ret["skips"]
+
+        def reuse(xt, t, skips):
+            return net(xt, condition, t, cached_skips=skips)["diffusion_out"]
+
+        return full, reuse
 
     def sample(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               num_steps: Optional[int] = None, *,
-               gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+               num_steps: Optional[int] = None,
+               feature_condition: Optional[torch.Tensor] = None, *,
+               gumbel: Optional[torch.Tensor] = None,
+               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Ancestral sampling from the prior draw `xt` -> `[B,H,W,C]`."""
         cfg = SamplerConfig(num_steps=num_steps or self.time_steps,
                             step_T_sample=self.step_T_sample)
-        return ancestral_sampler(self.diffusion, self.denoise_fn(net, condition),
-                                 xt, cfg, generator, gumbel=gumbel)
+        return ancestral_sampler(self.diffusion,
+                                 self.denoise_fn(net, condition, feature_condition),
+                                 xt, cfg, generator, gumbel=gumbel, uniforms=uniforms)
 
 
 @torch.no_grad()
@@ -103,9 +124,15 @@ def build_model(
         raise ValueError(f"unsupported backbone {backbone!r}")
     bb = dict(params.get("unet_openai") or {})
     fce = params.get("feature_cond_encoder") or {"type": "none"}
-    if fce.get("type") not in (None, "none"):
-        raise NotImplementedError(
-            f"feature_cond_encoder {fce.get('type')!r} is not ported yet")
+    feature_block_idx, feature_stride, feature_channels = -1, 8, 0
+    if fce.get("type") == "dino":
+        feature_block_idx = int(fce.get("target_layer", 10))
+        feature_stride = int(fce.get("output_stride", 8))
+        # the encoder's width (Flax infers it from the features it is given)
+        vit = fce.get("vit_config") or VIT_CONFIGS[fce.get("model", "dino_vits8")]
+        feature_channels = int(vit["embed_dim"])
+    elif fce.get("type") not in (None, "none"):
+        raise NotImplementedError(f"feature_cond_encoder {fce.get('type')!r} is not ported")
     if params.get("quantized_inference", False):
         raise NotImplementedError("quantized_inference is not ported yet")
 
@@ -139,6 +166,9 @@ def build_model(
             dropout=float(bb.get("dropout", 0.0)),
             softmax_output=bool(bb.get("softmax_output", True)),
             ce_head=bool(bb.get("ce_head", False)),
+            feature_cond_block_idx=feature_block_idx,
+            feature_cond_stride=feature_stride,
+            feature_channels=feature_channels,
             dtype=dtype,
         )
     unet = unet.to_empty(device=device)

@@ -1,4 +1,4 @@
-"""Flax UNet parameters -> the port's `state_dict`, without jax.
+"""Flax UNet and DINO parameters -> the port's `state_dict`s, without jax.
 
 `flax_params_to_state_dict` takes the JAX package's UNet parameter tree as
 nested dicts of numpy arrays (e.g. `jax.device_get(params)` saved with
@@ -7,6 +7,7 @@ layout inversions as `ccdm_tpu/models/torch_convert.py::flax_unet_to_torch`
 (Conv2d HWIO -> OIHW; attention qkv/proj Dense [I,O] -> Conv1d [O,I,1];
 other Dense [I,O] -> Linear [O,I]; GroupNorm scale/bias -> weight/bias), so
 the result loads into `UNetModel` with `strict=True`.
+`flax_dino_to_state_dict` does the same for the JAX package's `DinoViT`.
 """
 
 from __future__ import annotations
@@ -115,4 +116,45 @@ def flax_params_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 value = value[:, :, None]  # -> Conv1d [O,I,1]
         state_dict[f"{_prefix(parts[0], last_index)}.{sub}"] = torch.from_numpy(
             np.array(value, dtype=np.float32))  # a writable, contiguous copy
+    return state_dict
+
+
+_DINO_SUBMAP = {
+    ("norm1", "scale"): "norm1.weight",
+    ("norm1", "bias"): "norm1.bias",
+    ("attn_qkv", "kernel"): "attn.qkv.weight",
+    ("attn_qkv", "bias"): "attn.qkv.bias",
+    ("attn_proj", "kernel"): "attn.proj.weight",
+    ("attn_proj", "bias"): "attn.proj.bias",
+    ("norm2", "scale"): "norm2.weight",
+    ("norm2", "bias"): "norm2.bias",
+    ("mlp_fc1", "kernel"): "mlp.fc1.weight",
+    ("mlp_fc1", "bias"): "mlp.fc1.bias",
+    ("mlp_fc2", "kernel"): "mlp.fc2.weight",
+    ("mlp_fc2", "bias"): "mlp.fc2.bias",
+}
+
+
+def flax_dino_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert the JAX package's `DinoViT` param tree (nested dicts of
+    arrays) to the port's `DinoViT` state dict: the inverse of `scripts/convert_dino_checkpoint.py`
+    (patch conv HWIO -> OIHW, Dense [I,O] -> Linear [O,I], LayerNorm
+    `scale` -> `weight`)."""
+    state_dict: Dict[str, torch.Tensor] = {}
+    for parts, value in _leaves(tree):
+        if parts in (("cls_token",), ("pos_embed",)):
+            name = parts[0]
+        elif parts[0] == "patch_embed" and parts[1:] in (("kernel",), ("bias",)):
+            name = f"patch_embed.proj.{'weight' if parts[1] == 'kernel' else 'bias'}"
+            if value.ndim == 4:  # HWIO -> OIHW
+                value = np.transpose(value, (3, 2, 0, 1))
+        else:
+            m = re.fullmatch(r"block_(\d+)", parts[0])
+            sub = _DINO_SUBMAP.get(parts[1:]) if m else None
+            if sub is None:
+                raise KeyError(f"no torch mapping for flax DINO path {'/'.join(parts)}")
+            name = f"blocks.{m.group(1)}.{sub}"
+            if value.ndim == 2:  # Dense [I,O] -> Linear [O,I]
+                value = np.transpose(value)
+        state_dict[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state_dict

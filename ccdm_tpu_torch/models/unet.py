@@ -14,8 +14,15 @@ optional CE-logits head with its own norm.
 
 Module names are the reference torch UNet's (`time_embed.0/2`,
 `input_blocks.i.j`, `middle_block.k`, `output_blocks.j.k`, `out.0/2`,
-`out_ce.0/2`). Not ported yet: DINO feature concat, `cached_skips` /
-`return_skips` (encoder reuse) and int8 convs.
+`out_ce.0/2`); `input_blocks[i]` is the JAX module's `block_idx` i.
+
+DINO conditioning: a `[B, H/stride, W/stride, Cf]` feature map is
+concatenated in front of input block `feature_cond_block_idx` when that
+block runs at `ds == feature_cond_stride` (Flax infers the wider input, a
+torch module is told `feature_channels`). Encoder reuse: `return_skips`
+returns the encoder's activations (`in_conv`'s output and every input
+block's), and `cached_skips` replays them, running only the middle and the
+decoder with the current step's time embedding. Not ported: int8 convs.
 """
 
 from __future__ import annotations
@@ -68,10 +75,14 @@ class UNetModel(nn.Module):
                  channel_mult: Sequence[float], dropout: float = 0.0,
                  num_heads: int = 1, num_head_channels: int = -1,
                  use_scale_shift_norm: bool = False, softmax_output: bool = True,
-                 ce_head: bool = False, dtype=torch.bfloat16):
+                 ce_head: bool = False, feature_cond_block_idx: int = -1,
+                 feature_cond_stride: int = 8, feature_channels: int = 0,
+                 dtype=torch.bfloat16):
         super().__init__()
         self.dtype = dtype
         self.softmax_output = softmax_output
+        # the input block the feature map is concatenated in front of, if any
+        self.feature_block: Optional[int] = None
         mc = model_channels
         time_dim = mc * 4
         self.time_embed = nn.Sequential(
@@ -91,7 +102,12 @@ class UNetModel(nn.Module):
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
                 out_ch = int(mult * mc)
-                layers = [res(ch, out_ch)]
+                in_ch = ch
+                if (feature_channels and len(self.input_blocks) == feature_cond_block_idx
+                        and ds == feature_cond_stride):
+                    self.feature_block = feature_cond_block_idx
+                    in_ch += feature_channels
+                layers = [res(in_ch, out_ch)]
                 ch = out_ch
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
@@ -125,15 +141,32 @@ class UNetModel(nn.Module):
             GroupNorm32(ch), nn.SiLU(),
             zero_init(conv3x3(ch, out_channels - 1, torch.float32))) if ce_head else None)
 
-    def forward(self, x: torch.Tensor, condition: torch.Tensor, t: torch.Tensor) -> dict:
+    def forward(self, x: torch.Tensor, condition: torch.Tensor, t: torch.Tensor,
+                feature_condition: Optional[torch.Tensor] = None, *,
+                cached_skips: Optional[Tuple[torch.Tensor, ...]] = None,
+                return_skips: bool = False) -> dict:
+        """`feature_condition` `[B,h,w,Cf]` is the DINO map; `cached_skips`
+        (a `return_skips` result) skips the encoder; `return_skips` adds
+        `"skips"` to the result."""
         emb = self.time_embed(
             timestep_embedding(t, self.time_embed[0].in_features).to(self.dtype))
-        # NHWC in, NCHW inside; contiguous so the kernels see dense NCHW
-        h = torch.cat([x, condition], dim=-1).to(self.dtype).permute(0, 3, 1, 2).contiguous()
-        skips = []
-        for block in self.input_blocks:
-            h = block(h, emb)
-            skips.append(h)
+        if cached_skips is not None:
+            skips = list(cached_skips)
+            h = skips[-1]
+        else:
+            if (feature_condition is None) != (self.feature_block is None):
+                raise ValueError("feature_condition must be given exactly when the UNet "
+                                 "was built with a feature concat")
+            # NHWC in, NCHW inside; contiguous so the kernels see dense NCHW
+            h = torch.cat([x, condition], dim=-1).to(self.dtype).permute(0, 3, 1, 2).contiguous()
+            skips = []
+            for i, block in enumerate(self.input_blocks):
+                if i == self.feature_block:
+                    h = torch.cat([h, feature_condition.to(self.dtype).permute(0, 3, 1, 2)],
+                                  dim=1)
+                h = block(h, emb)
+                skips.append(h)
+        encoder_skips = tuple(skips) if return_skips else None
         h = self.middle_block(h, emb)
         for block in self.output_blocks:
             h = block(torch.cat([h, skips.pop()], dim=1), emb)
@@ -144,6 +177,8 @@ class UNetModel(nn.Module):
         if self.softmax_output:
             out = torch.softmax(out, dim=1)
         ret = {"diffusion_out": out.permute(0, 2, 3, 1), "logits": None}
+        if return_skips:
+            ret["skips"] = encoder_skips
         if self.out_ce is not None:
             norm, _, conv = self.out_ce
             ret["logits"] = conv(norm(h, silu=True)).permute(0, 2, 3, 1)
@@ -164,11 +199,15 @@ def create_unet(
     dropout: float = 0.0,
     softmax_output: bool = True,
     ce_head: bool = False,
+    feature_cond_block_idx: int = -1,
+    feature_cond_stride: int = 8,
+    feature_channels: int = 0,
     dtype=torch.bfloat16,
 ) -> UNetModel:
     """Factory with the JAX `create_unet`'s arguments. `in_channels`
     defaults to `out_channels + 1` (the one-hot state plus one image
-    channel); Flax infers it, a torch module must be told."""
+    channel) and `feature_channels` to 0 (no feature concat); Flax infers
+    both, a torch module must be told."""
     if channel_mult is None:
         channel_mult = default_channel_mult(image_size)
     return UNetModel(
@@ -184,5 +223,8 @@ def create_unet(
         use_scale_shift_norm=use_scale_shift_norm,
         softmax_output=softmax_output,
         ce_head=ce_head,
+        feature_cond_block_idx=feature_cond_block_idx,
+        feature_cond_stride=feature_cond_stride,
+        feature_channels=feature_channels,
         dtype=dtype,
     )

@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""Measure the flagship LIDC sampler on one CUDA card.
+"""Measure a sampler of the port on one CUDA card.
 
-    python3 ccdm_tpu_torch/tools/profile_sampler.py [--root DIR]
+    python3 ccdm_tpu_torch/tools/profile_sampler.py [--config flagship|cityscapes]
+                                                    [--encoder-reuse R] [--root DIR]
 
-On the model `chip_smoke.py` runs (flagship config, bf16, seeded random
-weights with the zero-initialised leaves redrawn; 8 images x 16 samples):
+`--config flagship` (the default): the model `chip_smoke.py` runs (flagship
+LIDC config, bf16, seeded random weights with the zero-initialised leaves
+redrawn) through `make_prob_sampler`, 8 images x 16 samples.
+`--config cityscapes`: `CityscapesEvaluator` on `CITYSCAPES_EVAL_PARAMS`
+(256x512, C=20, base 128, DINO ViT-S/8, bf16; seeded random weights, the
+UNet's zero leaves redrawn), the protocol batch of 2 images x 1 vote,
+with encoder reuse R (default 1).
 
 - `sites`: the GroupNorm and attention calls of one UNet call, by shape,
   each timed alone through its wrapper (`chip_smoke.time_ms`: device time of
-  back-to-back calls), with the per-step sum over all sites;
-- `cold`, `warm`: wall time of 250-step `make_prob_sampler` runs (the
-  process's first, then `WARM_RUNS` more), samples/s, and the SM clock
-  after each;
-- `profile`: one 10-step sampler call under `torch.profiler`: device time by
-  kernel family per step, the device's busy share of the wall, and the
+  back-to-back calls), with the per-step sum over all sites; for
+  Cityscapes also the DINO encoder's time per run;
+- `cold`, `warm`: wall time of 250-step runs (the process's first, then
+  `WARM_RUNS` more), samples or images per second, and the SM clock after
+  each;
+- `profile`: one 10-step run under `torch.profiler`: device time by kernel
+  family per step, the device's busy share of the wall, and the
   `aten::add` calls per step.
 
 `--root DIR` imports `ccdm_tpu_torch` from another checkout (an earlier
 commit unpacked with `git archive`, say), so two versions are measured by
 the same code, in turns, on one card. The wrappers are called only through
-the arguments both versions take. One JSON object per line; the last line
-says `{"done": true}`.
+the arguments both versions take (the Cityscapes config needs a checkout
+that has it). One JSON object per line; the last line says
+`{"done": true}`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 REPO = Path(__file__).resolve().parents[2]
 WARM_RUNS = 2
@@ -65,10 +74,19 @@ def family(name: str) -> str:
     return "other"
 
 
-def build(smoke):
+class Workload(NamedTuple):
+    unet: object          # the UNet module, for the site hooks
+    unit: str             # what a run yields: "samples" or "images"
+    count: int            # how many of them a run yields
+    make_run: Callable    # steps -> a callable that runs the sampler once
+    forward: Callable     # one UNet call at the run's shapes
+
+
+def flagship(smoke, reuse: int) -> Workload:
     import torch
 
     from ccdm_tpu_torch import FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
     from ccdm_tpu_torch.models.builder import build_model
 
     params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence")
@@ -77,10 +95,53 @@ def build(smoke):
     smoke.unzero_(model.unet, seed=1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     images = torch.randn(smoke.IMAGES, 128, 128, 1, generator=gen, device="cuda")
-    return model, images, gen
+    n = smoke.IMAGES * smoke.SAMPLES
+
+    def make_run(steps):
+        kw = {"encoder_reuse": reuse} if reuse > 1 else {}
+        run = make_prob_sampler(model, num_samples=smoke.SAMPLES, num_steps=steps, **kw)
+        return lambda: run(model.unet, images, gen)
+
+    def forward():
+        return model.unet(torch.zeros(n, 128, 128, 2, device="cuda"),
+                          images.repeat_interleave(smoke.SAMPLES, 0),
+                          torch.full((n,), 5, device="cuda"))
+
+    return Workload(model.unet, "samples", n, make_run, forward)
 
 
-def sites(model, images, smoke) -> None:
+def cityscapes(smoke, reuse: int) -> Workload:
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS
+    from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    ev = CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS, encoder_reuse=reuse))
+    ev.build((*smoke.CS_HW, 3), smoke.CS_IMAGES, device="cuda")
+    smoke.unzero_(ev.model.unet, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    images = torch.randn(smoke.CS_IMAGES, *smoke.CS_HW, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        emit("dino", ms=smoke.time_ms(lambda: ev.feature_fn(ev.feature_net, images),
+                                      reps=3, calls=5), shape=[smoke.CS_IMAGES, *smoke.CS_HW, 3])
+
+    def make_run(steps):
+        if steps == ev.model.time_steps:
+            return lambda: ev.predict_batch(images, gen)
+        run = make_prob_sampler(ev.model, ev.num_evaluations, steps, feature_fn=ev.feature_fn,
+                                encoder_reuse=reuse)
+        return lambda: run(ev.model.unet, images, gen, feature_net=ev.feature_net).mean(1)
+
+    def forward():
+        feats = ev.feature_fn(ev.feature_net, images)
+        return ev.model.unet(torch.zeros(smoke.CS_IMAGES, *smoke.CS_HW, 20, device="cuda"),
+                             images, torch.full((smoke.CS_IMAGES,), 5, device="cuda"), feats)
+
+    return Workload(ev.model.unet, "images", smoke.CS_IMAGES, make_run, forward)
+
+
+def sites(work: Workload, smoke) -> None:
     """Time each GroupNorm and attention site of one UNet call alone."""
     import torch
 
@@ -101,15 +162,13 @@ def sites(model, images, smoke) -> None:
         heads = mod.num_heads
         calls[("attn", b * heads, c // heads, h * w, args[0].dtype)] += 1
 
-    for m in model.unet.modules():
+    for m in work.unet.modules():
         if isinstance(m, GroupNorm32):
             hooks.append(m.register_forward_pre_hook(on_norm, with_kwargs=True))
         elif isinstance(m, AttentionBlock):
             hooks.append(m.register_forward_pre_hook(on_attn))
-    n = smoke.IMAGES * smoke.SAMPLES
     with torch.inference_mode():
-        model.unet(torch.zeros(n, 128, 128, 2, device="cuda"),
-                   images.repeat_interleave(smoke.SAMPLES, 0), torch.full((n,), 5, device="cuda"))
+        work.forward()
     for h in hooks:
         h.remove()
 
@@ -126,7 +185,8 @@ def sites(model, images, smoke) -> None:
             nbytes = 2 * x.numel() * x.element_size() + 8 * shape[1]
             bound, _ = smoke.bound_ms(nbytes, x.numel() * (6 + 3 * silu), "float32")
             emit("site", kernel="group_norm", shape=list(shape), dtype=str(dtype)[6:],
-                 silu=silu, add_site=with_add, count=count, ms=ms, bound_ms=bound)
+                 silu=silu, add_site=with_add, count=count, ms=ms, bound_ms=bound,
+                 path=gn._plan(shape, dtype, groups).path)
             totals["group_norm"] += count * ms
             totals["group_norm_bound"] += count * bound
         else:
@@ -145,35 +205,31 @@ def sites(model, images, smoke) -> None:
          attention_sites=sum(c for k, c in calls.items() if k[0] == "attn"))
 
 
-def runs(model, images, gen, smoke, warm: int) -> None:
+def runs(work: Workload, smoke, warm: int) -> None:
     import torch
 
-    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
-
-    run = make_prob_sampler(model, num_samples=smoke.SAMPLES, num_steps=smoke.STEPS)
-    n = smoke.IMAGES * smoke.SAMPLES
+    run = work.make_run(smoke.STEPS)
     for i in range(warm + 1):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        run(model.unet, images, gen)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        emit("cold" if i == 0 else "warm", wall_s=wall, samples_per_s=n / wall,
-             ms_per_step=wall / smoke.STEPS * 1e3, clock_temp=smi("clocks.sm,temperature.gpu"))
+        emit("cold" if i == 0 else "warm", wall_s=wall, unit=work.unit,
+             per_s=work.count / wall, ms_per_step=wall / smoke.STEPS * 1e3,
+             clock_temp=smi("clocks.sm,temperature.gpu"))
 
 
-def profile(model, images, gen, smoke, steps: int) -> None:
+def profile(work: Workload, steps: int) -> None:
     import torch
     from torch.profiler import ProfilerActivity
 
-    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
-
-    run = make_prob_sampler(model, num_samples=smoke.SAMPLES, num_steps=steps)
-    run(model.unet, images, gen)  # warm
+    run = work.make_run(steps)
+    run()  # warm
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        run(model.unet, images, gen)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     # device time: the kernels', memcpys' and memsets' own time; the CPU-side
@@ -202,6 +258,9 @@ def profile(model, images, gen, smoke, steps: int) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=("flagship", "cityscapes"), default="flagship")
+    ap.add_argument("--encoder-reuse", type=int, default=1,
+                    help="R: the UNet encoder runs on every R-th step (default 1)")
     ap.add_argument("--root", type=Path, default=REPO,
                     help="checkout whose ccdm_tpu_torch to measure (default: this one)")
     args = ap.parse_args()
@@ -223,14 +282,16 @@ def main() -> None:
         raise SystemExit(f"imported {ccdm_tpu_torch.__file__}, not the one under {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit("device", root=str(root), card=smi("name,power.limit"), torch=torch.__version__)
+    emit("device", root=str(root), card=smi("name,power.limit"), torch=torch.__version__,
+         config=args.config, encoder_reuse=args.encoder_reuse)
     from ccdm_tpu_torch.ops import _build
 
     emit("build", seconds=_build.build())
-    model, images, gen = build(smoke)
-    runs(model, images, gen, smoke, WARM_RUNS)
-    profile(model, images, gen, smoke, PROFILE_STEPS)
-    sites(model, images, smoke)
+    work = {"flagship": flagship, "cityscapes": cityscapes}[args.config](
+        smoke, args.encoder_reuse)
+    runs(work, smoke, WARM_RUNS)
+    profile(work, PROFILE_STEPS)
+    sites(work, smoke)
     print(json.dumps({"done": True}), flush=True)
 
 

@@ -58,6 +58,14 @@ BF16, F32 = torch.bfloat16, torch.float32
     ((2, 64, 256, 512), BF16, 32, False, "M"),   # 512 KB slabs: a cluster of 8
     ((2, 128, 256, 512), BF16, 32, True, "L"),   # 1 MB slabs: two passes
     ((2, 128, 256, 512), F32, 32, True, "L"),    # 2 MB slabs
+    # the Cityscapes sampler's sites (2 images x 1 vote, 256x512, base 128)
+    ((2, 256, 256, 512), BF16, 32, True, "L"),   # level-0 skip concat, 2 MB slabs
+    ((2, 384, 128, 256), BF16, 32, True, "L"),   # level-1 skip concat, 768 KB slabs
+    ((2, 128, 128, 256), BF16, 32, True, "M"),   # level 1: a cluster of 4
+    ((2, 640, 32, 64), BF16, 32, True, "M"),     # the DINO concat: 20 channels a group
+    ((2, 768, 32, 64), BF16, 32, True, "M"),     # ds-8 skip concat: 24 channels a group
+    ((2, 256, 2048), BF16, 32, False, "M"),      # attention pre-norm at ds 8: 16384-element slabs
+    ((2, 512, 8, 16), BF16, 32, True, "S"),      # ds 32
 ])
 def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu, path, add):
     x = (torch.randn(shape, generator=cuda, device="cuda") * 3 + 1).to(dtype)
@@ -96,6 +104,9 @@ def test_group_norm_misaligned_input_takes_element_loads(cuda):
     (2, 2048, 32, F32),   # many K/V tiles
     *[(bh, t, dh, BF16) for t, bh in ((64, 24), (70, 12), (256, 16), (320, 8), (2048, 2))
       for dh in (32, 64)],
+    # the Cityscapes sampler's sites: 2 images x 8, 16 and 16 heads
+    (16, 2048, 32, BF16), (32, 512, 32, BF16), (32, 128, 32, BF16),
+    (16, 128, 32, F32),   # the fp32 card-vs-CPU run at 64x128: ds 8
 ])
 def test_attention_kernel_matches_plain(cuda, bh, t, dh, dtype):
     # the model's layout: q, k, v are views of one packed [BH, 3*dh, T]

@@ -26,7 +26,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert len(modules) >= 14
+    assert len(modules) >= 18
+    assert {"ccdm_tpu_torch.models.dino", "ccdm_tpu_torch.eval.cityscapes_eval",
+            "ccdm_tpu_torch.config"} <= set(modules)
 
 
 def test_flagship_params_match_graft_entry():

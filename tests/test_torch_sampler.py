@@ -119,10 +119,13 @@ def test_build_model_defaults_to_the_card():
 
 def test_unported_sampler_paths_raise(slice_pair):
     _, _, tmodel, _ = slice_pair
-    # the JAX sampler takes its index state from 8 classes on
-    xt = torch.zeros(1, 4, 4, 8)
+    xt = torch.zeros(1, 4, 4, C)
     fn = tmodel.denoise_fn(tmodel.unet, torch.zeros(1, 4, 4, 1))
-    with pytest.raises(NotImplementedError):
-        ancestral_sampler(tmodel.diffusion, fn, xt, SamplerConfig(2))
+    # per-element noise keys are not ported
     with pytest.raises(TypeError):
-        SamplerConfig(2, encoder_reuse=2)
+        ancestral_sampler(tmodel.diffusion, fn, xt, SamplerConfig(2), element_keys=None)
+    # encoder reuse needs the (full, reuse) pair; a state must be known
+    with pytest.raises(ValueError, match="denoise_pair"):
+        ancestral_sampler(tmodel.diffusion, fn, xt, SamplerConfig(2, encoder_reuse=2))
+    with pytest.raises(ValueError, match="state"):
+        ancestral_sampler(tmodel.diffusion, fn, xt, SamplerConfig(2, state="dense"))
