@@ -11,9 +11,12 @@ path, end to end — schedules, the categorical posterior with its Gumbel and
 inverse-CDF draws, the UNet (with the DINO feature concat and encoder
 reuse) and its builder, the DINO ViT encoder, both sampler states,
 `eval.lidc_uncertainty.make_prob_sampler` and
-`eval.cityscapes_eval.CityscapesEvaluator`'s build and prediction. Two
+`eval.cityscapes_eval.CityscapesEvaluator`'s build and prediction — and
+LIDC training (`train.trainer.run_train`, `python -m
+ccdm_tpu_torch.cli.train`) with GED/HM-IoU validation and checkpoints. Two
 hand-written CUDA kernels (`csrc/`) replace the JAX package's two Pallas
-kernels: fused GroupNorm(+SiLU) and attention.
+kernels: fused GroupNorm(+SiLU), with a hand-written backward for
+training, and attention.
 
 Layouts: public sampler functions keep the JAX layout (`[B,H,W,C]` states
 and probabilities, `[B,H,W,Ci]` images); the UNet is NCHW inside.
@@ -96,4 +99,41 @@ CITYSCAPES_EVAL_PARAMS = {
     },
     "quantized_inference": False,
     "load_from": None,
+}
+
+# `configs/params_demo.yml` as PyYAML reads it: the flagship LIDC model
+# (128x128, C=2, base 32, bf16) trained on the synthetic multi-annotator set
+# at batch 16 with Adam and a polynomial LR 1e-4 -> 1e-6, Polyak 0.999. A
+# copy for the same reasons as the one above; a test holds it equal to the
+# YAML. `steps_per_launch` is accepted and not ported (one step a launch).
+DEMO_TRAIN_PARAMS = {
+    "output_path": "/tmp/ccdm_demo/run",
+    "dataset_file": "ccdm_tpu.data.synthetic",
+    "batch_size": 16,
+    "samples": 8,
+    "max_epochs": 100000,
+    "time_steps": 250,
+    "beta_schedule": "cosine",
+    "beta_schedule_params": {"s": 0.008},
+    "polyak_alpha": 0.999,
+    "compute_dtype": "bfloat16",
+    "optim": {"name": "Adam", "learning_rate": 1e-4, "lr_function": "polynomial",
+              "lr_params": {"power": 1.0, "min_lr": 1e-6}, "epochs": 1250},
+    "unet_openai": {
+        "base_channels": 32,
+        "channel_mult": None,          # -> (1, 1, 2, 3, 4) @128px
+        "attention_resolutions": [32, 16, 8],
+        "num_heads": 1,
+        "num_head_channels": 32,
+        "softmax_output": True,
+    },
+    "display_freq": 200,
+    "save_freq": 1000,
+    "validation_freq": 1000,
+    "dataset_val_max_size": 8,
+    "validation_max_batches": 2,
+    "n_validation_images": 2,
+    "n_validation_predictions": 3,
+    "steps_per_launch": 2,
+    "seed": 0,
 }

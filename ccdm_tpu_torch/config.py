@@ -1,9 +1,16 @@
-"""Config defaults (a copy of `ccdm_tpu/config.py`'s `DEFAULTS` and
-`with_defaults`, without its YAML loading: the port takes `params` dicts)."""
+"""Config defaults (a copy of `ccdm_tpu/config.py`'s `DEFAULTS`,
+`with_defaults` and `expanduservars`, without its YAML loading: the port
+takes `params` dicts, and only its CLI reads YAML, where PyYAML exists)."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
+
+
+def expanduservars(path: str) -> str:
+    """Expand `~` and `${ENV_VAR}` in a path."""
+    return os.path.expanduser(os.path.expandvars(path))
 
 DEFAULTS: Dict[str, Any] = {
     "class_weights": "uniform",

@@ -1,5 +1,6 @@
 from ccdm_tpu_torch.diffusion.categorical import (
     CategoricalDiffusion,
+    categorical_kl,
     max_prob_onehot,
     q_xt_given_x0_probs,
     q_xt_given_xtm1_probs,
@@ -18,6 +19,7 @@ from ccdm_tpu_torch.diffusion.sampling import (
 
 __all__ = [
     "CategoricalDiffusion",
+    "categorical_kl",
     "q_xt_given_x0_probs",
     "q_xt_given_xtm1_probs",
     "theta_post",

@@ -125,6 +125,15 @@ def theta_post_prob_naive(d: CategoricalDiffusion, xt: torch.Tensor,
     return torch.einsum("bhwcd,bhwd->bhwc", theta_xtm1_xtx0, theta_x0)
 
 
+def categorical_kl(pred_probs: torch.Tensor, target_probs: torch.Tensor,
+                   eps: float = 1e-12) -> torch.Tensor:
+    """Per-pixel `KL(target ‖ pred)` summed over the class axis, as torch's
+    `kl_div(log(clamp(pred, eps)), target)`: `xlogy(target, target) -
+    target * log(clamp(pred, eps))`, so exact zeros in the target add 0."""
+    log_pred = torch.log(pred_probs.clamp_min(eps))
+    return (torch.xlogy(target_probs, target_probs) - target_probs * log_pred).sum(dim=-1)
+
+
 def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
                  device=None) -> torch.Tensor:
     """Standard Gumbel noise, `-log(-log(u))` with `u` uniform on `[tiny, 1)`."""

@@ -5,7 +5,7 @@ the sampler of an eval config), `predict_batch` (the confidence vote: the
 mean of the votes' probability maps) and `predict_labels` (the upsample to
 the original resolution, the ignore channel dropped, the argmax). Not
 ported yet: the dataset loop, the confusion matrix, the PNG dumps and the
-official scoring, checkpoints (`load_from`), int8 and meshes.
+official scoring, int8 and meshes.
 """
 
 from __future__ import annotations
@@ -16,7 +16,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ccdm_tpu_torch.config import with_defaults
-from ccdm_tpu_torch.eval.lidc_uncertainty import build_eval_feature_fn, make_prob_sampler
+from ccdm_tpu_torch.eval.lidc_uncertainty import (
+    build_eval_feature_fn,
+    load_eval_params,
+    make_prob_sampler,
+)
 from ccdm_tpu_torch.models.builder import build_model
 from ccdm_tpu_torch.models.dino import resize_bilinear
 
@@ -45,11 +49,9 @@ class CityscapesEvaluator:
     def build(self, image_shape: Tuple[int, int, int], batch_size: int, *, device=None):
         """The model (image_size = min(H, W) picks the channel multipliers),
         the DINO encoder and the sampler for `[B,H,W,Ci]` batches of at most
-        `batch_size` images, on `device` (default: the CUDA card). Without
-        `load_from` the UNet's weights are random, drawn from the config's
-        seed."""
-        if self.params.get("load_from"):
-            raise NotImplementedError("load_from: checkpoints are not ported yet")
+        `batch_size` images, on `device` (default: the CUDA card). The UNet
+        evaluates the EMA weights of the `load_from` checkpoint; without one
+        its weights are random, drawn from the config's seed."""
         p = dict(self.params)
         p["step_T_sample"] = self.vote_strategy
         self.batch_size = int(batch_size)
@@ -57,7 +59,7 @@ class CityscapesEvaluator:
             p, self.num_classes, image_channels=image_shape[-1],
             image_size=min(image_shape[:2]), device=device,
             generator=torch.Generator().manual_seed(int(self.params.get("seed", 0))))
-        LOGGER.warning("no load_from given — evaluating randomly initialised weights")
+        load_eval_params(self.params, self.model.unet)
         self.feature_fn, self.feature_shape, self.feature_net = build_eval_feature_fn(
             self.params, image_shape, device=device)
         self.sampler = make_prob_sampler(

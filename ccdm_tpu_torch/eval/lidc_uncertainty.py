@@ -1,10 +1,10 @@
 """LIDC uncertainty evaluation (port of `ccdm_tpu/eval/lidc_uncertainty.py`).
 
 Ported: `make_prob_sampler`, the batched multi-sample generation that the
-LIDC harness, the Cityscapes evaluator and the benchmark call, and
+LIDC harness, the Cityscapes evaluator and the benchmark call;
+`load_eval_params`, the EMA weights of a checkpoint (`load_from`); and
 `build_eval_feature_fn`, the DINO conditioning of an eval config. The
-metrics and the harness around them are not ported yet; neither are
-checkpoints (`load_from`) nor per-element noise keys.
+harness around them is not ported yet, nor are per-element noise keys.
 """
 
 from __future__ import annotations
@@ -70,6 +70,25 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     return run
 
 
+def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.Module:
+    """Load the EMA weights (`average_model`, else `model`) of the port's
+    checkpoint at `params["load_from"]` into `net`; without `load_from`,
+    leave its weights as they are, with a warning."""
+    load_from = params.get("load_from")
+    if not load_from:
+        LOGGER.warning("no load_from given — evaluating randomly initialised weights")
+        return net
+    from ccdm_tpu_torch.config import expanduservars
+    from ccdm_tpu_torch.train.checkpoint import load_tree
+
+    tree = load_tree(expanduservars(load_from))
+    restored = tree.get("average_model", tree.get("model"))
+    if restored is None:
+        raise KeyError(f"checkpoint at {load_from!r} has no average_model/model key")
+    net.load_state_dict(restored, strict=True)
+    return net
+
+
 def _unflatten(flat) -> Dict[str, Any]:
     """`{"a/b/c": array}` (a converted `.npz`) -> nested dicts."""
     tree: Dict[str, Any] = {}
@@ -88,10 +107,11 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     net)`, all None when no encoder is configured.
 
     `feature_fn(net, images)` maps `[B,H,W,3]` to `[B,H/s,W/s,D]`. The
-    weights come from the converted `.npz` named by `weights:` (numpy only),
-    else they are random, from `generator` (default: seed 7), with a
-    warning. The net is built on `device` (default: the CUDA card).
-    Checkpoints (`load_from`) are not ported and raise.
+    weights resolve in the reference's order: the `load_from` checkpoint's
+    `average_feature_cond_encoder`, then its `feature_cond_encoder`, then
+    the converted `.npz` named by `weights:` (numpy only), else random
+    weights from `generator` (default: seed 7), with a warning. The net is
+    built on `device` (default: the CUDA card).
     """
     fce = params.get("feature_cond_encoder") or {"type": "none"}
     if fce.get("type") != "dino":
@@ -99,15 +119,28 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     from ccdm_tpu_torch.models.convert import flax_dino_to_state_dict
     from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
 
-    if params.get("load_from"):
-        raise NotImplementedError("load_from: checkpoints are not ported yet")
     encoder = DinoFeatureEncoder(fce)
     net = encoder.init(generator, device)
-    if fce.get("weights"):
+    loaded = False
+    if params.get("load_from"):
+        from ccdm_tpu_torch.config import expanduservars
+        from ccdm_tpu_torch.train.checkpoint import load_tree
+
+        try:
+            tree = load_tree(expanduservars(params["load_from"]))
+        except FileNotFoundError:
+            tree = {}
+        for key in ("average_feature_cond_encoder", "feature_cond_encoder"):
+            if key in tree:
+                net.load_state_dict(tree[key], strict=True)
+                loaded = True
+                LOGGER.info("loaded encoder weights from checkpoint key %r", key)
+                break
+    if not loaded and fce.get("weights"):
         with np.load(fce["weights"]) as blob:
             state = flax_dino_to_state_dict(_unflatten(blob))
         net.load_state_dict(state, strict=True)
-    else:
+    elif not loaded:
         LOGGER.warning("DINO eval conditioning with RANDOM encoder weights")
     feature_shape = (image_shape[0] // encoder.stride,
                      image_shape[1] // encoder.stride, encoder.channels)

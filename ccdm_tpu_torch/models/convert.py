@@ -7,13 +7,15 @@ layout inversions as `ccdm_tpu/models/torch_convert.py::flax_unet_to_torch`
 (Conv2d HWIO -> OIHW; attention qkv/proj Dense [I,O] -> Conv1d [O,I,1];
 other Dense [I,O] -> Linear [O,I]; GroupNorm scale/bias -> weight/bias), so
 the result loads into `UNetModel` with `strict=True`.
-`flax_dino_to_state_dict` does the same for the JAX package's `DinoViT`.
+`flax_dino_to_state_dict` does the same for the JAX package's `DinoViT`, and
+`flax_train_state_to_tree` carries a JAX `TrainState` (params, EMA, the
+optimizer's moments, the step) into the port's checkpoint schema.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -158,3 +160,40 @@ def flax_dino_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 value = np.transpose(value)
         state_dict[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state_dict
+
+
+def _optax_fields(state, found: Dict[str, Any]) -> Dict[str, Any]:
+    """Walk an optax state (nested tuples of named tuples) and collect its
+    `count`, `mu`, `nu` and `trace` fields by name."""
+    fields = getattr(state, "_fields", None)
+    if fields is not None:
+        for name in fields:
+            value = getattr(state, name)
+            if name in ("mu", "nu", "trace"):
+                found[name] = value
+            elif name == "count":
+                found.setdefault("count", int(np.asarray(value)))
+            else:
+                _optax_fields(value, found)
+    elif isinstance(state, (tuple, list)):
+        for item in state:
+            _optax_fields(item, found)
+    return found
+
+
+def flax_train_state_to_tree(params: Mapping, ema_params: Mapping, opt_state,
+                             step) -> Dict[str, Any]:
+    """A JAX `TrainState`'s parts (numpy trees, e.g. `jax.device_get` of
+    each) -> the port's checkpoint tree (`TrainState.tree()`'s schema):
+    `model` and `average_model` through `flax_params_to_state_dict`, and
+    `opt_state` with the optimizer's count and its moments (`mu` and `nu`
+    of Adam and AdamW, `trace` of SGD) through the same key map and layout
+    inversions."""
+    found = _optax_fields(opt_state, {})
+    opt: Dict[str, Any] = {"count": found.get("count", int(np.asarray(step)))}
+    for name in ("mu", "nu", "trace"):
+        if name in found:
+            opt[name] = flax_params_to_state_dict(found[name])
+    return {"model": flax_params_to_state_dict(params),
+            "average_model": flax_params_to_state_dict(ema_params),
+            "opt_state": opt, "step": int(np.asarray(step))}

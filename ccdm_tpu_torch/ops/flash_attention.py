@@ -15,6 +15,15 @@ hand-written kernel (`csrc/flash_attention.cu`, dh 32 or 64) or raises.
 async loads), "mma_scalar" (the same with element loads, for views whose
 rows are not 16-byte aligned) or "simt" (fp32 on the FMA pipes).
 `launches` counts the kernel launches, `path_launches` splits them by path.
+
+Training: where autograd needs the result's gradient, `flash_attention`
+goes through `FlashAttentionFunction`. Its forward is the kernel (or the
+plain version on the CPU); its backward is `attention_backward`, the JAX
+package's own custom-VJP math (`_flash_vjp_bwd`: `_bwd_dense` up to
+`BWD_DENSE_MAX_ELEMENTS` logits per head, `_bwd_streaming` over query blocks
+of `BWD_BLOCK_Q` above), written in PyTorch in this layout. That backward is
+XLA code in the JAX package, not a Pallas kernel, so its port is PyTorch
+matrix products too. It saves the q, k, v views it was given, not copies.
 """
 
 from __future__ import annotations
@@ -44,6 +53,66 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bts,bds->bdt", weights.float(), v.float()).to(q.dtype)
 
 
+# Above this many logits per (batch, head), T x T, the backward streams
+# query blocks instead of holding the whole T x T matrix (the JAX package's
+# constants).
+BWD_DENSE_MAX_ELEMENTS = 1024 * 1024
+BWD_BLOCK_Q = 512
+
+
+def _bwd_block(qf, kf, vf, gf, s):
+    """One query block of the backward, all fp32 `[BH, dh, Tq|T]`: with
+    A = softmax(s q^T k), dV = A^T g, dS = A * (g^T v - rowsum(A * g^T v)),
+    dQ = s dS k, dK = s dS^T q. Returns (dq, dk, dv) of this block."""
+    a = torch.softmax(torch.einsum("bdt,bds->bts", qf, kf) * s, dim=-1)
+    dv = torch.einsum("bts,bdt->bds", a, gf)
+    da = torch.einsum("bdt,bds->bts", gf, vf)
+    ds = a * (da - (da * a).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bts,bds->bdt", ds, kf) * s
+    dk = torch.einsum("bts,bdt->bds", ds, qf) * s
+    return dq, dk, dv
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       g: torch.Tensor):
+    """(dq, dk, dv) of `flash_attention(q, k, v)` for the output gradient
+    `g`, all `[BH, dh, T]`, in fp32 throughout with the combined scale
+    1/sqrt(dh), cast to the inputs' dtype: one block when T^2 <=
+    `BWD_DENSE_MAX_ELEMENTS` (`_bwd_dense`), else query blocks of
+    `BWD_BLOCK_Q` with dK and dV summed over the blocks in order
+    (`_bwd_streaming`)."""
+    dh, t = q.shape[1], q.shape[2]
+    s = 1.0 / math.sqrt(dh)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    if t * t <= BWD_DENSE_MAX_ELEMENTS:
+        dq, dk, dv = _bwd_block(qf, kf, vf, gf, s)
+    else:
+        dq = torch.empty_like(qf)
+        dk = torch.zeros_like(kf)
+        dv = torch.zeros_like(vf)
+        for start in range(0, t, BWD_BLOCK_Q):
+            part = slice(start, start + BWD_BLOCK_Q)
+            dq_i, dk_i, dv_i = _bwd_block(qf[:, :, part], kf, vf, gf[:, :, part], s)
+            dq[:, :, part] = dq_i
+            dk += dk_i
+            dv += dv_i
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """`flash_attention` under autograd: the forward kernel (or plain
+    version), then `attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _flash_attention_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return attention_backward(*ctx.saved_tensors, g)
+
+
 def _path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel's path for these views: the async loads move 8 tokens at a
     time, so they need T % 8 == 0 and 16-byte aligned rows."""
@@ -57,7 +126,17 @@ def _path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(qᵀk / sqrt(dh)) applied to v, `[BH, dh, T]` in and out."""
+    """softmax(qᵀk / sqrt(dh)) applied to v, `[BH, dh, T]` in and out;
+    differentiable through `FlashAttentionFunction` where autograd records."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v)
+    return _flash_attention_forward(q, k, v)
+
+
+def _flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """The forward alone: the plain version on CPU tensors, the kernel on
+    CUDA tensors."""
     global launches
     if q.device.type == "cpu":
         return dense_attention(q, k, v)

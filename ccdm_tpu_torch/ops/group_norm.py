@@ -21,6 +21,15 @@ kernel's path from the shape alone:
 S and M run one CUDA kernel per call and read x once; L runs two and reads
 it twice. `launches` counts wrapper calls on the card, `path_launches` splits
 them by path.
+
+Training: where autograd needs the result's gradient, `group_norm` goes
+through `GroupNormFunction`, whose backward is `group_norm_backward`: the
+hand-written kernel `csrc/group_norm_backward.cu` on the card, the plain
+`torch_group_norm_backward` on the CPU. It returns the gradients of x, the
+weight, the bias and the add; it saves x as given (not the sum with the add,
+which it recomputes) and recomputes the statistics. `launches_bwd` counts its
+calls on the card. Without autograd (the sampler, under `inference_mode`)
+the forward runs alone, as before.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from ccdm_tpu_torch.ops import _build
 
 launches = 0
 path_launches = {"S": 0, "M": 0, "L": 0}
+launches_bwd = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODES = {"S": 0, "M": 1, "L": 2}
@@ -116,33 +126,145 @@ def _plan(shape: Sequence[int], dtype: torch.dtype, groups: int,
     return Plan("L", vec, splits, math.ceil(math.ceil(slab / splits) / vec) * vec)
 
 
+def torch_group_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                              bias: torch.Tensor, groups: int, eps: float = 1e-5,
+                              silu: bool = False, add: Optional[torch.Tensor] = None):
+    """Plain PyTorch backward of `torch_group_norm`, by explicit formulas:
+    `(dx, dweight, dbias, dadd)` (`dadd` None without an add). Over a
+    (sample, group) slab, with v = x + add rounded to x's dtype, its fp32
+    mean and rstd as the forward computes them, xhat = (v - mean) * rstd,
+    g = dy * silu'(y_pre) (g = dy without SiLU) and u = g * weight:
+    dv = rstd * (u - mean(u) - xhat * mean(u * xhat)), dweight = sum g * xhat,
+    dbias = sum g (over samples and positions), dadd = sum over positions
+    of dv. dx and dadd have x's dtype, dweight and dbias are fp32."""
+    b, c = x.shape[:2]
+    if add is not None:
+        x = x + add.reshape(b, c, *([1] * (x.dim() - 2)))
+    cpg = c // groups
+    xf = x.float().reshape(b, groups, -1)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    centred = (xf - mean).reshape(b, c, -1)
+    rstd_c = rstd.repeat_interleave(cpg, dim=1)
+    xhat = centred * rstd_c
+    w = weight.float()[None, :, None]
+    g = dy.float().reshape(b, c, -1)
+    if silu:
+        y = centred * (rstd_c * w) + bias.float()[None, :, None]
+        s = torch.sigmoid(y)
+        g = g * s * (1 + y * (1 - s))
+    dweight = (g * xhat).sum(dim=(0, 2))
+    dbias = g.sum(dim=(0, 2))
+    u = (g * w).reshape(b, groups, -1)
+    xh = xhat.reshape(b, groups, -1)
+    dv = rstd * (u - u.mean(dim=-1, keepdim=True) - xh * (u * xh).mean(dim=-1, keepdim=True))
+    dadd = None if add is None else dv.reshape(b, c, -1).sum(dim=-1).to(x.dtype)
+    return dv.reshape(x.shape).to(x.dtype), dweight, dbias, dadd
+
+
+def _check_args(name: str, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                groups: int, add: Optional[torch.Tensor]) -> None:
+    """What both kernels take: x contiguous fp32 or bf16 `[B, C, ...]` on the
+    card, fp32 `[C]` weight and bias, and an add `[B, C]` in x's dtype."""
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() < 2 or x.numel() == 0 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a non-empty contiguous [B, C, ...] "
+                         f"tensor, got shape {tuple(x.shape)} strides {x.stride()}")
+    b, c = x.shape[:2]
+    if groups <= 0 or c % groups:
+        raise ValueError(f"{name}: {c} channels do not split into {groups} groups")
+    for what, p in (("weight", weight), ("bias", bias)):
+        if (p.device != x.device or p.dtype != torch.float32 or p.shape != (c,)
+                or not p.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous float32 [{c}] on "
+                             f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
+    if add is not None and (add.device != x.device or add.dtype != x.dtype
+                            or add.shape != (b, c) or not add.is_contiguous()):
+        raise ValueError(f"{name}: add must be contiguous {x.dtype} [{b}, {c}] on "
+                         f"{x.device}, got {add.dtype} {tuple(add.shape)} on {add.device}")
+
+
+def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, groups: int, eps: float = 1e-5,
+                        silu: bool = False, add: Optional[torch.Tensor] = None):
+    """`(dx, dweight, dbias, dadd)` of `group_norm(x, weight, bias, groups,
+    eps, silu, add)` for the output gradient `dy`: the plain version on CPU
+    tensors, the kernel on CUDA tensors."""
+    global launches_bwd
+    if x.device.type == "cpu":
+        return torch_group_norm_backward(dy, x, weight, bias, groups, eps, silu, add)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_backward: unsupported device {x.device}")
+    _check_args("group_norm_backward", x, weight, bias, groups, add)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"group_norm_backward: dy must be {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    dy = dy.contiguous()
+    b, c = x.shape[:2]
+    hw = x.numel() // (b * c)
+    full = 16 // x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    vec = full if aligned and hw % full == 0 else 1
+    dx = torch.empty_like(x)
+    dadd = None if add is None else torch.empty_like(add)
+    dweight = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+    partial = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    status = _build.library().ccdm_group_norm_backward(
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        None if add is None else add.data_ptr(), dx.data_ptr(),
+        None if dadd is None else dadd.data_ptr(), partial.data_ptr(), dweight.data_ptr(),
+        dbias.data_ptr(), _DTYPE_CODES[x.dtype], b, c, hw, groups, vec, float(eps), int(silu),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(status, "group_norm_backward")
+    launches_bwd += 1
+    return dx, dweight, dbias, dadd
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """`group_norm` under autograd: the forward kernel (or plain version),
+    then `group_norm_backward` for the gradients of x, weight, bias and add."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, add, groups, eps, silu):
+        ctx.save_for_backward(x, weight, bias, add)
+        ctx.config = (groups, eps, silu)
+        return _group_norm_forward(x, weight, bias, groups, eps, silu, add)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, add = ctx.saved_tensors
+        dx, dweight, dbias, dadd = group_norm_backward(dy, x, weight, bias, *ctx.config,
+                                                       add=add)
+        return dx, dweight, dbias, dadd, None, None, None
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int, eps: float = 1e-5, silu: bool = False,
                add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm over `[B, C, *spatial]` with an optional fused SiLU and an
-    optional `[B, C]` add in front of it."""
+    optional `[B, C]` add in front of it; differentiable through
+    `GroupNormFunction` where autograd records."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, bias, add)):
+        return GroupNormFunction.apply(x, weight, bias, add, groups, eps, silu)
+    return _group_norm_forward(x, weight, bias, groups, eps, silu, add)
+
+
+def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                        groups: int, eps: float, silu: bool,
+                        add: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward alone: the plain version on CPU tensors, the kernel on
+    CUDA tensors."""
     global launches
     if x.device.type == "cpu":
         return torch_group_norm(x, weight, bias, groups, eps, silu, add)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"group_norm: x must be float32 or bfloat16, got {x.dtype}")
-    if x.dim() < 2 or x.numel() == 0 or not x.is_contiguous():
-        raise ValueError(f"group_norm: x must be a non-empty contiguous [B, C, ...] "
-                         f"tensor, got shape {tuple(x.shape)} strides {x.stride()}")
+    _check_args("group_norm", x, weight, bias, groups, add)
     b, c = x.shape[:2]
-    if groups <= 0 or c % groups:
-        raise ValueError(f"group_norm: {c} channels do not split into {groups} groups")
-    for name, p in (("weight", weight), ("bias", bias)):
-        if (p.device != x.device or p.dtype != torch.float32 or p.shape != (c,)
-                or not p.is_contiguous()):
-            raise ValueError(f"group_norm: {name} must be contiguous float32 [{c}] on "
-                             f"{x.device}, got {p.dtype} {tuple(p.shape)} on {p.device}")
-    if add is not None and (add.device != x.device or add.dtype != x.dtype
-                            or add.shape != (b, c) or not add.is_contiguous()):
-        raise ValueError(f"group_norm: add must be contiguous {x.dtype} [{b}, {c}] on "
-                         f"{x.device}, got {add.dtype} {tuple(add.shape)} on {add.device}")
     plan = _plan(x.shape, x.dtype, groups, aligned=x.data_ptr() % 16 == 0)
     y = torch.empty_like(x)
     partial = (torch.empty(b * groups * plan.param * 2, dtype=torch.float32, device=x.device)

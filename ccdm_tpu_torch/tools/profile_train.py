@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Measure the flagship training step of the port on one CUDA card.
+
+    python3 ccdm_tpu_torch/tools/profile_train.py [--steps N]
+
+`TrainingRun(DEMO_TRAIN_PARAMS)`: the flagship LIDC model (128x128, C=2,
+base 32, bf16 torso, fp32 masters), synthetic LIDC, batch 16, Adam and the
+Polyak EMA, with PyTorch's default TF32 settings (what `run_train` runs).
+
+- `loop`: the trainer's own loop (`TrainingRun.run`, data loading, the
+  pinned-memory prefetch and the metric reads two steps behind included,
+  no validation or save inside the window): the cold first step, then the
+  mean ms/step and images/s over `--steps` warm steps;
+- `phases`: per step, the device-stream span of the forward (with the loss),
+  the backward and the update (optimizer, EMA, the masters written into the
+  bf16 module), from CUDA events around each, and the host's time per
+  step, over 20 steps driven back to back on one batch;
+- `profile`: 10 such steps under `torch.profiler`: device time per step by
+  kernel family, the device's busy share of the wall, the 25 largest
+  kernels, and the 25 host operators with the most CPU time of their own.
+
+One JSON object per line; the last line says `{"done": true}`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+PHASE_STEPS = 20
+PROFILE_STEPS = 10
+
+# kernel families of the profile, by a substring of the device kernel's name
+FAMILIES = [
+    ("group_norm_backward", ("gn_backward",)),
+    ("group_norm", ("gn_small", "gn_cluster", "gn_partial_stats", "gn_apply")),
+    ("attention_forward", ("attn_fwd",)),
+    ("optimizer_ema", ("multi_tensor_apply", "foreach")),
+    ("conv_layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),
+    ("conv_wgrad", ("wgrad",)),
+    ("conv_dgrad", ("dgrad",)),
+    ("conv_fprop", ("xmma_fprop", "implicit_gemm", "fprop", "conv", "winograd")),
+    ("gemm", ("gemm", "cublas", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce",)),
+]
+
+
+def emit(kind: str, **fields) -> None:
+    print(json.dumps({"kind": kind, **fields}), flush=True)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "elementwise_other"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=60, help="warm steps of the loop")
+    args = ap.parse_args()
+    sys.path.insert(0, str(REPO))
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA card")
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.data.loader import device_prefetch
+    from ccdm_tpu_torch.ops import _build
+    from ccdm_tpu_torch.train.step import step_seed, train_loss
+    from ccdm_tpu_torch.train.trainer import STEP_KEYS, TrainingRun
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    emit("device", card=card, torch=torch.__version__, build_s=_build.build())
+    never = 10 ** 9
+    run = TrainingRun(dict(DEMO_TRAIN_PARAMS, output_path=str(REPO / "build/profile_train"),
+                           save_freq=never, validation_freq=never, display_freq=never,
+                           progress_bar=False))
+    run.checkpoints.save_periodic = lambda state: None  # no save inside the windows
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run.run(max_steps=1)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - start
+    start = time.perf_counter()
+    run.run(max_steps=args.steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    emit("loop", cold_first_step_s=cold, warm_steps=args.steps,
+         ms_per_step=wall / args.steps * 1e3, images_per_s=run.batch_size * args.steps / wall,
+         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    # the step's phases, as make_train_step runs them
+    batch = next(device_prefetch(({k: b[k] for k in STEP_KEYS}
+                                  for b in run.loader.epoch(0)), run.device))
+    state, net, model = run.state, run.net, run.model
+    weights = torch.ones(run.num_classes, device=run.device)
+
+    def step(events=None):
+        gen = torch.Generator(device=run.device).manual_seed(step_seed(1, state.step))
+        mark = (lambda i: events[i].record()) if events else (lambda i: None)
+        net.zero_grad(set_to_none=True)
+        mark(0)
+        loss, _ = train_loss(model, net, batch, gen, weights)
+        mark(1)
+        loss.backward()
+        mark(2)
+        grads = {n: p.grad.float() for n, p in net.named_parameters()}
+        torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        state.apply_gradients(grads)
+        state.write_to(net)
+        mark(3)
+
+    step()
+    torch.cuda.synchronize()
+    spans = collections.Counter()
+    start = time.perf_counter()
+    for _ in range(PHASE_STEPS):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        step(events)
+        events[3].synchronize()
+        for name, (a, b) in (("forward", (0, 1)), ("backward", (1, 2)), ("update", (2, 3))):
+            spans[name] += events[a].elapsed_time(events[b]) / PHASE_STEPS
+    host = (time.perf_counter() - start) / PHASE_STEPS * 1e3
+    emit("phases", device_span_ms=dict(spans), host_ms_per_step=host,
+         note="each step waits for its last event: spans hold no overlap across steps")
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_family, by_kernel = collections.Counter(), collections.Counter()
+    device_ms = 0.0
+    for evt in prof.key_averages():
+        self_dev = getattr(evt, "self_device_time_total", None)
+        if self_dev is None:
+            self_dev = evt.self_cuda_time_total
+        if evt.device_type == torch.autograd.DeviceType.CUDA and self_dev > 0:
+            ms = self_dev / 1e3
+            device_ms += ms
+            by_family[family(evt.key)] += ms / PROFILE_STEPS
+            by_kernel[evt.key] += ms / PROFILE_STEPS
+    emit("profile", steps=PROFILE_STEPS, wall_ms_per_step=wall * 1e3 / PROFILE_STEPS,
+         device_ms_per_step=device_ms / PROFILE_STEPS, busy_share=device_ms / (wall * 1e3),
+         ms_per_step_by_family=dict(by_family.most_common()))
+    for name, ms in by_kernel.most_common(25):
+        emit("profile_kernel", name=name[:160], ms_per_step=ms, family=family(name))
+    # the host: operators by their own CPU time (the launches included)
+    host = [(evt.self_cpu_time_total / 1e3 / PROFILE_STEPS, evt.count / PROFILE_STEPS, evt.key)
+            for evt in prof.key_averages()
+            if evt.device_type == torch.autograd.DeviceType.CPU]
+    emit("host", ms_per_step=sum(h[0] for h in host),
+         ops_per_step=sum(h[1] for h in host))
+    for ms, calls, name in sorted(host, reverse=True)[:25]:
+        emit("host_op", name=name[:120], self_ms_per_step=ms, calls_per_step=calls)
+    print(json.dumps({"done": True}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

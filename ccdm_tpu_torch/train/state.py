@@ -1,0 +1,103 @@
+"""Training state (port of `ccdm_tpu/train/state.py`): the step, the fp32
+master parameters, their Polyak (EMA) average and the optimizer state.
+
+The JAX package keeps every parameter in fp32 and casts to the compute
+dtype inside each op. The port's UNet holds its torso's convs and linears in
+the compute dtype itself (bf16 on the card), which is exact for sampling,
+but an Adam update of ~1e-4 relative size would vanish in a bf16 weight.
+So the state holds fp32 masters keyed by the UNet's state-dict names, the
+optimizer updates those, and `write_to` copies them into the module after
+each step (a cast where the module is bf16; nothing where it is fp32, whose
+parameters are the masters themselves). The update and the EMA run in
+place; the JAX version builds new arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ccdm_tpu_torch.train.optimizer import Optimizer
+
+
+def master_params(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The fp32 masters of `net`: its own parameter tensors where they are
+    fp32, fp32 copies where they are not."""
+    return {name: p.detach() if p.dtype == torch.float32 else p.detach().float()
+            for name, p in net.named_parameters()}
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Dict[str, torch.Tensor]
+    ema_params: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+    tx: Optimizer
+    polyak_alpha: float = 0.9999
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> float:
+        """One optimizer update of the masters, then `ema = a ema + (1 - a)
+        p` on the new params; returns the learning rate used."""
+        lr = self.tx.update(grads, self.opt_state, self.params)
+        ema = [self.ema_params[k] for k in self.params]
+        torch._foreach_mul_(ema, self.polyak_alpha)
+        torch._foreach_add_(ema, list(self.params.values()), alpha=1.0 - self.polyak_alpha)
+        self.step += 1
+        return lr
+
+    @torch.no_grad()
+    def write_to(self, net: nn.Module, ema: bool = False) -> None:
+        """Copy the masters (or the EMA) into `net`'s parameters, cast to
+        their dtype; parameters that are the masters themselves stay."""
+        src = self.ema_params if ema else self.params
+        dst, vals = [], []
+        for name, p in net.named_parameters():
+            if p.data_ptr() != src[name].data_ptr():
+                dst.append(p)
+                vals.append(src[name])
+        if dst:
+            torch._foreach_copy_(dst, vals)
+
+    def tree(self) -> Dict[str, Any]:
+        """The checkpoint schema (the reference's `objects_to_save` keys):
+        `model`, `average_model`, `opt_state`, `step`, as CPU tensors."""
+        def cpu(d):
+            return {k: v.detach().cpu().clone() for k, v in d.items()}
+
+        opt = {k: (cpu(v) if isinstance(v, dict) else v) for k, v in self.opt_state.items()}
+        return {"model": cpu(self.params), "average_model": cpu(self.ema_params),
+                "opt_state": opt, "step": int(self.step)}
+
+    @torch.no_grad()
+    def load_tree(self, tree: Dict[str, Any]) -> "TrainState":
+        """Restore from a `tree()` in place, on the state's devices."""
+        def copy(dst, src):
+            if set(dst) != set(src):
+                raise KeyError(f"checkpoint keys differ: {sorted(set(dst) ^ set(src))[:5]}")
+            for k, v in dst.items():
+                v.copy_(src[k])
+
+        copy(self.params, tree["model"])
+        copy(self.ema_params, tree["average_model"])
+        for key, value in tree["opt_state"].items():
+            if isinstance(value, dict):
+                copy(self.opt_state[key], value)
+            else:
+                self.opt_state[key] = int(value)
+        self.step = int(tree["step"])
+        return self
+
+
+def create_train_state(params: Dict[str, torch.Tensor], tx: Optimizer,
+                       polyak_alpha: float = 0.9999,
+                       ema_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+    """A state at step 0; the EMA starts as a copy of the params."""
+    if ema_params is None:
+        ema_params = {k: v.detach().clone() for k, v in params.items()}
+    return TrainState(step=0, params=params, ema_params=ema_params,
+                      opt_state=tx.init(params), tx=tx, polyak_alpha=polyak_alpha)

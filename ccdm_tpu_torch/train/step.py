@@ -1,0 +1,103 @@
+"""The training step (port of `ccdm_tpu/train/step.py`): forward, KL loss,
+gradients, update, EMA.
+
+- `t ~ U{1..T}` per sample; `x_t ~ q(x_t | x_0)`, a Gumbel-max draw;
+- the UNet predicts an x0 distribution (in fp32 for the loss);
+- loss = `KL(theta_post(x_t, x_0, t) ‖ theta_post_prob(x_t, x0pred, t))`
+  with the 1e-12 clamp, weighted per pixel by `class_weights[argmax x0]`,
+  summed over pixels, divided by the batch;
+- `invalid`: a non-finite loss or `min KL < -1e-3` (the reference's
+  `_check_loss`), and `kl_min`.
+
+Draws come from a `torch.Generator` seeded from `(seed, step)`, so a resumed
+run draws what an uninterrupted one would (the JAX version folds the step
+into its key). `train_loss` also takes injected `t` and `x_t`. The metrics
+stay on the device; the trainer reads them two steps later. Not ported, by
+decision: `make_multi_step` (several steps a launch).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ccdm_tpu_torch.diffusion.categorical import (
+    categorical_kl,
+    q_xt_given_x0_probs,
+    sample_onehot,
+    theta_post,
+    theta_post_prob,
+)
+from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.train.state import TrainState
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 64-bit generator seed for one step of a run seeded with `seed`."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], class_weights: torch.Tensor, *,
+               t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
+    """The CCDM loss of one batch (`image` [B,H,W,Ci], `x0` one-hot
+    [B,H,W,C]) -> `(loss, aux)`; `t` and `xt`, when given, replace the
+    draws."""
+    image, x0 = batch["image"], batch["x0"]
+    b = x0.shape[0]
+    d = model.diffusion
+    if t is None:
+        t = torch.randint(1, d.time_steps + 1, (b,), generator=generator, device=x0.device)
+    if xt is None:
+        xt = sample_onehot(q_xt_given_x0_probs(d, x0, t), generator)
+    x0pred = model.apply(net, xt, image, t)["diffusion_out"].float()
+    kl = categorical_kl(theta_post_prob(d, xt, x0pred, t), theta_post(d, xt, x0, t))
+    mask = class_weights[x0.argmax(dim=-1)]
+    loss = (kl * mask).sum() / b
+    kl_min = kl.detach().min()
+    invalid = ~torch.isfinite(loss.detach()) | (kl_min < -1e-3)
+    return loss, {"kl_min": kl_min, "invalid": invalid}
+
+
+def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
+                    lr_schedule: Optional[Callable[[int], float]] = None) -> Callable:
+    """`step(state, net, batch, seed, *, t=None, xt=None) -> metrics`: one
+    update of `state` (in place) from the gradients of `net`, the module
+    that holds the compute-dtype copy of the state's masters; the new
+    masters are then written into `net`. Dropout runs in training mode
+    when the UNet has any, drawing from the global generator forked and
+    seeded from `(seed, step)`."""
+    dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0 for m in model.unet.modules())
+
+    def step(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+             seed: int, *, t: Optional[torch.Tensor] = None,
+             xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        device = batch["x0"].device
+        s = step_seed(seed, state.step)
+        generator = torch.Generator(device=device).manual_seed(s)
+        net.train(dropout_on)
+        net.zero_grad(set_to_none=True)
+        fork = contextlib.nullcontext()
+        if dropout_on:
+            fork = torch.random.fork_rng(devices=[device] if device.type == "cuda" else [])
+        with fork:
+            if dropout_on:
+                torch.manual_seed(s)
+            loss, aux = train_loss(model, net, batch, generator, class_weights, t=t, xt=xt)
+            loss.backward()
+        grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                 for name, p in net.named_parameters()}
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        lr = state.apply_gradients(grads)
+        state.write_to(net)
+        net.zero_grad(set_to_none=True)
+        metrics = {"loss": loss.detach(), "invalid": aux["invalid"], "kl_min": aux["kl_min"],
+                   "grad_norm": grad_norm, "num_items": int(batch["x0"].shape[0])}
+        if lr_schedule is not None:
+            metrics["lr"] = lr
+        return metrics
+
+    return step

@@ -46,6 +46,32 @@ without printing its result:
    + 51 x replays and attention 16 x full + 10 x replays.
 8. cityscapes_reference: the fp32 Cityscapes evaluator on the card against
    the CPU, 1 image of 64x128, 2 votes, T = 3, DINO on, same noise.
+9. group_norm_backward: the GroupNorm backward kernel against its plain
+   version at the flagship training step's sites (batch 16) and at path-L
+   shapes, with and without SiLU and the add, bf16 and fp32: errors of dx,
+   dweight, dbias and dadd; kernel, plain, library (autograd's backward of
+   `F.group_norm`, where it computes the same function) and bound times
+   (read x and dy, write dx).
+10. attention_backward: the attention's autograd Function (the kernel's
+   forward, the JAX package's backward math in PyTorch) against autograd
+   through the plain `dense_attention`, at the training sites [48,32,256]
+   and [64,32,64] in bf16 and fp32 and at [16,32,2048] (the streaming
+   branch); backward, plain, library (SDPA's backward) and bound times.
+11. train: `TrainingRun(DEMO_TRAIN_PARAMS)` at full width and depth on the
+   card (128x128, C=2, base 32, batch 16, bf16, synthetic LIDC), 30 steps
+   with a periodic save and a GED/HM-IoU validation at step 20, into
+   `build/chip_smoke_train/`. Checks a finite loss and no invalid flag at
+   every step, launches of exactly 66 GroupNorm forward + 66 backward + 11
+   attention a step plus the validation sampler's sites x UNet calls, GED
+   in [0, 2] and HM-IoU in [0, 1], and that a new `TrainingRun` loading the
+   checkpoint holds the same params, EMA, Adam state and step, bit for bit.
+   Prints the cold first step, the warm s/step and images/s of steps 11-30
+   (validation and saves taken out), peak memory and the validation's
+   seconds.
+12. train_reference: one fp32 train step (flagship widths, 32x32 input,
+   batch 2, injected t and x_t) on the card (kernels, TF32 off) against the
+   CPU (plain versions): loss within 1e-5 relative, every gradient within
+   1e-4 of its tensor's largest magnitude.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -320,6 +346,7 @@ def reset_counts() -> None:
     from ccdm_tpu_torch.ops import group_norm as gn
 
     gn.launches = 0
+    gn.launches_bwd = 0
     fa.launches = 0
     for counts in (gn.path_launches, fa.path_launches):
         counts.update(dict.fromkeys(counts, 0))
@@ -330,8 +357,10 @@ def read_counts():
     from ccdm_tpu_torch.ops import flash_attention as fa
     from ccdm_tpu_torch.ops import group_norm as gn
 
-    return ({"group_norm": gn.launches, "flash_attention": fa.launches},
-            {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches)})
+    return ({"group_norm": gn.launches, "flash_attention": fa.launches,
+             "group_norm_backward": gn.launches_bwd},
+            {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches),
+             "group_norm_backward": {}})
 
 
 def phase_slice(smi):
@@ -371,7 +400,8 @@ def phase_slice(smi):
     sum_err = float((probs.sum(-1) - 1).abs().max())
     if not sum_err <= 1e-3:
         raise AssertionError(f"slice probabilities sum to 1 only within {sum_err}")
-    want = {"group_norm": gn_sites * STEPS, "flash_attention": attn_sites * STEPS}
+    want = {"group_norm": gn_sites * STEPS, "flash_attention": attn_sites * STEPS,
+            "group_norm_backward": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != sites x steps {want}")
     n = IMAGES * SAMPLES
@@ -496,7 +526,8 @@ def phase_cityscapes(smi, reuse: int):
                              f"{int(labels.max())}], not [0, 18] at {CS_LABEL_HW}")
     full = len(range(0, STEPS, reuse))  # steps with step % R == 0 run the whole UNet
     want = {"group_norm": full * full_gn + (STEPS - full) * replay_gn,
-            "flash_attention": full * full_attn + (STEPS - full) * replay_attn}
+            "flash_attention": full * full_attn + (STEPS - full) * replay_attn,
+            "group_norm_backward": 0}
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != {want} "
                              f"({full} full UNet calls, {STEPS - full} replays)")
@@ -549,6 +580,323 @@ def phase_cityscapes_reference():
         f"where they agree")
 
 
+def _err_to_max(out, ref) -> float:
+    """max |out - ref| over the largest |ref| of the tensor."""
+    ref = ref.float()
+    return float((out.float() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def phase_group_norm_backward(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from ccdm_tpu_torch.ops import group_norm as gn
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [  # (shape, dtype, silu, add): the training step's sites at batch 16
+        ((16, 32, 128, 128), bf16, True, False),   # level-0 in-norms
+        ((16, 32, 128, 128), bf16, True, True),    # level-0 out-norms, the fused add
+        ((16, 64, 128, 128), bf16, True, False),   # level-0 decoder concat: 64 KB slabs
+        ((16, 64, 128, 128), bf16, False, False),  # the same, F.group_norm's function
+        ((16, 32, 128, 128), fp32, True, False),   # the fp32 head
+        ((16, 96, 16, 16), bf16, True, True),      # ds 8, path S in the forward
+        ((16, 256, 8, 8), bf16, True, False),      # the ds-16 decoder concat
+        ((16, 96, 256), bf16, False, False),       # attention pre-norm at ds 8
+        ((16, 128, 64), bf16, False, False),       # attention pre-norm at ds 16
+        ((2, 128, 256, 512), bf16, True, True),    # path-L shapes: 1 MB slabs
+        ((2, 128, 256, 512), fp32, False, False),  # 2 MB slabs
+    ]
+    worst, row = 0.0, None  # the largest |dx - plain dx| over all cases
+    for shape, dtype, silu, with_add in cases:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        e = torch.randn(shape[:2], generator=gen, device="cuda").to(dtype) if with_add else None
+        out = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+        ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+        torch.cuda.synchronize()
+        dx_err = float((out[0].float() - ref[0].float()).abs().max())
+        errs = {"dx": _err_to_max(out[0], ref[0]), "dw": _err_to_max(out[1], ref[1]),
+                "db": _err_to_max(out[2], ref[2])}
+        if e is not None:  # a sum over positions: against the scale of its terms
+            scale = float(ref[0].float().abs().reshape(*shape[:2], -1).sum(-1).max())
+            errs["dadd"] = float((out[3].float() - ref[3].float()).abs().max()) / scale
+        low = 1e-4 if dtype == fp32 else 1e-2  # bf16 dx, dadd: one rounding of fp32 sums
+        limits = {"dx": low, "dw": 1e-4, "db": 1e-4, "dadd": low}
+        name = f"{list(shape)} {str(dtype)[6:]} silu={silu} add={with_add}"
+        bad = {k: v for k, v in errs.items() if not v <= limits[k]}
+        if bad:
+            raise AssertionError(f"group_norm_backward {name}: errors over the largest "
+                                 f"magnitude {bad} beyond {limits}")
+        del out, ref
+        ms = time_ms(lambda: gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e))
+        plain_ms = time_ms(lambda: gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu,
+                                                                 add=e))
+        library_ms, lib_note = None, ""
+        if not silu and e is None:
+            xl = x.clone().requires_grad_()
+            wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+            try:
+                y = F.group_norm(xl, 32, wl, bl, 1e-5)
+            except RuntimeError:
+                wl = w.to(dtype).requires_grad_()
+                bl = b.to(dtype).requires_grad_()
+                lib_note = f" (weights cast to {str(dtype)[6:]})"
+                y = F.group_norm(xl, 32, wl, bl, 1e-5)
+            library_ms = time_ms(lambda: torch.autograd.grad(y, (xl, wl, bl), dy,
+                                                             retain_graph=True))
+            del y, xl
+        n = x.numel()
+        nbytes = 3 * n * x.element_size() + 4 * 4 * shape[1] + (
+            2 * e.numel() * e.element_size() if e is not None else 0)
+        bound, bound_by = bound_ms(nbytes, n * (14 + 8 * silu + (e is not None)), "float32")
+        worst = max(worst, dx_err)
+        if (shape, dtype, silu, with_add) == ((16, 64, 128, 128), bf16, True, False):
+            row = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                   "bound_by": bound_by, "library_ms": library_ms}
+        library = "none" if library_ms is None else f"{library_ms:.4f} ms{lib_note}"
+        log("group_norm_backward", f"{name}: max_abs_err dx {dx_err:.3g}; err/max " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f"; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {library}, bound {bound:.4f} ms ({bound_by}), "
+            f"{bound / ms:.1%} of bound")
+        del x, dy, e
+    torch.cuda.empty_cache()
+    return worst, row
+
+
+def phase_attention_backward(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from ccdm_tpu_torch.ops import flash_attention as fa
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [(48, 256, bf16), (48, 256, fp32), (64, 64, bf16), (64, 64, fp32),
+             (16, 2048, bf16), (16, 2048, fp32)]  # (BH, T, dtype), dh 32
+    dh = 32
+    for bh, t, dtype in cases:
+        qkv = torch.randn(bh, 3 * dh, t, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(bh, dh, t, generator=gen, device="cuda").to(dtype)
+
+        def grads(fn, src):
+            leaf = src.clone().requires_grad_()
+            fn(leaf[:, :dh], leaf[:, dh:2 * dh], leaf[:, 2 * dh:]).backward(g.to(src.dtype))
+            return leaf.grad
+
+        ours = grads(fa.flash_attention, qkv)
+        plain = grads(fa.dense_attention, qkv)
+        name = f"BH={bh} T={t} dh={dh} {str(dtype)[6:]}"
+        branch = "dense" if t * t <= fa.BWD_DENSE_MAX_ELEMENTS else "streaming"
+        if dtype == fp32:
+            err = _err_to_max(ours, plain)
+            if not err <= 1e-4:
+                raise AssertionError(f"attention_backward {name}: err/max {err} > 1e-4")
+            detail = f"err/max vs autograd through dense_attention {err:.3g}"
+        else:
+            # bf16: no worse against the fp32 truth than autograd through the
+            # plain bf16 path (which also rounds p to bf16 in its forward)
+            truth = grads(fa.dense_attention, qkv.float())
+            err, err_plain = _err_to_max(ours, truth), _err_to_max(plain, truth)
+            if not err <= err_plain + 1e-3:
+                raise AssertionError(f"attention_backward {name}: err/max {err} > plain "
+                                     f"{err_plain} + 1e-3")
+            detail = f"err/max vs fp32 truth {err:.3g} (plain bf16 {err_plain:.3g})"
+        q, k, v = (qkv[:, i * dh:(i + 1) * dh] for i in range(3))
+        ms = time_ms(lambda: fa.attention_backward(q, k, v, g), reps=3, calls=5)
+        leaf = qkv.clone().requires_grad_()
+        y = fa.dense_attention(leaf[:, :dh], leaf[:, dh:2 * dh], leaf[:, 2 * dh:])
+        plain_ms = time_ms(lambda: torch.autograd.grad(y, leaf, g, retain_graph=True),
+                           reps=3, calls=5)
+        q4, k4, v4 = (x.transpose(1, 2).unsqueeze(1).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        y4 = F.scaled_dot_product_attention(q4, k4, v4)
+        g4 = g.transpose(1, 2).unsqueeze(1).contiguous()
+        library_ms = time_ms(lambda: torch.autograd.grad(y4, (q4, k4, v4), g4,
+                                                         retain_graph=True), reps=3, calls=5)
+        nbytes = 7 * bh * dh * t * q.element_size()
+        bound, bound_by = bound_ms(nbytes, 10 * bh * t * t * dh, "float32")
+        log("attention_backward", f"{name} ({branch}): {detail}; backward {ms:.4f} ms, plain "
+            f"(autograd through dense_attention) {plain_ms:.4f} ms, library (SDPA backward) "
+            f"{library_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, fp32 math), "
+            f"{bound / ms:.1%} of bound")
+        del qkv, g, ours, plain, y, leaf, q4, k4, v4, y4, g4
+    torch.cuda.empty_cache()
+
+
+TRAIN_STEPS, TRAIN_EVENT = 30, 20  # steps; the step of the save and validation
+
+
+def phase_train(smi):
+    """The flagship trainer at full width on the card (see the docstring)."""
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    out = Path("build/chip_smoke_train")
+    shutil.rmtree(out, ignore_errors=True)
+    params = dict(DEMO_TRAIN_PARAMS, output_path=str(out / "run"), save_freq=TRAIN_EVENT,
+                  validation_freq=TRAIN_EVENT, display_freq=10, progress_bar=False)
+    run = TrainingRun(params)  # the default device is the card
+    if run.device.type != "cuda" or next(run.net.parameters()).dtype != torch.bfloat16:
+        raise AssertionError("TrainingRun did not build a bf16 UNet on the card")
+    gn_sites = sum(isinstance(m, GroupNorm32) for m in run.net.modules())
+    attn_sites = sum(isinstance(m, AttentionBlock) for m in run.net.modules())
+    if (gn_sites, attn_sites) != (66, 11):
+        raise AssertionError(f"sites per UNet call ({gn_sites}, {attn_sites}) != (66, 11)")
+
+    metrics, marks, pauses, val = [], {}, [], {}
+    step_fn = run.step_fn
+
+    def step(*args, **kwargs):
+        m = step_fn(*args, **kwargs)
+        metrics.append(m)
+        if len(metrics) in (1, 10, TRAIN_STEPS):
+            torch.cuda.synchronize()
+            marks[len(metrics)] = time.perf_counter()
+        return m
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            pauses.append((start, time.perf_counter() - start))
+            if key:
+                val[key] = (result, pauses[-1][1])
+            return result
+        return wrapped
+
+    val_calls = []
+    run.ema_net.register_forward_pre_hook(lambda *_: val_calls.append(1))
+    run.step_fn = step
+    run.validate = timed(run.validate, "validate")
+    run.checkpoints.save_periodic = timed(run.checkpoints.save_periodic, None)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    state = run.run(max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches, _ = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    if state.step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
+        raise AssertionError(f"trained to step {state.step} in {len(metrics)} steps")
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)) or any(
+            bool(m["invalid"]) for m in metrics):
+        raise AssertionError(f"a non-finite loss or an invalid step: {losses}")
+    calls = len(val_calls)
+    want = {"group_norm": gn_sites * (TRAIN_STEPS + calls),
+            "group_norm_backward": gn_sites * TRAIN_STEPS,
+            "flash_attention": attn_sites * (TRAIN_STEPS + calls)}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} != {want} ({TRAIN_STEPS} steps, "
+                             f"{calls} validation UNet calls)")
+    scores, val_s = val["validate"]
+    if not (0 <= scores["GED"] <= 2 and 0 <= scores["HMIoU"] <= 1):
+        raise AssertionError(f"validation scores out of range: {scores}")
+    # the save and the validation at TRAIN_EVENT fall inside steps 11-30:
+    # their time comes off the window
+    inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[TRAIN_STEPS])
+    warm = (marks[TRAIN_STEPS] - marks[10] - inside) / (TRAIN_STEPS - 10)
+    cold = marks[1] - start
+
+    restored = TrainingRun(dict(params, load_from=str(out / "run"),
+                                output_path=str(out / "restored")))
+    for what, a, b in (("params", state.params, restored.state.params),
+                       ("EMA", state.ema_params, restored.state.ema_params),
+                       ("Adam mu", state.opt_state["mu"], restored.state.opt_state["mu"]),
+                       ("Adam nu", state.opt_state["nu"], restored.state.opt_state["nu"])):
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"checkpoint round trip: {what} differ")
+    if (restored.state.step, restored.state.opt_state["count"]) != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"checkpoint round trip: step {restored.state.step}, count "
+                             f"{restored.state.opt_state['count']}")
+    batch = run.batch_size
+    log("train", f"DEMO_TRAIN_PARAMS bf16, batch {batch}, {TRAIN_STEPS} steps ({smi}): cold "
+        f"first step {cold:.2f} s, warm {warm * 1e3:.2f} ms/step = {batch / warm:.1f} images/s "
+        f"(steps 11-{TRAIN_STEPS}, the save and validation taken out), peak {peak:.2f} GiB; "
+        f"loss {losses[0]:.4g} -> {losses[-1]:.4g}; validation at step {TRAIN_EVENT}: GED "
+        f"{scores['GED']:.4f}, HM-IoU {scores['HMIoU']:.4f}, {calls} UNet calls, "
+        f"{val_s:.2f} s; launches {launches}; checkpoint round trip exact (params, EMA, "
+        f"Adam, step {TRAIN_STEPS})")
+    return {"launches": launches, "path_launches": {}}
+
+
+def phase_train_reference():
+    """One fp32 train step on the card (kernels) against the CPU (plain
+    versions): flagship widths, batch 2 of 32x32, the same injected t and
+    x_t."""
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.train.step import train_loss
+
+    params = dict(DEMO_TRAIN_PARAMS, compute_dtype="float32")
+    cpu = build_model(params, 2, 1, 128, device="cpu")
+    unzero_(cpu.unet, seed=9)
+    card = build_model(params, 2, 1, 128)
+    card.unet.load_state_dict(cpu.unet.state_dict())
+    gen = torch.Generator().manual_seed(10)
+    b, hw = 2, 32
+    batch = {"image": torch.randn(b, hw, hw, 1, generator=gen),
+             "x0": torch.nn.functional.one_hot(
+                 torch.randint(0, 2, (b, hw, hw), generator=gen), 2).float()}
+    t = torch.tensor([3, 170])
+    xt = torch.nn.functional.one_hot(torch.randint(0, 2, (b, hw, hw), generator=gen), 2).float()
+    cw = torch.ones(2)
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        loss, _ = train_loss(model, model.unet, {k: v.to(dev) for k, v in batch.items()}, None,
+                             cw.to(dev), t=t.to(dev), xt=xt.to(dev))
+        loss.backward()
+        results.append((float(loss.detach()), {n: p.grad.cpu()
+                                               for n, p in model.unet.named_parameters()}))
+    (ref_loss, ref), (loss, grads) = results
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not rel <= 1e-5:
+        raise AssertionError(f"train_reference: loss {loss} vs CPU {ref_loss} ({rel:.3g})")
+    # Gradients that are 0 in exact arithmetic are rounding noise on both
+    # devices, and a relative error means nothing there. They are what the
+    # model adds per channel in front of a GroupNorm of one channel a group,
+    # which the norm's mean removes (a ResBlock's first conv bias and
+    # time-embedding projection, the last ResBlock's output biases in front
+    # of the head's norm), and the key rows of an attention's qkv bias (the
+    # softmax removes q.b_k). A tensor whose largest CPU gradient is under
+    # 1e-5 of the model's largest counts as one; those and the key rows are
+    # held to 1e-6 of the model's largest gradient instead.
+    top = max(float(g.abs().max()) for g in ref.values())
+    zero = {n for n, g in ref.items() if float(g.abs().max()) < 1e-5 * top}
+    worst, worst_zero = (0.0, ""), 0.0
+    for name, g in ref.items():
+        diff = (grads[name] - g).abs()
+        if name in zero:
+            worst_zero = max(worst_zero, float(diff.max()) / top)
+            continue
+        if name.endswith("qkv.bias"):
+            keys = (torch.arange(g.numel()) // 32) % 3 == 1
+            worst_zero = max(worst_zero, float(diff[keys].max()) / top)
+            diff, g = diff[~keys], g[~keys]
+        e = float(diff.max()) / max(float(g.abs().max()), 1e-30)
+        worst = max(worst, (e, name))
+    if not (worst[0] <= 1e-4 and worst_zero <= 1e-6):
+        raise AssertionError(f"train_reference: gradient err/max {worst}, analytically zero "
+                             f"gradients {worst_zero:.3g} of the largest ({sorted(zero)})")
+    log("train_reference", f"fp32 train step, flagship widths, batch {b} of {hw}x{hw}, card "
+        f"vs CPU: loss {loss:.6g} vs {ref_loss:.6g} ({rel:.2g} relative), worst gradient "
+        f"err/max {worst[0]:.3g} ({worst[1]}), analytically zero gradients within "
+        f"{worst_zero:.2g} of the largest ({len(zero)} tensors and the key rows)")
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
@@ -563,9 +911,14 @@ def main() -> None:
     for reuse in (1, 3):
         runs[f"cityscapes_r{reuse}"] = phase_cityscapes(smi, reuse)
     phase_cityscapes_reference()
+    gnb_err, gnb_row = phase_group_norm_backward(gen)
+    phase_attention_backward(gen)
+    runs["train"] = phase_train(smi)
+    phase_train_reference()
 
     def by_run(kernel):
-        return {run: {"launches": r["launches"][kernel], "path_launches": r["path_launches"][kernel]}
+        return {run: {"launches": r["launches"][kernel],
+                      "path_launches": r["path_launches"].get(kernel, {})}
                 for run, r in runs.items()}
 
     kernels = [
@@ -580,6 +933,13 @@ def main() -> None:
          "launches": sum(r["launches"]["flash_attention"] for r in runs.values()),
          "max_abs_err": attn_err, **attn_row, "cityscapes_case": attn_cs_row,
          "runs": by_run("flash_attention")},
+        {"name": "group_norm_backward", "route": "cuda",
+         "source": "ccdm_tpu_torch/csrc/group_norm_backward.cu",
+         # K2's backward: the JAX package trains through flax's GroupNorm
+         # (ccdm_tpu/models/layers.py:65), whose gradient is XLA code
+         "replaces": "ccdm_tpu/ops/group_norm.py:40",
+         "launches": sum(r["launches"]["group_norm_backward"] for r in runs.values()),
+         "max_abs_err": gnb_err, **gnb_row, "runs": by_run("group_norm_backward")},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

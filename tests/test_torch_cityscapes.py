@@ -196,8 +196,9 @@ def test_evaluator_settings_and_refusals(tmp_path):
     ev = CityscapesEvaluator(CITYSCAPES_EVAL_PARAMS)
     assert (ev.num_classes, ev.ignore, ev.eval_resolution, ev.vote_strategy,
             ev.num_evaluations) == (20, 19, "original", "confidence", 1)
-    with pytest.raises(NotImplementedError, match="load_from"):
-        CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS, load_from="ckpt")).build(
+    # `load_from` names a checkpoint of the port's; a missing one raises
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
+        CityscapesEvaluator(dict(_params(tmp_path, 1), load_from=str(tmp_path / "ckpt"))).build(
             (H, W, 3), 1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -87,6 +87,91 @@ def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu, path,
         assert bf16_within(out.float(), ref.float())
 
 
+def _close_to_max(out, ref, rel):
+    """|out - ref| <= rel x the largest |ref| of the tensor."""
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= rel * ref.float().abs().max().item(), (err, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("shape,dtype,silu", [
+    ((16, 256, 8, 8), BF16, True),       # path S in the forward: the 8x8 decoder concat
+    ((16, 96, 16, 16), BF16, True),      # path S, 3 channels a group
+    ((16, 64, 128, 128), BF16, True),    # path M: the flagship's largest slab
+    ((16, 32, 128, 128), F32, True),     # the fp32 head
+    ((16, 128, 256), BF16, False),       # an attention pre-norm [B, C, T]
+    ((3, 96, 13, 13), F32, True),        # H*W = 169: element loads
+    ((2, 128, 256, 512), BF16, True),    # path L: 1 MB slabs
+    ((2, 128, 256, 512), F32, False),    # path L: 2 MB slabs
+])
+def test_group_norm_backward_kernel_matches_plain(cuda, shape, dtype, silu, add):
+    """dx and dadd in x's dtype, dweight and dbias fp32: fp32 sums of the
+    same values in another order. fp32: within 1e-4 of each tensor's
+    largest magnitude (the fp32 gradient bound of the train-step parity
+    tests); bf16 outputs: within 1e-2 of it (a bf16 rounding of sums that
+    differ in their last fp32 bits); dadd against the scale of the terms
+    it sums."""
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 3 + 1).to(dtype)
+    dy = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    w = torch.randn(shape[1], generator=cuda, device="cuda") + 1
+    b = torch.randn(shape[1], generator=cuda, device="cuda")
+    e = torch.randn(shape[:2], generator=cuda, device="cuda").to(dtype) if add else None
+    before = gn.launches_bwd
+    out = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+    torch.cuda.synchronize()
+    assert gn.launches_bwd == before + 1
+    ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+    low = 1e-4 if dtype == F32 else 1e-2
+    _close_to_max(out[0], ref[0], low)
+    _close_to_max(out[1], ref[1], 1e-4)
+    _close_to_max(out[2], ref[2], 1e-4)
+    assert out[0].dtype == dtype and out[1].dtype == out[2].dtype == F32
+    if add:
+        # dadd sums dx over a channel's positions; with one channel a group it
+        # is 0 in exact arithmetic, so its scale is that of the summed terms
+        scale = ref[0].float().abs().reshape(*shape[:2], -1).sum(-1).max().item()
+        err = (out[3].float() - ref[3].float()).abs().max().item()
+        assert err <= low * scale, (err, scale)
+    else:
+        assert out[3] is None
+    # fixed-order sums: a second run gives the same bits
+    again = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+    for first, second in zip(out, again):
+        if first is not None:
+            assert torch.equal(first, second)
+
+
+def test_group_norm_autograd_on_card_matches_cpu(cuda):
+    """`group_norm` under autograd on the card (forward and backward
+    kernels) against the same on the CPU (plain versions), fp32."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 64, 16, 16, generator=gen) * 2
+    e = torch.randn(4, 64, generator=gen)
+    w, b = torch.randn(64, generator=gen) + 1, torch.randn(64, generator=gen)
+    dy = torch.randn(4, 64, 16, 16, generator=gen)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev, copy=True).requires_grad_() for t in (x, w, b, e)]
+        gn.group_norm(leaves[0], leaves[1], leaves[2], 32, silu=True, add=leaves[3]).backward(
+            dy.to(dev))
+        grads.append([t.grad.cpu() for t in leaves])
+    for ours, ref in zip(grads[1], grads[0]):
+        _close_to_max(ours, ref, 1e-4)
+
+
+def test_attention_backward_on_card_matches_autograd(cuda):
+    """The autograd Function (kernel forward, the JAX package's backward math)
+    against autograd through the plain `dense_attention`, fp32."""
+    qkv = torch.randn(8, 96, 256, generator=cuda, device="cuda")
+    g = torch.randn(8, 32, 256, generator=cuda, device="cuda")
+    grads = []
+    for fn in (fa.flash_attention, fa.dense_attention):
+        leaf = qkv.clone().requires_grad_()
+        fn(leaf[:, :32], leaf[:, 32:64], leaf[:, 64:]).backward(g)
+        grads.append(leaf.grad)
+    _close_to_max(grads[0], grads[1], 1e-4)
+
+
 def test_group_norm_misaligned_input_takes_element_loads(cuda):
     """A view that starts 2 bytes into its storage cannot take 16-byte loads."""
     base = torch.randn(2 * 32 * 64 + 1, generator=cuda, device="cuda").to(BF16)
