@@ -13,7 +13,11 @@ reuse) and its builder, the DINO ViT encoder, both sampler states,
 `eval.lidc_uncertainty.make_prob_sampler` and
 `eval.cityscapes_eval.CityscapesEvaluator`'s build and prediction — and
 LIDC training (`train.trainer.run_train`, `python -m
-ccdm_tpu_torch.cli.train`) with GED/HM-IoU validation and checkpoints. Two
+ccdm_tpu_torch.cli.train`) with GED/HM-IoU validation and checkpoints —
+and evaluation (`python -m ccdm_tpu_torch.cli.eval`: the LIDC uncertainty
+harness, the step sweep, Cityscapes inference with the official scoring),
+with per-element noise streams (`diffusion/random.py`), its own PNG codec
+(`utils/png.py`) and PIL-exact resampling (`data/resample.py`). Two
 hand-written CUDA kernels (`csrc/`) replace the JAX package's two Pallas
 kernels: fused GroupNorm(+SiLU), with a hand-written backward for
 training, and attention.

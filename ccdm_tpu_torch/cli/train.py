@@ -11,22 +11,10 @@ the CUDA card unless `--device` names another.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import time
 
-
-def load_params(path: str):
-    if path.endswith(".json"):
-        with open(path) as f:
-            return json.load(f)
-    try:
-        import yaml
-    except ImportError as e:
-        raise SystemExit(f"reading {path} needs PyYAML, which is not installed: pass a "
-                         f".json file or call run_train with the dict") from e
-    with open(path) as f:
-        return yaml.safe_load(f)
+from ccdm_tpu_torch.config import load_params
 
 
 def main(argv=None):

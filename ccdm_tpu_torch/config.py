@@ -1,11 +1,28 @@
 """Config defaults (a copy of `ccdm_tpu/config.py`'s `DEFAULTS`,
-`with_defaults` and `expanduservars`, without its YAML loading: the port
-takes `params` dicts, and only its CLI reads YAML, where PyYAML exists)."""
+`with_defaults` and `expanduservars`) and the CLIs' params-file reader: the
+port's entry points take `params` dicts; `load_params` reads YAML where
+PyYAML is installed (the card's machine has none) and `.json` anywhere."""
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Any, Dict
+
+
+def load_params(path: str) -> Dict[str, Any]:
+    """A params file: `.json` with the standard library, anything else as
+    YAML, which needs PyYAML."""
+    if path.endswith(".json"):
+        with open(path) as f:
+            return json.load(f)
+    try:
+        import yaml
+    except ImportError as e:
+        raise SystemExit(f"reading {path} needs PyYAML, which is not installed: pass a "
+                         f".json file of the same dict") from e
+    with open(path) as f:
+        return yaml.safe_load(f)
 
 
 def expanduservars(path: str) -> str:

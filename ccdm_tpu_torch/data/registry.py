@@ -22,15 +22,14 @@ _ALIASES = {
     "datasets.synthetic": "ccdm_tpu_torch.data.synthetic",
     "ccdm_tpu.data.synthetic": "ccdm_tpu_torch.data.synthetic",
     "ccdm_tpu.data.synthetic_sampling_speed": "ccdm_tpu_torch.data.synthetic",
+    "datasets.lidc_orig": "ccdm_tpu_torch.data.lidc_orig",
+    "ccdm_tpu.data.lidc_orig": "ccdm_tpu_torch.data.lidc_orig",
+    "datasets.cityscapes": "ccdm_tpu_torch.data.cityscapes",
+    "ccdm_tpu.data.cityscapes": "ccdm_tpu_torch.data.cityscapes",
 }
-# dataset modules of the JAX package that the port has no copy of yet
-_NOT_PORTED = {"datasets.lidc_orig", "ccdm_tpu.data.lidc_orig", "datasets.cityscapes",
-               "ccdm_tpu.data.cityscapes"}
 
 
 def resolve_dataset_module(dataset_file: str):
-    if dataset_file in _NOT_PORTED:
-        raise NotImplementedError(f"dataset {dataset_file!r} is not ported yet")
     name = _ALIASES.get(dataset_file, dataset_file)
     if name.split(".")[0] == "ccdm_tpu":
         raise ValueError(f"dataset module {name!r} belongs to the JAX package; the port "

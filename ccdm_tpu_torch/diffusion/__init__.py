@@ -8,12 +8,11 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post,
     theta_post_prob,
     theta_post_prob_naive,
-    uniform_onehot_noise,
 )
 from ccdm_tpu_torch.diffusion.sampling import (
     SamplerConfig,
     ancestral_sampler,
-    sample_prior,
+    sample_prior_per_key,
     subsampled_t_values,
 )
 
@@ -27,9 +26,8 @@ __all__ = [
     "theta_post_prob_naive",
     "sample_onehot",
     "max_prob_onehot",
-    "uniform_onehot_noise",
     "SamplerConfig",
     "ancestral_sampler",
-    "sample_prior",
+    "sample_prior_per_key",
     "subsampled_t_values",
 ]

@@ -5,9 +5,11 @@ Layout is the JAX package's: states and probabilities are `[B, H, W, C]`,
 classes on the last axis. All math is float32. Timesteps `t` are 1-based
 int tensors of shape `[B]`.
 
-Random draws take an explicit `torch.Generator`, or injected noise (Gumbel
-noise of the probabilities' shape, or one uniform per pixel); the port
-keeps no global RNG state.
+Random draws take injected noise (Gumbel noise of the probabilities'
+shape, or one uniform per pixel: the samplers' per-element streams of
+`diffusion/random.py`, or the JAX package's draws in the tests), or, in
+the train step, an explicit `torch.Generator`; the port keeps no global RNG
+state.
 """
 
 from __future__ import annotations
@@ -158,22 +160,17 @@ def sample_onehot(probs: torch.Tensor, generator: Optional[torch.Generator] = No
     return F.one_hot(idx, probs.shape[-1]).float()
 
 
-def sample_categorical_icdf(probs: torch.Tensor,
-                            generator: Optional[torch.Generator] = None, *,
-                            uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
+def sample_categorical_icdf(probs: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw over the last axis -> int64 indices `probs.shape[:-1]`.
 
     `probs` need not be normalised: the draw is `min(#(cdf <= u * cdf[-1]),
-    C - 1)` with one uniform `u` per pixel, from `generator` or the injected
-    `uniforms` (the tests feed the JAX package's). The prefix sum is an fp32
+    C - 1)` with one uniform `u` per pixel, `uniforms` of `probs.shape[:-1]`
+    (a sampler's stream, or the JAX package's in the tests). The prefix sum is an fp32
     `cumsum`; it sums in another order than the JAX package's triangular
     product, so a target within ~1e-6 of a cdf boundary may land on the
     neighbouring class.
     """
     cdf = torch.cumsum(probs.float(), dim=-1)
-    if uniforms is None:
-        uniforms = torch.rand(probs.shape[:-1], generator=generator, device=probs.device,
-                              dtype=torch.float32)
     target = uniforms[..., None] * cdf[..., -1:]
     idx = (cdf <= target).sum(dim=-1)
     return idx.clamp_max(probs.shape[-1] - 1)
@@ -183,11 +180,3 @@ def max_prob_onehot(probs: torch.Tensor) -> torch.Tensor:
     """Argmax one-hot ("majority" vote); ties go to the first class."""
     return F.one_hot(torch.argmax(probs, dim=-1), probs.shape[-1]).float()
 
-
-def uniform_onehot_noise(shape, num_classes: int,
-                         generator: Optional[torch.Generator] = None,
-                         device=None) -> torch.Tensor:
-    """x_T prior draw: uniform categorical, one-hot. `shape` excludes the
-    class axis."""
-    idx = torch.randint(0, num_classes, tuple(shape), generator=generator, device=device)
-    return F.one_hot(idx, num_classes).float()

@@ -17,6 +17,10 @@ Either resolves the final step to the argmax ("majority") or the
 probabilities ("confidence"). With `encoder_reuse` R > 1 the UNet encoder
 runs only on every R-th step and its skip activations are replayed in
 between (`DenoisingModel.denoise_fns_cached`).
+
+Noise comes from per-element streams (`diffusion/random.py`): element b's
+draw at step k is a pure function of its key and k, as the JAX sampler's
+`element_keys`, so a trajectory does not depend on the batch around it.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ccdm_tpu_torch.diffusion import random
 from ccdm_tpu_torch.diffusion.categorical import (
     CategoricalDiffusion,
     max_prob_onehot,
@@ -34,7 +39,6 @@ from ccdm_tpu_torch.diffusion.categorical import (
     sample_onehot,
     theta_post_prob,
     theta_post_prob_from_idx,
-    uniform_onehot_noise,
 )
 
 # DenoiseFn: (xt [B,H,W,C] one-hot, t [B] int 1-based) -> p0 probs [B,H,W,C].
@@ -109,8 +113,8 @@ def ancestral_sampler(
     denoise_fn: DenoiseFn,
     xt: torch.Tensor,
     config: SamplerConfig,
-    generator: Optional[torch.Generator] = None,
     *,
+    element_keys: Optional[torch.Tensor] = None,
     gumbel: Optional[torch.Tensor] = None,
     uniforms: Optional[torch.Tensor] = None,
     denoise_pair=None,
@@ -118,9 +122,10 @@ def ancestral_sampler(
     """Run the reverse process from `xt ~ q(x_T)` (one-hot `[B,H,W,C]`)
     down to one-hot (majority) or probability (confidence) maps `[B,H,W,C]`.
 
-    Step k's draw uses noise from `generator`, or the injected noise the
-    JAX sampler drew (the tests feed it): `gumbel[k]` `[K,B,H,W,C]` in the
-    one-hot state, `uniforms[k]` `[K,B,H,W]` in the index state. With
+    Step k's draw uses element b's stream `element_keys[b]` (`[B, 2]`, from
+    `random.element_keys`) at step k, or the injected noise the JAX sampler
+    drew (the tests feed it): `gumbel[k]` `[K,B,H,W,C]` in the one-hot
+    state, `uniforms[k]` `[K,B,H,W]` in the index state. With
     `config.encoder_reuse > 1`, `denoise_pair` is
     `DenoisingModel.denoise_fns_cached`'s `(full, reuse)`.
     """
@@ -136,6 +141,9 @@ def ancestral_sampler(
     if state not in ("index", "onehot"):
         raise ValueError(f"unknown sampler state {config.state!r}")
     denoise = _Denoiser(denoise_fn, config, denoise_pair)
+    if element_keys is None and (uniforms if state == "index" else gumbel) is None:
+        raise ValueError(f"the {state} state draws its noise from element_keys or from "
+                         f"injected {'uniforms' if state == 'index' else 'gumbel'} noise")
     batch = xt.shape[0]
 
     def t_vec(t_scalar):
@@ -153,8 +161,9 @@ def ancestral_sampler(
             return theta_post_prob_from_idx(d, idx, p0.float(), t).clamp_min(1e-12)
 
         def draw(step, probs):
-            return sample_categorical_icdf(
-                probs, generator, uniforms=None if uniforms is None else uniforms[step])
+            u = (uniforms[step] if uniforms is not None
+                 else random.uniform(element_keys, step, probs.shape[1:-1]))
+            return sample_categorical_icdf(probs, u)
 
         idx = torch.argmax(xt, dim=-1)
         for step, t_scalar in enumerate(t_grid[:-1].tolist()):
@@ -174,15 +183,18 @@ def ancestral_sampler(
         t = t_vec(t_scalar)
         probs = theta_post_prob(d, x, denoise(step, x, t).float(), t).clamp_min(1e-12)
         if t_scalar > 1:
-            x = sample_onehot(probs, generator,
-                              gumbel=None if gumbel is None else gumbel[step])
+            g = (gumbel[step] if gumbel is not None
+                 else random.gumbel(element_keys, step, probs.shape[1:]))
+            x = sample_onehot(probs, gumbel=g)
         else:
             x = resolve_final(probs)
     return x
 
 
-def sample_prior(batch: int, height: int, width: int, num_classes: int,
-                 generator: Optional[torch.Generator] = None,
-                 device=None) -> torch.Tensor:
-    """Draw `x_T` from the uniform categorical prior, one-hot `[B,H,W,C]`."""
-    return uniform_onehot_noise((batch, height, width), num_classes, generator, device)
+def sample_prior_per_key(keys: torch.Tensor, height: int, width: int,
+                         num_classes: int) -> torch.Tensor:
+    """`x_T` from the uniform categorical prior, one-hot `[B,H,W,C]`, element
+    b drawn from its stream `keys[b]` (step 0 of the `PRIOR` stream's keys
+    in the samplers)."""
+    return F.one_hot(random.randint(keys, 0, (height, width), num_classes),
+                     num_classes).float()

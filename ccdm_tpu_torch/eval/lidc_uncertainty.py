@@ -1,21 +1,40 @@
 """LIDC uncertainty evaluation (port of `ccdm_tpu/eval/lidc_uncertainty.py`).
 
-Ported: `make_prob_sampler`, the batched multi-sample generation that the
-LIDC harness, the Cityscapes evaluator and the benchmark call;
-`load_eval_params`, the EMA weights of a checkpoint (`load_from`); and
-`build_eval_feature_fn`, the DINO conditioning of an eval config. The
-harness around them is not ported yet, nor are per-element noise keys.
+- `make_prob_sampler`: the batched multi-sample generation that the LIDC
+  harness, the Cityscapes evaluator, the trainer's validation and the
+  benchmark call. Every (image, sample) pair draws its prior and chain
+  noise from its own stream, keyed on `index * S + sample` with `indices`
+  the GLOBAL dataset positions (`diffusion/random.py`), so an image's
+  samples do not depend on the batch size or the batch's composition.
+- `eval_lidc_uncertainty`, the harness: per test image `max(evaluations)`
+  samples in one batched sampler call; GED, sample and expert diversity
+  and HM-IoU at every sample count; the confusion matrix of the mean
+  log-probability prediction against every non-empty expert mask; the
+  steady-state samples/s; the results JSON in `evaluation_path`.
+  Single-process: the JAX version's host slicing and allgather have no
+  counterpart yet.
+- `load_eval_params`, the EMA weights of a checkpoint (`load_from`), and
+  `build_eval_feature_fn`, the DINO conditioning of an eval config.
 """
 
 from __future__ import annotations
 
+import json
 import logging
-from typing import Any, Dict, Optional
+import os
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ccdm_tpu_torch.diffusion.sampling import SamplerConfig, ancestral_sampler, sample_prior
+from ccdm_tpu_torch.config import expanduservars, with_defaults
+from ccdm_tpu_torch.diffusion import random
+from ccdm_tpu_torch.diffusion.sampling import (
+    SamplerConfig,
+    ancestral_sampler,
+    sample_prior_per_key,
+)
 from ccdm_tpu_torch.models.builder import DenoisingModel
 
 LOGGER = logging.getLogger(__name__)
@@ -24,7 +43,7 @@ LOGGER = logging.getLogger(__name__)
 def make_prob_sampler(model: DenoisingModel, num_samples: int,
                       num_steps: Optional[int] = None, feature_fn=None,
                       encoder_reuse: int = 1):
-    """`(net, images [B,H,W,Ci], generator) -> probs [B,S,H,W,C]`.
+    """`(net, images [B,H,W,Ci], key=0, indices=None) -> probs [B,S,H,W,C]`.
 
     Each image is repeated S times, image-major (as `jnp.repeat`), the prior
     is drawn, and the ancestral sampler runs under `torch.inference_mode()`
@@ -32,42 +51,58 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     yields probability maps). `net` is the module holding the weights (the
     JAX version's `params`).
 
+    Noise: `key` is the run's integer seed; element `index * S + sample`,
+    with `indices` `[B]` the images' global dataset positions (default
+    `arange(B)`), draws its prior from `random.element_keys(key, ids,
+    PRIOR)` and its chain from `(key, ids, CHAIN)`. For the tests, `prior`
+    `[B·S,H,W,C]` and the chain noise (`gumbel` `[K,B·S,H,W,C]` in the
+    one-hot state, `uniforms` `[K,B·S,H,W]` in the index state) inject the
+    noise the JAX sampler drew instead.
+
     `feature_fn(feature_net, images)` gives the DINO map of the B images,
     once, which is then repeated S times; `feature_net` (the encoder's
     weights, the JAX version's `feature_params`) is passed to each call.
     `encoder_reuse` R > 1 replays the UNet encoder's activations on the
     steps between every R-th.
-
-    For the tests, `prior` `[B·S,H,W,C]` and the chain noise (`gumbel`
-    `[K,B·S,H,W,C]` in the one-hot state, `uniforms` `[K,B·S,H,W]` in the
-    index state) inject the noise the JAX sampler drew; otherwise it all
-    comes from `generator`.
     """
     cfg = SamplerConfig(num_steps=num_steps or model.time_steps,
                         step_T_sample=model.step_T_sample,
                         encoder_reuse=int(encoder_reuse))
     c = model.diffusion.num_classes
 
-    def run(net, images: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+    def run(net, images: torch.Tensor, key: int = 0, indices=None, *,
             feature_net=None, prior: Optional[torch.Tensor] = None,
             gumbel: Optional[torch.Tensor] = None,
             uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, _ = images.shape
+        if indices is None:
+            indices = torch.arange(b)
+        indices = torch.as_tensor(indices, dtype=torch.int64).to(images.device)
+        ids = (indices[:, None] * num_samples
+               + torch.arange(num_samples, device=images.device)).reshape(-1)
         with torch.inference_mode():
             cond = images.repeat_interleave(num_samples, dim=0)
             fc = None
             if feature_fn is not None:
                 fc = feature_fn(feature_net, images).repeat_interleave(num_samples, dim=0)
-            xt = (sample_prior(b * num_samples, h, w, c, generator, images.device)
+            xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
                   if prior is None else prior)
             pair = (model.denoise_fns_cached(net, cond, fc)
                     if cfg.encoder_reuse > 1 else None)
             out = ancestral_sampler(model.diffusion, model.denoise_fn(net, cond, fc), xt,
-                                    cfg, generator, gumbel=gumbel, uniforms=uniforms,
-                                    denoise_pair=pair)
+                                    cfg, element_keys=random.element_keys(key, ids, random.CHAIN),
+                                    gumbel=gumbel, uniforms=uniforms, denoise_pair=pair)
         return out.reshape(b, num_samples, h, w, c)
 
     return run
+
+
+def pad_chunk(chunk: List[int], batch_size: int):
+    """Pad a tail chunk of global indices to `batch_size` by repeating its
+    last one: `(indices, real)`; only the first `real` results count. The
+    repeats draw the last image's noise again, so nothing real changes."""
+    real = len(chunk)
+    return chunk + [chunk[-1]] * (batch_size - real), real
 
 
 def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.Module:
@@ -78,7 +113,6 @@ def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.M
     if not load_from:
         LOGGER.warning("no load_from given — evaluating randomly initialised weights")
         return net
-    from ccdm_tpu_torch.config import expanduservars
     from ccdm_tpu_torch.train.checkpoint import load_tree
 
     tree = load_tree(expanduservars(load_from))
@@ -123,7 +157,6 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     net = encoder.init(generator, device)
     loaded = False
     if params.get("load_from"):
-        from ccdm_tpu_torch.config import expanduservars
         from ccdm_tpu_torch.train.checkpoint import load_tree
 
         try:
@@ -145,3 +178,151 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     feature_shape = (image_shape[0] // encoder.stride,
                      image_shape[1] // encoder.stride, encoder.channels)
     return encoder, feature_shape, net
+
+
+def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = None, *,
+                          device=None) -> Dict[str, Any]:
+    """The LIDC uncertainty protocol over the config's test set (see the
+    module docstring): a dict of `count`, `nonzero_fraction`, `mIoU`, `IoU`,
+    `Dice`, `diversity_experts`, `GED_s`, `diversity_s`, `HMIoU_s` per
+    sample count s, `samples_per_sec` (steady state: the first batch is
+    left out when there is a second, and padded tail images are not
+    counted), and the host seconds of generation, data and metrics.
+
+    The model builds on `device` (default: the CUDA card) and samples with
+    the EMA weights of `load_from`."""
+    from ccdm_tpu_torch.data.registry import resolve_dataset_module
+    from ccdm_tpu_torch.eval.metrics import (
+        ConfusionMatrix,
+        generalised_energy_distance,
+        hungarian_matched_iou,
+    )
+    from ccdm_tpu_torch.models.builder import build_model
+
+    # with_defaults maps evaluation_vote_strategy -> step_T_sample, so
+    # "confidence" reaches the sampler's final step
+    params = with_defaults(params)
+    module = resolve_dataset_module(params["dataset_file"])
+    dataset = module.test_dataset(params.get("dataset_val_max_size"))
+    num_classes = module.get_num_classes()
+    LOGGER.info("%d images in test dataset '%s'", len(dataset), params["dataset_file"])
+
+    evaluations: List[int] = params.get("evaluations", 8)
+    if isinstance(evaluations, int):
+        evaluations = [evaluations]
+    max_samples = max(evaluations)
+
+    first = dataset.get(0)
+    image_shape = first["image"].shape
+    seed = int(params.get("seed", 0))
+    model = build_model(params, num_classes, image_channels=image_shape[-1],
+                        image_size=min(image_shape[:2]), device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    feature_fn, _, feature_net = build_eval_feature_fn(params, image_shape, device=device)
+    net = load_eval_params(params, model.unet)
+    device = next(net.parameters()).device
+
+    n = len(dataset)
+    batch_size = min(max(1, int(params.get("batch_size", 2))), max(n, 1))
+    sampler = make_prob_sampler(model, max_samples, num_steps, feature_fn,
+                                encoder_reuse=int(params.get("encoder_reuse", 1)))
+
+    geds = np.zeros(len(evaluations))
+    div_samples = np.zeros(len(evaluations))
+    div_experts = np.zeros(len(evaluations))
+    hm_ious = np.zeros(len(evaluations))
+    cm = ConfusionMatrix(num_classes)
+    num_annotators = first["labels"].shape[0]
+    nonzero_total = 0
+    count = 0
+    batch_seconds: List[float] = []
+    batch_real: List[int] = []
+    data_seconds = metrics_seconds = 0.0
+
+    for start in range(0, n, batch_size):
+        idx, real = pad_chunk(list(range(start, min(start + batch_size, n))), batch_size)
+        t0 = time.perf_counter()
+        samples = [dataset.get(i) for i in idx]
+        images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(device)
+        labels = np.stack([s["labels"][...] for s in samples[:real]])  # [B,A,H,W,C]
+        refs = np.argmax(labels, axis=-1).astype(np.int32)  # [B,A,H,W]
+        data_seconds += time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        probs = sampler(net, images, seed, idx, feature_net=feature_net)  # [B,S,H,W,C]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        batch_seconds.append(time.perf_counter() - t0)
+        batch_real.append(real)
+
+        t0 = time.perf_counter()
+        probs = probs[:real]
+        pred_idx = probs.argmax(dim=-1)  # [B,S,H,W]
+        refs_t = torch.from_numpy(refs).to(device)
+        for i, s in enumerate(evaluations):
+            ged, div_s, div_e = generalised_energy_distance(pred_idx[:, :s], refs_t, num_classes)
+            geds[i] += ged.sum()
+            div_samples[i] += div_s.sum()
+            div_experts[i] += div_e.sum()
+            hm_ious[i] += hungarian_matched_iou(pred_idx[:, :s], refs_t, num_classes).sum()
+
+        # the confusion matrix of the mean log-probability prediction against
+        # every non-empty expert mask (empty masks are left out)
+        mean_log = torch.log(probs.clamp_min(1e-30)).mean(dim=1)
+        mean_pred = mean_log.argmax(dim=-1).cpu().numpy()  # [B,H,W]
+        nonzero = refs.sum(axis=(2, 3)) > 0  # [B,A]
+        nonzero_total += int(nonzero.sum())
+        for b in range(refs.shape[0]):
+            for a in range(refs.shape[1]):
+                if nonzero[b, a]:
+                    cm.update(mean_pred[b], refs[b, a])
+        count += real
+        metrics_seconds += time.perf_counter() - t0
+
+    if count == 0:
+        raise ValueError(f"empty test dataset ({n} images)")
+    # steady state: the first batch pays the warm-up, so it is left out
+    # whenever a second exists; only real samples count
+    steady = list(zip(batch_seconds, batch_real))
+    if len(steady) > 1:
+        steady = steady[1:]
+    steady_samples = sum(r for _, r in steady) * max_samples
+    steady_seconds = sum(s for s, _ in steady)
+    results: Dict[str, Any] = {
+        "count": count,
+        "nonzero_fraction": nonzero_total / max(count * num_annotators, 1),
+        "mIoU": cm.miou(),
+        "IoU": cm.iou().tolist(),
+        "Dice": cm.dice().tolist(),
+        "diversity_experts": float(div_experts[0] / count),
+        "samples_per_sec": float(steady_samples) / max(float(steady_seconds), 1e-9),
+        "generation_seconds": sum(batch_seconds),
+        "data_seconds": data_seconds,
+        "metrics_seconds": metrics_seconds,
+    }
+    for i, s in enumerate(evaluations):
+        results[f"GED_{s}"] = float(geds[i] / count)
+        results[f"diversity_{s}"] = float(div_samples[i] / count)
+        results[f"HMIoU_{s}"] = float(hm_ious[i] / count)
+
+    LOGGER.info("Nonzero: %.4g", results["nonzero_fraction"])
+    LOGGER.info("mIoU scores: %.4g", results["mIoU"])
+    LOGGER.info("IoU scores: %s", results["IoU"])
+    LOGGER.info("Dice scores: %s", results["Dice"])
+    LOGGER.info("Diversity experts: %.4g", results["diversity_experts"])
+    for s in evaluations:
+        LOGGER.info("GED (%d): %.4g", s, results[f"GED_{s}"])
+        LOGGER.info("Diversity samples (%d): %.4g", s, results[f"diversity_{s}"])
+        LOGGER.info("HM IoU (%d): %.4g", s, results[f"HMIoU_{s}"])
+    LOGGER.info("samples/sec: %.2f", results["samples_per_sec"])
+
+    out_dir = params.get("evaluation_path") or params.get("output_path")
+    if out_dir:
+        out_dir = expanduservars(out_dir)
+        os.makedirs(out_dir, exist_ok=True)
+        tag = f"steps{num_steps}" if num_steps else "full"
+        path = os.path.join(out_dir, f"lidc_uncertainty_{tag}.json")
+        with open(path, "w") as f:
+            json.dump(results, f, indent=2)
+        LOGGER.info("wrote results to %s", path)
+    return results

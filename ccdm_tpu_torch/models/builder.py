@@ -73,9 +73,9 @@ class DenoisingModel:
         return full, reuse
 
     def sample(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
-               generator: Optional[torch.Generator] = None,
                num_steps: Optional[int] = None,
                feature_condition: Optional[torch.Tensor] = None, *,
+               element_keys: Optional[torch.Tensor] = None,
                gumbel: Optional[torch.Tensor] = None,
                uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Ancestral sampling from the prior draw `xt` -> `[B,H,W,C]`."""
@@ -83,7 +83,8 @@ class DenoisingModel:
                             step_T_sample=self.step_T_sample)
         return ancestral_sampler(self.diffusion,
                                  self.denoise_fn(net, condition, feature_condition),
-                                 xt, cfg, generator, gumbel=gumbel, uniforms=uniforms)
+                                 xt, cfg, element_keys=element_keys, gumbel=gumbel,
+                                 uniforms=uniforms)
 
 
 @torch.no_grad()

@@ -100,7 +100,7 @@ def flagship(smoke, reuse: int) -> Workload:
     def make_run(steps):
         kw = {"encoder_reuse": reuse} if reuse > 1 else {}
         run = make_prob_sampler(model, num_samples=smoke.SAMPLES, num_steps=steps, **kw)
-        return lambda: run(model.unet, images, gen)
+        return lambda: run(model.unet, images, 2)
 
     def forward():
         return model.unet(torch.zeros(n, 128, 128, 2, device="cuda"),
@@ -128,10 +128,10 @@ def cityscapes(smoke, reuse: int) -> Workload:
 
     def make_run(steps):
         if steps == ev.model.time_steps:
-            return lambda: ev.predict_batch(images, gen)
+            return lambda: ev.predict_batch(images, 6)
         run = make_prob_sampler(ev.model, ev.num_evaluations, steps, feature_fn=ev.feature_fn,
                                 encoder_reuse=reuse)
-        return lambda: run(ev.model.unet, images, gen, feature_net=ev.feature_net).mean(1)
+        return lambda: run(ev.model.unet, images, 6, feature_net=ev.feature_net).mean(1)
 
     def forward():
         feats = ev.feature_fn(ev.feature_net, images)

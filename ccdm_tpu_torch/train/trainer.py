@@ -9,8 +9,8 @@ step-indexed loop around `train.step.make_train_step`, on one device.
   EMA (the reference's `average_model`) for validation, written from the
   EMA masters when validation needs it.
 - Cadence by `crossed()`: `display_freq` logging, `save_freq` periodic
-  checkpoints, `validation_freq` GED/HM-IoU validation and best
-  checkpoints.
+  checkpoints, `validation_freq` GED/HM-IoU validation, best checkpoints
+  and a qualitative grid (`images_<step>.png`).
 - Metrics stay on the device and are read two steps later, so the host
   never waits on the step it just queued; an invalid loss (non-finite or
   negative KL) saves `debug_state/` and raises.
@@ -22,9 +22,8 @@ step-indexed loop around `train.step.make_train_step`, on one device.
 Not ported yet, and refused with `NotImplementedError`: DINO feature
 conditioning (frozen or trainable) and Cityscapes' mIoU validation (they
 come with Cityscapes training), and meshes (multi-host, data parallel).
-Qualitative grids are skipped with a warning: they need PIL. Not ported by
-decision: `steps_per_launch` (one step a launch; the trajectory is the
-same).
+Not ported by decision: `steps_per_launch` (one step a launch; the
+trajectory is the same).
 """
 
 from __future__ import annotations
@@ -54,6 +53,7 @@ from ccdm_tpu_torch.utils.archive import archive_code
 from ccdm_tpu_torch.utils.logging import setup_logger
 from ccdm_tpu_torch.utils.metrics_log import MetricsLogger
 from ccdm_tpu_torch.utils.progress import ProgressLine
+from ccdm_tpu_torch.utils.visualize import prediction_grid, save_grid
 
 LOGGER = logging.getLogger(__name__)
 
@@ -178,22 +178,37 @@ class TrainingRun:
     def validate(self) -> Dict[str, float]:
         params = self.params
         num_samples = int(params.get("samples", 12))
-        if num_samples not in self._samplers:
-            self._samplers[num_samples] = make_batched_sampler(self.model, num_samples)
-        generator = torch.Generator(device=self.device).manual_seed(
-            step_seed(self.seed + 2, self.state.step))
         ged, div, hmiou = compute_ged(
             self.model, self.ema_unet(), self.val_ds, num_samples,
-            max(1, self.batch_size // num_samples), generator,
+            max(1, self.batch_size // num_samples), step_seed(self.seed + 2, self.state.step),
             max_batches=int(params.get("validation_max_batches", 0)) or None,
-            sampler=self._samplers[num_samples])
+            sampler=self._sampler(num_samples))
         LOGGER.info("mean GED %.3f, mean diversity %.3f, HM-IoU %.3f", ged, div, hmiou)
         metrics = {"GED": ged, "diversity": div, "HMIoU": hmiou}
         self.metrics.log(self.state.step, metrics, tag="val")
         self.checkpoints.save_best("ged", self.state, ged)
         self.checkpoints.save_best("hmiou", self.state, hmiou)
-        LOGGER.warning("qualitative grids are not ported (utils/visualize.py needs PIL)")
         return metrics
+
+    def _sampler(self, num_samples: int):
+        if num_samples not in self._samplers:
+            self._samplers[num_samples] = make_batched_sampler(self.model, num_samples)
+        return self._samplers[num_samples]
+
+    def save_qualitative(self) -> str:
+        """A grid of `n_validation_images` validation images, each with its
+        first expert mask and `n_validation_predictions` samples of the EMA
+        model, written to `<output_path>/images_<step>.png`."""
+        p = self.params
+        n = min(int(p.get("n_validation_images", 3)), len(self.val_ds))
+        samples = [self.val_ds.get(i) for i in range(n)]
+        images = np.stack([s["image"] for s in samples])
+        labels = np.argmax(np.stack([s["labels"][0] for s in samples]), -1)
+        preds = self._sampler(int(p.get("n_validation_predictions", 3)))(
+            self.ema_unet(), torch.from_numpy(images).to(self.device), step_seed(self.seed, 123))
+        grid = prediction_grid(images, labels, preds.cpu().numpy(), self.num_classes)
+        return save_grid(grid, os.path.join(self.output_path,
+                                            f"images_{self.state.step:06d}.png"))
 
     # ---- the loop ----------------------------------------------------------
 
@@ -320,6 +335,8 @@ class TrainingRun:
                     drain(block_all=True)
                     progress.close()
                     self.validate()
+                    png = self.save_qualitative()
+                    self.metrics.log_image(step, png, f"iteration {step}")
                     progress.reset_rate_window(total * self.batch_size)
                 if self._sigterm:
                     drain(block_all=True)

@@ -19,8 +19,9 @@ without printing its result:
    base 128: path L at 768 KB-2 MB slabs, the DINO concat's 640 channels).
 4. attention: the attention kernel against its plain version at the
    flagship's attention shapes, at T = 70 (element loads), at T = 2048 (many
-   K/V tiles), with 64-channel heads, and at the Cityscapes sites (BH 16 x
-   T 2048, 32 x 512, 32 x 128).
+   K/V tiles), with 64-channel heads, at the Cityscapes sites (BH 16 x
+   T 2048, 32 x 512, 32 x 128) and at the flagship train step's (48 x 256,
+   64 x 64).
    Phases 3 and 4 print, per case, the max-abs error, the device time of the
    kernel, of the plain version and of the one PyTorch call that computes
    the same function where there is one (`F.group_norm` without SiLU or add,
@@ -64,14 +65,42 @@ without printing its result:
    every step, launches of exactly 66 GroupNorm forward + 66 backward + 11
    attention a step plus the validation sampler's sites x UNet calls, GED
    in [0, 2] and HM-IoU in [0, 1], and that a new `TrainingRun` loading the
-   checkpoint holds the same params, EMA, Adam state and step, bit for bit.
-   Prints the cold first step, the warm s/step and images/s of steps 11-30
-   (validation and saves taken out), peak memory and the validation's
-   seconds.
+   checkpoint holds the same params, EMA, Adam state and step, bit for bit,
+   and that the validation wrote its qualitative grid. Prints the cold
+   first step, the warm s/step and images/s of steps 11-30 (validation,
+   grid and saves taken out), peak memory and the validation's seconds.
 12. train_reference: one fp32 train step (flagship widths, 32x32 input,
    batch 2, injected t and x_t) on the card (kernels, TF32 off) against the
    CPU (plain versions): loss within 1e-5 relative, every gradient within
    1e-4 of its tensor's largest magnitude.
+13. eval_lidc: `eval_lidc_uncertainty` at the flagship's full width (bf16,
+   T = 250, evaluations 1/4/8/16, batch 2) with the weights phase 11
+   saved, on 8 synthetic lesions that the phase writes as a PNG tree in the
+   LIDC crop release's layout (`datasets.lidc_orig`, 180x180, 4 masks).
+   Checks the count, GED in [0, 2], HM-IoU, Dice and IoU in [0, 1], the
+   results JSON, and launches of exactly 66 and 11 x 250 x 4 batches.
+   Prints the harness's samples/s against the bare sampler's of phase 5,
+   the host seconds of PNG decode and of the metrics, and peak memory.
+14. eval_invariance: fp32 (TF32 off), T = 10, each of 4 images' 16 samples
+   from one batch of 4 against batches of 1 with the global indices: maps
+   agree on >= 99.9% of pixels, probabilities within 1e-4 where they
+   agree. Then the noise stream's device time in a bf16 flagship step at
+   8 x 16 (Gumbel of [128,128,128,2]) against the whole step's.
+15. sampling_speed: the default step sweep (250 ... 10) of the harness on
+   2 images x 16 samples; samples/s per step count; launches exactly the
+   sites x 785 steps.
+16. cityscapes_eval: `run_inference` on `CITYSCAPES_EVAL_PARAMS` over a
+   2-image val tree of 1024x2048 RGB, 8-bit labelIds and 16-bit
+   instanceIds PNGs that the phase writes, with seeded random UNet weights
+   handed in as a `load_from` checkpoint: 1 vote x 250 steps at 256x512,
+   labels at the original resolution. Checks 2 images, mIoU in [0, 1] or
+   NaN, the official JSON with class and instance scores, 2 submission
+   PNGs that read back at 1024x2048, launches of 81 and 16 x 250. Prints
+   wall, images/s and the ms per image of decode, resize, sampling, dumps
+   and scoring.
+17. eval_cli: `python -m ccdm_tpu_torch.cli.eval` in a subprocess on a
+   `.json` params file (the LIDC branch, 2 images, T = 10, the card by
+   default): exit 0 and its results JSON.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -85,6 +114,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 IMAGES, SAMPLES, STEPS = 8, 16, 250
 
@@ -280,6 +311,8 @@ def phase_attention(gen):
         (16, 2048, 32, bf16),    # Cityscapes ds=8: 2 x 8 heads, 32x64 tokens
         (32, 512, 32, bf16),     # ds=16: 2 x 16 heads
         (32, 128, 32, bf16),     # ds=32 and the middle
+        (48, 256, 32, bf16),     # the flagship train step at batch 16: ds=8
+        (64, 64, 32, bf16),      # ds=16 and the middle
     ]
     worst, rows = 0.0, {}
     for bh, t, dh, dtype in cases:
@@ -387,7 +420,7 @@ def phase_slice(smi):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     start = time.perf_counter()
-    probs = run(model.unet, images, gen)
+    probs = run(model.unet, images, 2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, paths = read_counts()
@@ -411,7 +444,7 @@ def phase_slice(smi):
         f"{launches} = sites ({gn_sites} GN, {attn_sites} attention) x {STEPS}, by path "
         f"{paths}; sum err {sum_err:.2g}, foreground share "
         f"{float((probs.argmax(-1) == 1).float().mean()):.3f}")
-    return {"launches": launches, "path_launches": paths}
+    return {"launches": launches, "path_launches": paths}, n / wall
 
 
 def phase_reference():
@@ -506,7 +539,7 @@ def phase_cityscapes(smi, reuse: int):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     start = time.perf_counter()
-    mean = ev.predict_batch(images, gen)
+    mean = ev.predict_batch(images, 6)
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, paths = read_counts()
@@ -776,6 +809,7 @@ def phase_train(smi):
     run.ema_net.register_forward_pre_hook(lambda *_: val_calls.append(1))
     run.step_fn = step
     run.validate = timed(run.validate, "validate")
+    run.save_qualitative = timed(run.save_qualitative, "grid")
     run.checkpoints.save_periodic = timed(run.checkpoints.save_periodic, None)
 
     torch.cuda.synchronize()
@@ -803,6 +837,9 @@ def phase_train(smi):
     scores, val_s = val["validate"]
     if not (0 <= scores["GED"] <= 2 and 0 <= scores["HMIoU"] <= 1):
         raise AssertionError(f"validation scores out of range: {scores}")
+    grid_path, grid_s = val["grid"]
+    if not Path(grid_path).is_file():
+        raise AssertionError(f"no qualitative grid at {grid_path}")
     # the save and the validation at TRAIN_EVENT fall inside steps 11-30:
     # their time comes off the window
     inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[TRAIN_STEPS])
@@ -823,11 +860,11 @@ def phase_train(smi):
     batch = run.batch_size
     log("train", f"DEMO_TRAIN_PARAMS bf16, batch {batch}, {TRAIN_STEPS} steps ({smi}): cold "
         f"first step {cold:.2f} s, warm {warm * 1e3:.2f} ms/step = {batch / warm:.1f} images/s "
-        f"(steps 11-{TRAIN_STEPS}, the save and validation taken out), peak {peak:.2f} GiB; "
+        f"(steps 11-{TRAIN_STEPS}, the save, validation and grid taken out), peak {peak:.2f} GiB; "
         f"loss {losses[0]:.4g} -> {losses[-1]:.4g}; validation at step {TRAIN_EVENT}: GED "
-        f"{scores['GED']:.4f}, HM-IoU {scores['HMIoU']:.4f}, {calls} UNet calls, "
-        f"{val_s:.2f} s; launches {launches}; checkpoint round trip exact (params, EMA, "
-        f"Adam, step {TRAIN_STEPS})")
+        f"{scores['GED']:.4f}, HM-IoU {scores['HMIoU']:.4f}, {val_s:.2f} s; qualitative grid "
+        f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}; "
+        f"checkpoint round trip exact (params, EMA, Adam, step {TRAIN_STEPS})")
     return {"launches": launches, "path_launches": {}}
 
 
@@ -897,6 +934,290 @@ def phase_train_reference():
         f"{worst_zero:.2g} of the largest ({len(zero)} tensors and the key rows)")
 
 
+EVAL_DIR = Path("build/chip_smoke_eval")
+EVAL_SEED = 13
+
+
+def write_lidc_tree(root: Path, n: int) -> None:
+    """`n` synthetic lesions (`data/synthetic.py`) at the LIDC crop release's
+    180x180, in its PNG layout: a gray image and 4 expert masks each."""
+    from ccdm_tpu_torch.data.synthetic import make_synthetic_lidc_group
+    from ccdm_tpu_torch.utils.png import write_png
+
+    group = make_synthetic_lidc_group(n=n, resolution=180, seed=EVAL_SEED)
+    split = root / "lidc_crops_test" / "test"
+    for i in range(n):
+        image = np.round((group["images"][i] + 0.5) * 255).astype(np.uint8)
+        write_png(split / "images" / f"case{i // 4}" / f"s{i:02d}.png", image)
+        for a in range(4):
+            write_png(split / "gt" / f"case{i // 4}" / f"s{i:02d}_l{a}.png",
+                      group["labels"][i, a] * np.uint8(255))
+
+
+def lidc_eval_params(**overrides):
+    """The flagship model under the LIDC protocol on the PNG release, with
+    the weights phase 11 trained."""
+    from ccdm_tpu_torch import FLAGSHIP_PARAMS
+
+    params = dict(FLAGSHIP_PARAMS, dataset_file="datasets.lidc_orig", dataset_val_max_size=None,
+                  batch_size=2, evaluations=[1, 4, 8, 16], evaluation_vote_strategy="confidence",
+                  load_from="build/chip_smoke_train/run", seed=EVAL_SEED)
+    params.update(overrides)
+    return params
+
+
+def phase_eval_lidc(smi, bare_rate: float):
+    """The LIDC uncertainty harness at full width on 8 PNG images."""
+    import os
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    write_lidc_tree(EVAL_DIR / "lidc", 8)
+    os.environ["CCDM_LIDC_ORIG_PATH"] = str(EVAL_DIR / "lidc")
+    params = lidc_eval_params(evaluation_path=str(EVAL_DIR / "lidc_out"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start = time.perf_counter()
+    res = eval_lidc_uncertainty(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, _ = read_counts()
+    batches = 4
+    want = {"group_norm": 66 * STEPS * batches, "flash_attention": 11 * STEPS * batches,
+            "group_norm_backward": 0}
+    if launches != want:
+        raise AssertionError(f"eval_lidc: launches {launches} != {want} (sites x {STEPS} steps "
+                             f"x {batches} batches)")
+    bad = [k for k in ("GED_1", "GED_4", "GED_8", "GED_16") if not 0 <= res[k] <= 2]
+    bad += [k for k in ("HMIoU_1", "HMIoU_4", "HMIoU_8", "HMIoU_16") if not 0 <= res[k] <= 1]
+    bad += [k for k in ("IoU", "Dice") if not all(0 <= v <= 1 for v in res[k])]
+    if res["count"] != 8 or bad:
+        raise AssertionError(f"eval_lidc: count {res['count']}, out of range: {bad} in {res}")
+    if not (EVAL_DIR / "lidc_out" / "lidc_uncertainty_full.json").is_file():
+        raise AssertionError("eval_lidc: no results JSON")
+    log("eval_lidc", f"flagship bf16, 8 PNG images x 16 samples x {STEPS} steps at batch 2 "
+        f"({smi}): wall {wall:.2f} s, harness {res['samples_per_sec']:.2f} samples/s (steady, "
+        f"batches 2-4) against the bare sampler's {bare_rate:.2f} at 8 x 16 (phase 5); host "
+        f"seconds: generation {res['generation_seconds']:.2f}, PNG decode and crop "
+        f"{res['data_seconds']:.3f}, metrics {res['metrics_seconds']:.2f}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; GED 1/4/8/16 "
+        + "/".join(f"{res[f'GED_{s}']:.4f}" for s in (1, 4, 8, 16)) + ", HM-IoU "
+        + "/".join(f"{res[f'HMIoU_{s}']:.4f}" for s in (1, 4, 8, 16))
+        + f", Dice {[round(v, 4) for v in res['Dice']]}, mIoU {res['mIoU']:.4f}, nonzero "
+        f"{res['nonzero_fraction']:.3f}; launches {launches}")
+    return {"launches": launches, "path_launches": {}}
+
+
+def phase_eval_invariance():
+    """Each image's samples, fp32, from one batch of 4 against batches of 1
+    with the global indices; then the noise stream's share of a flagship
+    step."""
+    import torch
+
+    from ccdm_tpu_torch import FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.diffusion import random
+    from ccdm_tpu_torch.diffusion.categorical import sample_onehot, theta_post_prob
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.models.builder import build_model
+
+    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence", compute_dtype="float32")
+    model = build_model(params, 2, 1, 128)
+    unzero_(model.unet, seed=14)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    images = torch.randn(4, 128, 128, 1, generator=gen, device="cuda")
+    run = make_prob_sampler(model, SAMPLES, num_steps=10)
+    together = run(model.unet, images, EVAL_SEED, [10, 11, 12, 13])
+    alone = torch.cat([run(model.unet, images[i:i + 1], EVAL_SEED, [10 + i]) for i in range(4)])
+    agree = together.argmax(-1) == alone.argmax(-1)
+    share = float(agree.float().mean())
+    err = float((together - alone).abs()[agree].max())
+    if not (share >= 0.999 and err <= 1e-4):
+        raise AssertionError(f"eval_invariance: batch of 4 vs batches of 1: maps agree on "
+                             f"{share}, prob err {err}")
+    del together, alone
+
+    # the noise stream's device time in a bf16 flagship step at 8 x 16
+    bf16 = build_model(dict(params, compute_dtype="bfloat16"), 2, 1, 128)
+    unzero_(bf16.unet, seed=1)
+    n = IMAGES * SAMPLES
+    keys = random.element_keys(EVAL_SEED, torch.arange(n, device="cuda"), random.CHAIN)
+    x = torch.nn.functional.one_hot(torch.randint(0, 2, (n, 128, 128), generator=gen,
+                                                  device="cuda"), 2).float()
+    cond = torch.randn(n, 128, 128, 1, generator=gen, device="cuda")
+    t = torch.full((n,), 120, device="cuda", dtype=torch.int32)
+    fn = bf16.denoise_fn(bf16.unet, cond)
+    with torch.inference_mode():
+        noise_ms = time_ms(lambda: random.gumbel(keys, 3, (128, 128, 2)))
+        step_ms = time_ms(lambda: sample_onehot(theta_post_prob(
+            bf16.diffusion, x, fn(x, t).float(), t).clamp_min(1e-12),
+            gumbel=random.gumbel(keys, 3, (128, 128, 2))), reps=3, calls=5)
+    log("eval_invariance", f"fp32, TF32 off, 4 images x {SAMPLES} samples x 10 steps: one batch "
+        f"of 4 vs 4 batches of 1 with global indices: maps agree on {share:.5f} of pixels, max "
+        f"prob err {err:.3g} where they agree; noise stream (Threefry-2x32 as int64 torch ops, "
+        f"Gumbel of [{n},128,128,2]) {noise_ms:.3f} ms of a {step_ms:.2f} ms bf16 flagship step "
+        f"at {IMAGES} x {SAMPLES} ({noise_ms / step_ms:.1%})")
+    return noise_ms, step_ms
+
+
+def phase_sampling_speed(smi):
+    """The default step sweep on 2 PNG images x 16 samples."""
+    import torch
+
+    from ccdm_tpu_torch.eval.lidc_sampling_speed import (
+        DEFAULT_STEP_SWEEP,
+        eval_lidc_sampling_speed,
+    )
+
+    params = lidc_eval_params(dataset_val_max_size=2, evaluations=[16],
+                              evaluation_path=str(EVAL_DIR / "sweep_out"))
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    res = eval_lidc_sampling_speed(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, _ = read_counts()
+    steps = sum(DEFAULT_STEP_SWEEP)
+    want = {"group_norm": 66 * steps, "flash_attention": 11 * steps, "group_norm_backward": 0}
+    if sorted(res) != sorted(DEFAULT_STEP_SWEEP) or launches != want:
+        raise AssertionError(f"sampling_speed: sweep {sorted(res)}, launches {launches} != "
+                             f"{want} (sites x {steps} steps)")
+    log("sampling_speed", f"flagship bf16, 2 images x 16 samples, one batch a step count "
+        f"({smi}): wall {wall:.2f} s; samples/s by steps " + ", ".join(
+            f"{k}: {res[k]['samples_per_sec']:.2f}" for k in DEFAULT_STEP_SWEEP)
+        + "; GED_16 by steps " + ", ".join(f"{k}: {res[k]['GED_16']:.4f}"
+                                             for k in DEFAULT_STEP_SWEEP)
+        + f"; launches {launches}")
+    return {"launches": launches, "path_launches": {}}
+
+
+def write_cityscapes_tree(root: Path, n: int) -> list:
+    """`n` val scenes at 1024x2048: RGB `leftImg8bit`, 8-bit `labelIds`
+    (sky, building, road bands with car and person boxes) and 16-bit
+    `instanceIds`, in the release's layout. Returns the image paths."""
+    from ccdm_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(EVAL_SEED)
+    h, w = CS_LABEL_HW
+    paths = []
+    for i in range(n):
+        ids = np.full((h, w), 11, np.uint8)
+        ids[: h // 4] = 23
+        ids[h // 2:] = 7
+        inst = ids.astype(np.uint16)
+        for k, (label, bh, bw) in enumerate([(26, 120, 260)] * 4 + [(24, 180, 60)] * 3):
+            y, x = rng.integers(h // 3, h - bh), rng.integers(0, w - bw)
+            ids[y:y + bh, x:x + bw] = label
+            inst[y:y + bh, x:x + bw] = label * 1000 + k
+        yy, xx = np.mgrid[0:h, 0:w]
+        image = np.stack([(xx // 8 + ids) % 256, (yy // 4 + 3 * ids) % 256,
+                          rng.integers(0, 256, (h, w))], -1).astype(np.uint8)
+        base = f"frankfurt_{i:06d}_000019"
+        paths.append(write_png(root / "leftImg8bit" / "val" / "frankfurt" /
+                               f"{base}_leftImg8bit.png", image, level=1))
+        write_png(root / "gtFine" / "val" / "frankfurt" / f"{base}_gtFine_labelIds.png", ids)
+        write_png(root / "gtFine" / "val" / "frankfurt" / f"{base}_gtFine_instanceIds.png", inst)
+    return paths
+
+
+def phase_cityscapes_eval(smi):
+    """`run_inference` on CITYSCAPES_EVAL_PARAMS at full width over a
+    2-image val tree, with seeded random UNet weights (zero leaves redrawn)
+    handed in as a `load_from` checkpoint."""
+    import json as json_
+    import os
+
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS
+    from ccdm_tpu_torch.eval.cityscapes_eval import run_inference
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.utils.png import read_png
+
+    paths = write_cityscapes_tree(EVAL_DIR / "cs", CS_IMAGES)
+    os.environ["CCDM_CITYSCAPES_PATH"] = str(EVAL_DIR / "cs")
+    model = build_model(CITYSCAPES_EVAL_PARAMS, 20, 3, 256,
+                        generator=torch.Generator().manual_seed(0))
+    unzero_(model.unet, seed=16)
+    (EVAL_DIR / "cs_ckpt").mkdir(parents=True, exist_ok=True)
+    torch.save({"average_model": model.unet.state_dict()}, EVAL_DIR / "cs_ckpt" / "state.pt")
+    del model
+    out = EVAL_DIR / "cs_out"
+    params = dict(CITYSCAPES_EVAL_PARAMS, output_path=str(out),
+                  load_from=str(EVAL_DIR / "cs_ckpt"))
+    start = time.perf_counter()
+    decode = [read_png(p, mode="RGB") for p in paths]
+    decode_s = time.perf_counter() - start
+    del decode
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    res = run_inference(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, paths_by = read_counts()
+    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0}
+    if launches != want:
+        raise AssertionError(f"cityscapes_eval: launches {launches} != {want}")
+    official = res["official"]
+    miou = res["mIoU"]
+    if res["images"] != CS_IMAGES or not (miou != miou or 0 <= miou <= 1):
+        raise AssertionError(f"cityscapes_eval: {res['images']} images, mIoU {miou}")
+    exported = json_.loads((out / "resultPixelLevelSemanticLabeling.json").read_text())
+    if "averageScoreClasses" not in exported or official["nbInstanceImages"] != CS_IMAGES or \
+            official["classInstScores"] is None:
+        raise AssertionError(f"cityscapes_eval: official scores without classes or instances: "
+                             f"{sorted(exported)}, {official['nbInstanceImages']} instance images")
+    submitted = sorted((out / "submit").glob("*.png"))
+    shapes = {read_png(p).shape for p in submitted}
+    if len(submitted) != CS_IMAGES or shapes != {CS_LABEL_HW}:
+        raise AssertionError(f"cityscapes_eval: submission PNGs {len(submitted)} of {shapes}")
+    sec = res["seconds"]
+    per = {k: v / CS_IMAGES * 1e3 for k, v in sec.items()}
+    decode_ms = decode_s / CS_IMAGES * 1e3
+    log("cityscapes_eval", f"CITYSCAPES_EVAL_PARAMS bf16, {CS_IMAGES} val images 1024x2048 -> "
+        f"256x512, 1 vote x {STEPS} steps, labels at 1024x2048 ({smi}): wall {wall:.2f} s, "
+        f"{CS_IMAGES / wall:.3f} images/s; ms per image: image decode {decode_ms:.1f}, labels "
+        f"decode + resize + normalise {per['data'] - decode_ms:.1f}, sampling (DINO included) "
+        f"{per['sampling']:.1f}, upsample + argmax {per['labels']:.1f}, confusion "
+        f"{per['confusion']:.1f}, PNG dumps {per['dumps']:.1f}, official scoring "
+        f"{per['scoring']:.1f}; mIoU {miou:.4f}, official class mIoU "
+        f"{official['averageScoreClasses']:.4f}, iIoU {official['averageScoreInstClasses']:.4f}; "
+        f"launches {launches}, by path {paths_by}")
+    return {"launches": launches, "path_launches": paths_by}
+
+
+def phase_eval_cli():
+    """`python -m ccdm_tpu_torch.cli.eval` on a `.json` params file in a
+    subprocess: the LIDC branch on the card, 2 images, T = 10."""
+    import os
+
+    params = lidc_eval_params(dataset_val_max_size=2, evaluations=[1, 4], time_steps=10,
+                              load_from=None, evaluation_path=str(EVAL_DIR / "cli_out"))
+    path = EVAL_DIR / "cli_params.json"
+    path.write_text(json.dumps(params))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ccdm_tpu_torch.cli.eval", str(path)],
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, CCDM_LIDC_ORIG_PATH=str(EVAL_DIR / "lidc")))
+    wall = time.perf_counter() - start
+    result = EVAL_DIR / "cli_out" / "lidc_uncertainty_full.json"
+    if proc.returncode != 0 or not result.is_file():
+        raise AssertionError(f"eval_cli: exit {proc.returncode}, results {result.is_file()}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    res = json.loads(result.read_text())
+    if res["count"] != 2:
+        raise AssertionError(f"eval_cli: count {res['count']}")
+    log("eval_cli", f"python -m ccdm_tpu_torch.cli.eval {path} (LIDC branch, 2 images x 4 "
+        f"samples x 10 steps, on the card by default): exit 0 in {wall:.1f} s, GED_4 "
+        f"{res['GED_4']:.4f}, {result}")
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
@@ -906,7 +1227,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     gn_err, gn_row, gn_cs_row = phase_group_norm(gen)
     attn_err, attn_row, attn_cs_row = phase_attention(gen)
-    runs = {"flagship": phase_slice(smi)}
+    runs = {}
+    runs["flagship"], bare_rate = phase_slice(smi)
     phase_reference()
     for reuse in (1, 3):
         runs[f"cityscapes_r{reuse}"] = phase_cityscapes(smi, reuse)
@@ -915,6 +1237,11 @@ def main() -> None:
     phase_attention_backward(gen)
     runs["train"] = phase_train(smi)
     phase_train_reference()
+    runs["eval_lidc"] = phase_eval_lidc(smi, bare_rate)
+    phase_eval_invariance()
+    runs["sampling_speed"] = phase_sampling_speed(smi)
+    runs["cityscapes_eval"] = phase_cityscapes_eval(smi)
+    phase_eval_cli()
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],

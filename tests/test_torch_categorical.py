@@ -98,13 +98,18 @@ def test_generator_draws_are_seeded_and_distributed():
     """Torch (Philox) and JAX (threefry) streams differ, so the generator
     path is checked by distribution: Gumbel mean is Euler's gamma 0.5772
     (std pi/sqrt(6) = 1.28, so 200k draws give a standard error of 0.003;
-    the limit is 5 of them), and the prior is uniform over classes."""
+    the limit is 5 of them), and the prior, drawn from per-element streams,
+    is uniform over classes and repeats under the same seed."""
+    from ccdm_tpu_torch.diffusion import random
+    from ccdm_tpu_torch.diffusion.sampling import sample_prior_per_key
+
     g = tcat.gumbel_noise((200_000,), torch.Generator().manual_seed(0))
     assert abs(float(g.mean()) - 0.5772157) < 0.015
-    prior = tcat.uniform_onehot_noise((4, 64, 64), 4, torch.Generator().manual_seed(1))
+    keys = random.element_keys(1, torch.arange(4), random.PRIOR)
+    prior = sample_prior_per_key(keys, 64, 64, 4)
     assert prior.shape == (4, 64, 64, 4)
     np.testing.assert_array_equal(prior.sum(-1).numpy(), 1.0)
     # 65536 pixels: a class's share has binomial std 0.0017 about 0.25
     np.testing.assert_allclose(prior.mean((0, 1, 2)).numpy(), 0.25, atol=0.015)
-    again = tcat.uniform_onehot_noise((4, 64, 64), 4, torch.Generator().manual_seed(1))
+    again = sample_prior_per_key(random.element_keys(1, torch.arange(4), random.PRIOR), 64, 64, 4)
     torch.testing.assert_close(prior, again, rtol=0, atol=0)

@@ -82,7 +82,10 @@ def test_icdf_counts_ties_below_and_clamps():
 
 def test_icdf_generator_draws_follow_probs():
     probs = torch.tensor([0.1, 0.2, 0.0, 0.7]).expand(100_000, 4)
-    idx = tcat.sample_categorical_icdf(probs, torch.Generator().manual_seed(0))
+    from ccdm_tpu_torch.diffusion import random
+
+    u = random.uniform(random.element_keys(0, torch.arange(1), random.CHAIN), 0, (100_000,))
+    idx = tcat.sample_categorical_icdf(probs, u[0])
     freq = np.bincount(idx.numpy(), minlength=4) / 100_000
     # binomial std <= 0.0015 at 1e5 draws; 5 of them
     np.testing.assert_allclose(freq, [0.1, 0.2, 0.0, 0.7], atol=0.0075)
@@ -172,7 +175,7 @@ def test_reuse_replays_the_encoder(models):
     with torch.inference_mode():
         tsamp.ancestral_sampler(tmodel.diffusion, None, torch.from_numpy(prior),
                                 tsamp.SamplerConfig(K, encoder_reuse=3),
-                                torch.Generator().manual_seed(0),
+                                element_keys=torch.zeros(B, 2, dtype=torch.int64),
                                 denoise_pair=(count_full, count_reuse))
     assert calls == ["full", "reuse", "reuse", "full", "reuse"]
 

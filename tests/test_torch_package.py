@@ -11,14 +11,15 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Every module of `ccdm_tpu_torch` imports with jax, flax and the JAX
-    package made unimportable."""
+    package made unimportable, and with PIL, h5py and PyYAML too (the
+    card's machine has none of them)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "ccdm_tpu_torch").rglob("*.py"))
     modules = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in modules]
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'ccdm_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'ccdm_tpu', 'PIL', 'h5py', 'yaml'):\n"
         "    sys.modules[name] = None\n"
         f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
         "print('imported', len(sys.modules))\n"
@@ -28,7 +29,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 18
     assert {"ccdm_tpu_torch.models.dino", "ccdm_tpu_torch.eval.cityscapes_eval",
-            "ccdm_tpu_torch.config"} <= set(modules)
+            "ccdm_tpu_torch.config", "ccdm_tpu_torch.cli.eval", "ccdm_tpu_torch.utils.png",
+            "ccdm_tpu_torch.data.cityscapes", "ccdm_tpu_torch.eval.cs_scoring"} <= set(modules)
 
 
 def test_flagship_params_match_graft_entry():
@@ -43,7 +45,7 @@ def test_packaging_names_the_port():
         cfg = tomllib.load(f)
     assert "ccdm_tpu_torch*" in cfg["tool"]["setuptools"]["packages"]["find"]["include"]
     globs = cfg["tool"]["setuptools"]["package-data"]["ccdm_tpu_torch"]
-    assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs
+    assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs and "csrc/*.cpp" in globs
     assert any(m.startswith("gpu:") for m in cfg["tool"]["pytest"]["ini_options"]["markers"])
     assert {p.name for p in (REPO / "ccdm_tpu_torch/csrc").glob("*.cu")} >= {
         "group_norm.cu", "flash_attention.cu"}

@@ -244,8 +244,13 @@ def test_registry_maps_names_onto_the_port():
     for name in ("datasets.lidc", "datasets.lidc_sampling_speed", "ccdm_tpu.data.lidc"):
         assert resolve_dataset_module(name) is lidc
     assert is_multi_annotator(syn) and is_multi_annotator(lidc)
-    with pytest.raises(NotImplementedError):
-        resolve_dataset_module("datasets.cityscapes")
+    from ccdm_tpu_torch.data import cityscapes, lidc_orig
+
+    for name in ("datasets.cityscapes", "ccdm_tpu.data.cityscapes"):
+        assert resolve_dataset_module(name) is cityscapes
+    for name in ("datasets.lidc_orig", "ccdm_tpu.data.lidc_orig"):
+        assert resolve_dataset_module(name) is lidc_orig
+    assert is_multi_annotator(lidc_orig) and not is_multi_annotator(cityscapes)
     with pytest.raises(ValueError, match="JAX package"):
         resolve_dataset_module("ccdm_tpu.data.transforms")
 
@@ -287,7 +292,7 @@ def test_lidc_eval_samples_from_a_trained_checkpoint(tmp_path, tiny_synthetic):
         assert torch.equal(p.detach(), state.ema_params[name]), name
     images = torch.from_numpy(np.stack([syn.validation_dataset().get(i)["image"]
                                         for i in range(2)]))
-    probs = make_prob_sampler(model, 3)(model.unet, images, torch.Generator().manual_seed(0))
+    probs = make_prob_sampler(model, 3)(model.unet, images, 0)
     assert probs.shape == (2, 3, 32, 32, 2) and bool(torch.isfinite(probs).all())
     torch.testing.assert_close(probs.sum(-1), torch.ones(2, 3, 32, 32))
 
