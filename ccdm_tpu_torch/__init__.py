@@ -12,8 +12,9 @@ inverse-CDF draws, the UNet (with the DINO feature concat and encoder
 reuse) and its builder, the DINO ViT encoder, both sampler states,
 `eval.lidc_uncertainty.make_prob_sampler` and
 `eval.cityscapes_eval.CityscapesEvaluator`'s build and prediction — and
-LIDC training (`train.trainer.run_train`, `python -m
-ccdm_tpu_torch.cli.train`) with GED/HM-IoU validation and checkpoints —
+training (`train.trainer.run_train`, `python -m ccdm_tpu_torch.cli.train`):
+LIDC with GED/HM-IoU validation, Cityscapes with mIoU validation, with
+DINO conditioning frozen or trainable, and checkpoints —
 and evaluation (`python -m ccdm_tpu_torch.cli.eval`: the LIDC uncertainty
 harness, the step sweep, Cityscapes inference with the official scoring),
 with per-element noise streams (`diffusion/random.py`), its own PNG codec
@@ -141,3 +142,69 @@ DEMO_TRAIN_PARAMS = {
     "steps_per_launch": 2,
     "seed": 0,
 }
+
+# `configs/params_cityscapes.yml` after `ccdm_tpu.config.with_defaults`: the
+# 20-class Cityscapes trainer at 128x256 (flip, resize, colour jitter and
+# ImageNet normalisation on the host), base 32, channel mult
+# (1,1,2,2,4,4), attention at ds {8,16,32} with 32-channel heads, batch
+# 16, bf16 torso, fp32 masters, Adam with a polynomial LR 1e-4 -> 1e-6,
+# Polyak 0.9999, class weights that zero the ignore class, mIoU validation
+# every 2500 steps. The config ships DINO off (`type: 'none'`). A copy for
+# the same reasons as the ones above; a test holds it equal to the YAML.
+CITYSCAPES_TRAIN_PARAMS = {
+    "class_weights": "weighted",
+    "beta_schedule": "cosine",
+    "beta_schedule_params": {"s": 0.008},
+    "time_steps": 250,
+    "polyak_alpha": 0.9999,
+    "backbone": "unet_openai",
+    "batch_size": 16,
+    "samples": 4,
+    "step_T_sample": "majority",
+    "feature_cond_encoder": {
+        "type": "none",
+        "model": "dino_vits8",
+        "channels": 384,
+        "conditioning": "concat_pixels_concat_features",
+        "output_stride": 8,
+        "scale": "single",
+        "train": False,
+        "source_layer": 11,
+        "target_layer": 10,
+        "weights": None,
+    },
+    "compute_dtype": "bfloat16",
+    "output_path": "./logs/cityscapes_${NOW}",
+    "dataset_file": "datasets.cityscapes",
+    "dataset_pipeline_train": ["flip", "resize", "colorjitter", "torchvision_normalise"],
+    "dataset_pipeline_train_settings": {"target_size": [128, 256]},
+    "dataset_pipeline_val": ["resize", "torchvision_normalise"],
+    "dataset_pipeline_val_settings": {"target_size": [128, 256]},
+    "dataset_val_max_size": 100,
+    "max_epochs": 2000,
+    "optim": {"name": "Adam", "learning_rate": 1e-4, "lr_function": "polynomial",
+              "lr_params": {"power": 1.0, "min_lr": 1e-6}, "epochs": 2000},
+    "validation_freq": 2500,
+    "display_freq": 100,
+    "save_freq": 1000,
+    "wandb": False,
+    "unet_openai": {
+        "base_channels": 32,
+        "channel_mult": [1, 1, 2, 2, 4, 4],
+        "attention_resolutions": [32, 16, 8],
+        "num_heads": 1,
+        "num_head_channels": 32,
+        "softmax_output": True,
+    },
+    "load_from": None,
+    "mesh": {"model": 1},
+    "steps_per_launch": 2,
+}
+
+# The same trainer with the config's DINO conditioning switched on
+# (`type: 'dino'`): ViT-S/8, the key facet of block 11 at stride 8 (a
+# 16x32x384 map at 128x256) concatenated before input block 10, frozen as
+# the config ships it (`train: no`).
+CITYSCAPES_DINO_TRAIN_PARAMS = dict(
+    CITYSCAPES_TRAIN_PARAMS,
+    feature_cond_encoder=dict(CITYSCAPES_TRAIN_PARAMS["feature_cond_encoder"], type="dino"))

@@ -4,9 +4,11 @@
 For every validation image, `num_samples` segmentations in one batched
 sampler pass (the image repeated along the batch), then GED, sample
 diversity and HM-IoU against the expert masks. Each image draws from the
-noise streams of its global index. Single process: the JAX version's host
-slicing and allgather have no counterpart yet, nor its DINO-conditioned
-sampling (no LIDC config conditions on DINO).
+noise streams of its global index. The samplers take the DINO encoder of
+a conditioned run (`feature_fn`, its weights passed to each call as
+`feature_net`), as the trainer's mIoU validation and grids use them. Single
+process: the JAX version's host slicing and allgather have no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -25,25 +27,28 @@ LOGGER = logging.getLogger(__name__)
 
 
 def make_batched_sampler(model: DenoisingModel, num_samples: int,
-                         num_steps: Optional[int] = None):
-    """`(net, images [B,H,W,Ci], key=0, indices=None) -> [B,S,H,W]` int64
-    class maps: the argmax of `make_prob_sampler`'s maps."""
-    prob_sampler = make_prob_sampler(model, num_samples, num_steps)
+                         num_steps: Optional[int] = None, feature_fn=None):
+    """`(net, images [B,H,W,Ci], key=0, indices=None, feature_net=None) ->
+    [B,S,H,W]` int64 class maps: the argmax of `make_prob_sampler`'s maps,
+    conditioned on `feature_fn(feature_net, images)` where it is given."""
+    prob_sampler = make_prob_sampler(model, num_samples, num_steps, feature_fn=feature_fn)
 
-    def run(net, images, key: int = 0, indices=None):
-        return prob_sampler(net, images, key, indices).argmax(dim=-1)
+    def run(net, images, key: int = 0, indices=None, feature_net=None):
+        return prob_sampler(net, images, key, indices,
+                            feature_net=feature_net).argmax(dim=-1)
 
     return run
 
 
 def compute_ged(model: DenoisingModel, net, dataset, num_samples: int, batch_size: int,
                 key: int = 0, num_steps: Optional[int] = None,
-                max_batches: Optional[int] = None, sampler=None):
+                max_batches: Optional[int] = None, sampler=None, feature_net=None):
     """Mean (GED, sample diversity, HM-IoU) over `dataset` (eval-protocol
     samples `{"image", "labels" [A,H,W,C], ...}`), at most `max_batches`
-    batches of `batch_size` images, sampled with `net` on its device. Image
-    i's samples draw from the streams of `key` and global index i, so the
-    scores do not depend on `batch_size`."""
+    batches of `batch_size` images, sampled with `net` on its device (and
+    `feature_net`, the encoder's weights, where the sampler conditions on
+    one). Image i's samples draw from the streams of `key` and global index
+    i, so the scores do not depend on `batch_size`."""
     num_classes = model.diffusion.num_classes
     if sampler is None:
         sampler = make_batched_sampler(model, num_samples, num_steps)
@@ -60,7 +65,7 @@ def compute_ged(model: DenoisingModel, net, dataset, num_samples: int, batch_siz
         images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(device)
         refs = torch.from_numpy(
             np.argmax(np.stack([s["labels"] for s in samples]), axis=-1)).to(device)
-        preds = sampler(net, images, key, idx)
+        preds = sampler(net, images, key, idx, feature_net=feature_net)
         ged, div_s, _ = generalised_energy_distance(preds, refs, num_classes)
         hm = hungarian_matched_iou(preds, refs, num_classes)
         total_ged += float(np.sum(ged))

@@ -123,18 +123,6 @@ def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.M
     return net
 
 
-def _unflatten(flat) -> Dict[str, Any]:
-    """`{"a/b/c": array}` (a converted `.npz`) -> nested dicts."""
-    tree: Dict[str, Any] = {}
-    for key in flat:
-        *parents, leaf = key.split("/")
-        node = tree
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = np.asarray(flat[key])
-    return tree
-
-
 def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
                           generator: Optional[torch.Generator] = None):
     """Eval-time DINO conditioning: `(feature_fn, feature_shape, encoder
@@ -150,7 +138,6 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     fce = params.get("feature_cond_encoder") or {"type": "none"}
     if fce.get("type") != "dino":
         return None, None, None
-    from ccdm_tpu_torch.models.convert import flax_dino_to_state_dict
     from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
 
     encoder = DinoFeatureEncoder(fce)
@@ -170,9 +157,7 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
                 LOGGER.info("loaded encoder weights from checkpoint key %r", key)
                 break
     if not loaded and fce.get("weights"):
-        with np.load(fce["weights"]) as blob:
-            state = flax_dino_to_state_dict(_unflatten(blob))
-        net.load_state_dict(state, strict=True)
+        encoder.load_pretrained(net, fce["weights"])
     elif not loaded:
         LOGGER.warning("DINO eval conditioning with RANDOM encoder weights")
     feature_shape = (image_shape[0] // encoder.stride,

@@ -9,7 +9,8 @@ other Dense [I,O] -> Linear [O,I]; GroupNorm scale/bias -> weight/bias), so
 the result loads into `UNetModel` with `strict=True`.
 `flax_dino_to_state_dict` does the same for the JAX package's `DinoViT`, and
 `flax_train_state_to_tree` carries a JAX `TrainState` (params, EMA, the
-optimizer's moments, the step) into the port's checkpoint schema.
+optimizer's moments, the step; the encoder's too where it trains) into the
+port's checkpoint schema.
 """
 
 from __future__ import annotations
@@ -181,6 +182,21 @@ def _optax_fields(state, found: Dict[str, Any]) -> Dict[str, Any]:
     return found
 
 
+def _is_composite(tree) -> bool:
+    """A trainable-encoder run's `{"unet", "encoder"}` trees."""
+    return isinstance(tree, Mapping) and set(tree) == {"unet", "encoder"}
+
+
+def _moments_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """An optimizer moment tree -> the port's names; a composite one keeps
+    the UNet's under `unet.` and the encoder's under `encoder.`, as the
+    port's composite `TrainState` does."""
+    if _is_composite(tree):
+        return {**{f"unet.{k}": v for k, v in flax_params_to_state_dict(tree["unet"]).items()},
+                **{f"encoder.{k}": v for k, v in flax_dino_to_state_dict(tree["encoder"]).items()}}
+    return flax_params_to_state_dict(tree)
+
+
 def flax_train_state_to_tree(params: Mapping, ema_params: Mapping, opt_state,
                              step) -> Dict[str, Any]:
     """A JAX `TrainState`'s parts (numpy trees, e.g. `jax.device_get` of
@@ -188,12 +204,22 @@ def flax_train_state_to_tree(params: Mapping, ema_params: Mapping, opt_state,
     `model` and `average_model` through `flax_params_to_state_dict`, and
     `opt_state` with the optimizer's count and its moments (`mu` and `nu`
     of Adam and AdamW, `trace` of SGD) through the same key map and layout
-    inversions."""
+    inversions. A trainable-encoder state (`{"unet", "encoder"}` trees)
+    also gives `feature_cond_encoder` and `average_feature_cond_encoder`
+    through `flax_dino_to_state_dict`; its moments keep the `unet.` and
+    `encoder.` prefixes."""
     found = _optax_fields(opt_state, {})
     opt: Dict[str, Any] = {"count": found.get("count", int(np.asarray(step)))}
     for name in ("mu", "nu", "trace"):
         if name in found:
-            opt[name] = flax_params_to_state_dict(found[name])
-    return {"model": flax_params_to_state_dict(params),
-            "average_model": flax_params_to_state_dict(ema_params),
-            "opt_state": opt, "step": int(np.asarray(step))}
+            opt[name] = _moments_to_state_dict(found[name])
+    tree = {"opt_state": opt, "step": int(np.asarray(step))}
+    if _is_composite(params):
+        tree.update(model=flax_params_to_state_dict(params["unet"]),
+                    average_model=flax_params_to_state_dict(ema_params["unet"]),
+                    feature_cond_encoder=flax_dino_to_state_dict(params["encoder"]),
+                    average_feature_cond_encoder=flax_dino_to_state_dict(ema_params["encoder"]))
+    else:
+        tree.update(model=flax_params_to_state_dict(params),
+                    average_model=flax_params_to_state_dict(ema_params))
+    return tree

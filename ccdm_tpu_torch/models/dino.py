@@ -26,8 +26,9 @@ and saliency maps.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -214,10 +215,24 @@ def init_vit_weights_(vit: DinoViT, generator: torch.Generator) -> DinoViT:
     return vit
 
 
+def _unflatten(flat) -> Dict[str, Any]:
+    """`{"a/b/c": array}` (a converted `.npz`) -> nested dicts."""
+    tree: Dict[str, Any] = {}
+    for key in flat:
+        *parents, leaf = key.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(flat[key])
+    return tree
+
+
 class DinoFeatureEncoder:
-    """The configured encoder (`feature_cond_encoder` params), frozen: its
-    `init` makes the `DinoViT` holding the weights, and a call maps images
-    through it to the UNet's feature map."""
+    """The configured encoder (`feature_cond_encoder` params): its `init`
+    makes the `DinoViT` holding the weights, and a call maps images through
+    it to the UNet's feature map. Frozen by default (`train: no`): the map
+    is computed without autograd, the JAX `stop_gradient`; with `train:
+    yes` the weights require gradients and the map carries them."""
 
     def __init__(self, fce_params: dict):
         name = fce_params.get("model", "dino_vits8")
@@ -229,8 +244,7 @@ class DinoFeatureEncoder:
         self.source_layer = int(fce_params.get("source_layer", 11))
         self.facet = str(fce_params.get("facet", "key"))
         self.channels = cfg["embed_dim"]
-        if fce_params.get("train", False):
-            raise NotImplementedError("a trainable feature encoder is not ported")
+        self.trainable = bool(fce_params.get("train", False))
 
     def init(self, generator: Optional[torch.Generator] = None, device=None) -> DinoViT:
         """The ViT on `device` (default: the CUDA card; the CPU only when
@@ -248,11 +262,23 @@ class DinoFeatureEncoder:
                           int(cfg.get("pretrain_size", 224)))
         vit = vit.to_empty(device=torch.device(device))
         init_vit_weights_(vit, generator or torch.Generator().manual_seed(7))
-        return vit.eval().requires_grad_(False)
+        return vit.eval().requires_grad_(self.trainable)
+
+    @staticmethod
+    def load_pretrained(vit: DinoViT, npz_path: str) -> DinoViT:
+        """Load converted DINO weights (the `.npz` of
+        `scripts/convert_dino_checkpoint.py`) into `vit`."""
+        from ccdm_tpu_torch.models.convert import flax_dino_to_state_dict
+
+        with np.load(npz_path) as blob:
+            state = flax_dino_to_state_dict(_unflatten(blob))
+        vit.load_state_dict(state, strict=True)
+        return vit
 
     def __call__(self, vit: DinoViT, images: torch.Tensor,
                  resize_to: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """`[B,H,W,3]` -> `[B, H/stride, W/stride, D]` (or `resize_to`)."""
-        feats = vit(images)
-        h, w = images.shape[1:3]
-        return resize_bilinear(feats, resize_to or (h // self.stride, w // self.stride))
+        with contextlib.nullcontext() if self.trainable else torch.no_grad():
+            feats = vit(images)
+            h, w = images.shape[1:3]
+            return resize_bilinear(feats, resize_to or (h // self.stride, w // self.stride))

@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Measure the flagship training step of the port on one CUDA card.
+"""Measure a training step of the port on one CUDA card.
 
-    python3 ccdm_tpu_torch/tools/profile_train.py [--steps N]
+    python3 ccdm_tpu_torch/tools/profile_train.py [--config flagship|cityscapes|cityscapes_dino]
+                                                  [--steps N]
 
-`TrainingRun(DEMO_TRAIN_PARAMS)`: the flagship LIDC model (128x128, C=2,
-base 32, bf16 torso, fp32 masters), synthetic LIDC, batch 16, Adam and the
-Polyak EMA, with PyTorch's default TF32 settings (what `run_train` runs).
+`--config flagship` (the default): `TrainingRun(DEMO_TRAIN_PARAMS)`, the
+flagship LIDC model (128x128, C=2, base 32) on synthetic LIDC. `cityscapes`:
+`TrainingRun(CITYSCAPES_TRAIN_PARAMS)` (128x256, C=20, base 32, class
+weights zeroing the ignore class) on a synthetic tree of 32 train images at
+256x512 (`chip_smoke.write_cityscapes_tree`, the release's 1024x2048 cut by
+4 a side), through the config's host pipeline (flip, resize, colour
+jitter, normalisation). `cityscapes_dino`: the same with the frozen DINO
+ViT-S/8 (random weights). All at batch 16, bf16 torso, fp32 masters, Adam
+and the Polyak EMA, with PyTorch's default TF32 settings (what `run_train`
+runs).
 
 - `loop`: the trainer's own loop (`TrainingRun.run`, data loading, the
   pinned-memory prefetch and the metric reads two steps behind included,
   no validation or save inside the window): the cold first step, then the
   mean ms/step and images/s over `--steps` warm steps;
-- `phases`: per step, the device-stream span of the forward (with the loss),
-  the backward and the update (optimizer, EMA, the masters written into the
-  bf16 module), from CUDA events around each, and the host's time per
-  step, over 20 steps driven back to back on one batch;
+- `phases`: per step, the device-stream span of the DINO map (0 without
+  DINO), the forward (with the loss), the backward and the update
+  (optimizer, EMA, the masters written into the bf16 module), from CUDA
+  events around each, and the host's time per step, over 20 steps driven
+  back to back on one batch;
 - `profile`: 10 such steps under `torch.profiler`: device time per step by
   kernel family, the device's busy share of the wall, the 25 largest
-  kernels, and the 25 host operators with the most CPU time of their own.
+  kernels, and the 25 host operators with the most CPU time of their own;
+- `loader` (Cityscapes configs): the ms of one batch of 16 from a tree at
+  the release's 1024x2048 (PNG decode and the config's pipeline on the
+  host, `mp_loaders: 0` as the config runs), the decode and pipeline ms of
+  one image, and the ms a batch over 4 batches with a pool of 8 loader
+  threads (`mp_loaders: 8`).
 
 One JSON object per line; the last line says `{"done": true}`.
 """
@@ -26,7 +40,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import importlib.util
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -63,30 +80,83 @@ def family(name: str) -> str:
     return "elementwise_other"
 
 
+def cityscapes_tree(smoke, root: Path, n: int, hw) -> None:
+    """A synthetic Cityscapes train tree of `n` images at `hw`, and 4 val."""
+    shutil.rmtree(root, ignore_errors=True)
+    smoke.write_cityscapes_tree(root, n, "train", hw, seed=smoke.EVAL_SEED + 1)
+    smoke.write_cityscapes_tree(root, 4, "val", hw, seed=smoke.EVAL_SEED + 2)
+
+
+def measure_loader(smoke, params) -> None:
+    """The host data path at the release's 1024x2048 (see the docstring)."""
+    import numpy as np
+
+    from ccdm_tpu_torch.data import cityscapes
+    from ccdm_tpu_torch.data.loader import EpochLoader
+    from ccdm_tpu_torch.utils.png import read_png
+
+    root = REPO / "build/profile_train/tree_1024x2048"
+    start = time.perf_counter()
+    cityscapes_tree(smoke, root, 16, smoke.CS_LABEL_HW)
+    written = time.perf_counter() - start
+    ds = cityscapes.training_dataset(params, base_path=str(root))
+    start = time.perf_counter()
+    batch = next(EpochLoader(ds, 16, seed=0).epoch(0))
+    serial = time.perf_counter() - start
+    start = time.perf_counter()
+    img = read_png(ds.image_files[0], mode="RGB")
+    lbl = cityscapes.labels_to_categories(read_png(ds.label_files[0]))
+    decode = time.perf_counter() - start
+    start = time.perf_counter()
+    ds.pipeline(img, lbl, np.random.default_rng(0), None)
+    pipeline = time.perf_counter() - start
+    # four batches through a pool of 8 threads: the 16 files indexed 4 times
+    pooled = cityscapes.CityscapesDataset(ds.image_files * 4, ds.label_files * 4, ds.pipeline)
+    start = time.perf_counter()
+    n = sum(1 for _ in EpochLoader(pooled, 16, seed=0, num_workers=8).epoch(0))
+    threads = (time.perf_counter() - start) / n
+    emit("loader", tree=f"{smoke.CS_LABEL_HW[0]}x{smoke.CS_LABEL_HW[1]}", written_s=written,
+         batch_shape=list(batch["image"].shape), ms_per_batch_of_16=serial * 1e3,
+         ms_per_image={"decode": decode * 1e3, "pipeline": pipeline * 1e3},
+         ms_per_batch_with_8_threads=threads * 1e3, cores=os.cpu_count())
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--config", choices=("flagship", "cityscapes", "cityscapes_dino"),
+                    default="flagship")
     ap.add_argument("--steps", type=int, default=60, help="warm steps of the loop")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
+    spec = importlib.util.spec_from_file_location("chip_smoke_tools", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
     import torch
     from torch.profiler import ProfilerActivity
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
-    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    import ccdm_tpu_torch
     from ccdm_tpu_torch.data.loader import device_prefetch
     from ccdm_tpu_torch.ops import _build
     from ccdm_tpu_torch.train.step import step_seed, train_loss
-    from ccdm_tpu_torch.train.trainer import STEP_KEYS, TrainingRun
+    from ccdm_tpu_torch.train.trainer import STEP_KEYS, TrainingRun, _class_weights
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    emit("device", card=card, torch=torch.__version__, build_s=_build.build())
+    emit("device", card=card, torch=torch.__version__, config=args.config,
+         build_s=_build.build())
+    out = REPO / "build/profile_train"
+    params = {"flagship": ccdm_tpu_torch.DEMO_TRAIN_PARAMS,
+              "cityscapes": ccdm_tpu_torch.CITYSCAPES_TRAIN_PARAMS,
+              "cityscapes_dino": ccdm_tpu_torch.CITYSCAPES_DINO_TRAIN_PARAMS}[args.config]
+    if args.config != "flagship":
+        cityscapes_tree(smoke, out / "tree", 32, smoke.CS_TREE_HW)
+        os.environ["CCDM_CITYSCAPES_PATH"] = str(out / "tree")
     never = 10 ** 9
-    run = TrainingRun(dict(DEMO_TRAIN_PARAMS, output_path=str(REPO / "build/profile_train"),
-                           save_freq=never, validation_freq=never, display_freq=never,
-                           progress_bar=False))
+    run = TrainingRun(dict(params, output_path=str(out / "run"), save_freq=never,
+                           validation_freq=never, display_freq=never, progress_bar=False))
     run.checkpoints.save_periodic = lambda state: None  # no save inside the windows
 
     torch.cuda.synchronize()
@@ -102,36 +172,42 @@ def main() -> None:
          ms_per_step=wall / args.steps * 1e3, images_per_s=run.batch_size * args.steps / wall,
          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
-    # the step's phases, as make_train_step runs them
+    # the step's phases, as make_train_step runs them (a frozen encoder or none)
     batch = next(device_prefetch(({k: b[k] for k in STEP_KEYS}
                                   for b in run.loader.epoch(0)), run.device))
     state, net, model = run.state, run.net, run.model
-    weights = torch.ones(run.num_classes, device=run.device)
+    weights = _class_weights(run.module, run.num_classes, run.device)
 
     def step(events=None):
         gen = torch.Generator(device=run.device).manual_seed(step_seed(1, state.step))
         mark = (lambda i: events[i].record()) if events else (lambda i: None)
         net.zero_grad(set_to_none=True)
         mark(0)
-        loss, _ = train_loss(model, net, batch, gen, weights)
+        fc = None
+        if run.encoder is not None:
+            with torch.no_grad():
+                fc = run.encoder(run.encoder_net, batch["image"])
         mark(1)
-        loss.backward()
+        loss, _ = train_loss(model, net, batch, gen, weights, fc)
         mark(2)
+        loss.backward()
+        mark(3)
         grads = {n: p.grad.float() for n, p in net.named_parameters()}
         torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
         state.apply_gradients(grads)
         state.write_to(net)
-        mark(3)
+        mark(4)
 
     step()
     torch.cuda.synchronize()
     spans = collections.Counter()
     start = time.perf_counter()
     for _ in range(PHASE_STEPS):
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         step(events)
-        events[3].synchronize()
-        for name, (a, b) in (("forward", (0, 1)), ("backward", (1, 2)), ("update", (2, 3))):
+        events[4].synchronize()
+        for name, (a, b) in (("dino", (0, 1)), ("forward", (1, 2)), ("backward", (2, 3)),
+                             ("update", (3, 4))):
             spans[name] += events[a].elapsed_time(events[b]) / PHASE_STEPS
     host = (time.perf_counter() - start) / PHASE_STEPS * 1e3
     emit("phases", device_span_ms=dict(spans), host_ms_per_step=host,
@@ -168,6 +244,8 @@ def main() -> None:
          ops_per_step=sum(h[1] for h in host))
     for ms, calls, name in sorted(host, reverse=True)[:25]:
         emit("host_op", name=name[:120], self_ms_per_step=ms, calls_per_step=calls)
+    if args.config != "flagship":
+        measure_loader(smoke, params)
     print(json.dumps({"done": True}), flush=True)
 
 

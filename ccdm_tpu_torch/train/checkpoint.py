@@ -4,7 +4,9 @@
 Each checkpoint is one `torch.save` file, `<manager dir>/<step>/state.pt`,
 holding `TrainState.tree()`: the keys of the reference's `objects_to_save`,
 `model` (the fp32 master parameters), `average_model` (their EMA),
-`opt_state` and `step`. Managers under the experiment directory:
+`opt_state` and `step`, and for a trainable feature encoder
+`feature_cond_encoder` and `average_feature_cond_encoder` (a frozen one is
+not saved). Managers under the experiment directory:
 
 - `model/`: periodic, the newest 3 kept;
 - `best_ged/` (minimised), `best_hmiou/` and `best_miou/` (maximised), the

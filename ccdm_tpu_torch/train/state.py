@@ -10,6 +10,12 @@ optimizer updates those, and `write_to` copies them into the module after
 each step (a cast where the module is bf16; nothing where it is fp32, whose
 parameters are the masters themselves). The update and the EMA run in
 place; the JAX version builds new arrays.
+
+A run with a trainable feature encoder keeps one composite state: the
+UNet's masters under `unet.<name>`, the encoder's under `encoder.<name>`
+(the JAX package's `{"unet", "encoder"}` trees), so Adam and the EMA run
+jointly over both. Its checkpoint splits them again into the reference's
+keys (`model` and `feature_cond_encoder`, with their `average_*` EMAs).
 """
 
 from __future__ import annotations
@@ -21,6 +27,21 @@ import torch
 from torch import nn
 
 from ccdm_tpu_torch.train.optimizer import Optimizer
+
+UNET, ENCODER = "unet.", "encoder."  # name prefixes of a composite state
+
+
+def prefixed(prefix: str, d: Dict[str, Any]) -> Dict[str, Any]:
+    return {prefix + k: v for k, v in d.items()}
+
+
+def _part(d: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    return {k[len(prefix):]: v for k, v in d.items() if k.startswith(prefix)}
+
+
+def is_composite(params: Dict[str, Any]) -> bool:
+    """Whether `params` holds a UNet and a trainable encoder."""
+    return any(k.startswith(ENCODER) for k in params)
 
 
 def master_params(net: nn.Module) -> Dict[str, torch.Tensor]:
@@ -51,27 +72,39 @@ class TrainState:
         return lr
 
     @torch.no_grad()
-    def write_to(self, net: nn.Module, ema: bool = False) -> None:
-        """Copy the masters (or the EMA) into `net`'s parameters, cast to
-        their dtype; parameters that are the masters themselves stay."""
+    def write_to(self, net: nn.Module, ema: bool = False, prefix: str = "") -> None:
+        """Copy the masters (or the EMA) named `prefix + <parameter name>`
+        into `net`'s parameters, cast to their dtype; parameters that are
+        the masters themselves stay."""
         src = self.ema_params if ema else self.params
         dst, vals = [], []
         for name, p in net.named_parameters():
-            if p.data_ptr() != src[name].data_ptr():
+            master = src[prefix + name]
+            if p.data_ptr() != master.data_ptr():
                 dst.append(p)
-                vals.append(src[name])
+                vals.append(master)
         if dst:
             torch._foreach_copy_(dst, vals)
 
     def tree(self) -> Dict[str, Any]:
         """The checkpoint schema (the reference's `objects_to_save` keys):
-        `model`, `average_model`, `opt_state`, `step`, as CPU tensors."""
+        `model`, `average_model`, `opt_state`, `step`, as CPU tensors; a
+        composite state stores its encoder under `feature_cond_encoder` and
+        `average_feature_cond_encoder` (the optimizer's moments keep the
+        prefixed names)."""
         def cpu(d):
             return {k: v.detach().cpu().clone() for k, v in d.items()}
 
         opt = {k: (cpu(v) if isinstance(v, dict) else v) for k, v in self.opt_state.items()}
-        return {"model": cpu(self.params), "average_model": cpu(self.ema_params),
-                "opt_state": opt, "step": int(self.step)}
+        tree = {"opt_state": opt, "step": int(self.step)}
+        if is_composite(self.params):
+            tree.update(model=cpu(_part(self.params, UNET)),
+                        average_model=cpu(_part(self.ema_params, UNET)),
+                        feature_cond_encoder=cpu(_part(self.params, ENCODER)),
+                        average_feature_cond_encoder=cpu(_part(self.ema_params, ENCODER)))
+        else:
+            tree.update(model=cpu(self.params), average_model=cpu(self.ema_params))
+        return tree
 
     @torch.no_grad()
     def load_tree(self, tree: Dict[str, Any]) -> "TrainState":
@@ -82,8 +115,17 @@ class TrainState:
             for k, v in dst.items():
                 v.copy_(src[k])
 
-        copy(self.params, tree["model"])
-        copy(self.ema_params, tree["average_model"])
+        if is_composite(self.params):
+            if "feature_cond_encoder" not in tree:
+                raise KeyError("the checkpoint holds no feature_cond_encoder for this run's "
+                               "trainable encoder")
+            copy(self.params, {**prefixed(UNET, tree["model"]),
+                               **prefixed(ENCODER, tree["feature_cond_encoder"])})
+            copy(self.ema_params, {**prefixed(UNET, tree["average_model"]),
+                                   **prefixed(ENCODER, tree["average_feature_cond_encoder"])})
+        else:
+            copy(self.params, tree["model"])
+            copy(self.ema_params, tree["average_model"])
         for key, value in tree["opt_state"].items():
             if isinstance(value, dict):
                 copy(self.opt_state[key], value)

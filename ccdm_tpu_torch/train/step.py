@@ -14,6 +14,11 @@ run draws what an uninterrupted one would (the JAX version folds the step
 into its key). `train_loss` also takes injected `t` and `x_t`. The metrics
 stay on the device; the trainer reads them two steps later. Not ported, by
 decision: `make_multi_step` (several steps a launch).
+
+DINO conditioning, as the JAX step: a frozen encoder (`feature_fn`) maps
+the batch's images under `torch.no_grad()` (the JAX `stop_gradient`); a
+trainable one (`encoder_apply`) runs under autograd, and its gradients join
+the UNet's in one composite update (`train/state.py`).
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post_prob,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
-from ccdm_tpu_torch.train.state import TrainState
+from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -41,11 +46,12 @@ def step_seed(seed: int, step: int) -> int:
 
 
 def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator], class_weights: torch.Tensor, *,
+               generator: Optional[torch.Generator], class_weights: torch.Tensor,
+               feature_condition: Optional[torch.Tensor] = None, *,
                t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
     """The CCDM loss of one batch (`image` [B,H,W,Ci], `x0` one-hot
-    [B,H,W,C]) -> `(loss, aux)`; `t` and `xt`, when given, replace the
-    draws."""
+    [B,H,W,C]; `feature_condition` [B,h,w,Cf] where the UNet concatenates
+    one) -> `(loss, aux)`; `t` and `xt`, when given, replace the draws."""
     image, x0 = batch["image"], batch["x0"]
     b = x0.shape[0]
     d = model.diffusion
@@ -53,7 +59,7 @@ def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, tor
         t = torch.randint(1, d.time_steps + 1, (b,), generator=generator, device=x0.device)
     if xt is None:
         xt = sample_onehot(q_xt_given_x0_probs(d, x0, t), generator)
-    x0pred = model.apply(net, xt, image, t)["diffusion_out"].float()
+    x0pred = model.apply(net, xt, image, t, feature_condition)["diffusion_out"].float()
     kl = categorical_kl(theta_post_prob(d, xt, x0pred, t), theta_post(d, xt, x0, t))
     mask = class_weights[x0.argmax(dim=-1)]
     loss = (kl * mask).sum() / b
@@ -63,37 +69,54 @@ def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, tor
 
 
 def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
-                    lr_schedule: Optional[Callable[[int], float]] = None) -> Callable:
-    """`step(state, net, batch, seed, *, t=None, xt=None) -> metrics`: one
-    update of `state` (in place) from the gradients of `net`, the module
-    that holds the compute-dtype copy of the state's masters; the new
-    masters are then written into `net`. Dropout runs in training mode
-    when the UNet has any, drawing from the global generator forked and
-    seeded from `(seed, step)`."""
+                    lr_schedule: Optional[Callable[[int], float]] = None,
+                    feature_fn: Optional[Callable] = None,
+                    encoder_apply: Optional[Callable] = None) -> Callable:
+    """`step(state, net, batch, seed, encoder_net=None, *, t=None, xt=None)
+    -> metrics`: one update of `state` (in place) from the gradients of
+    `net`, the module that holds the compute-dtype copy of the state's
+    masters; the new masters are then written into `net`. Dropout runs in
+    training mode when the UNet has any, drawing from the global generator
+    forked and seeded from `(seed, step)`.
+
+    `feature_fn(encoder_net, images)`: a frozen encoder, outside the state.
+    `encoder_apply(encoder_net, images)`: a trainable one, whose masters are
+    the state's `encoder.` entries (the UNet's are `unet.`); it is updated
+    with the UNet and `grad_norm` covers both."""
     dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0 for m in model.unet.modules())
 
     def step(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
-             seed: int, *, t: Optional[torch.Tensor] = None,
+             seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
+             t: Optional[torch.Tensor] = None,
              xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        modules = {"": net} if encoder_apply is None else {UNET: net, ENCODER: encoder_net}
         device = batch["x0"].device
         s = step_seed(seed, state.step)
         generator = torch.Generator(device=device).manual_seed(s)
         net.train(dropout_on)
-        net.zero_grad(set_to_none=True)
+        for m in modules.values():
+            m.zero_grad(set_to_none=True)
         fork = contextlib.nullcontext()
         if dropout_on:
             fork = torch.random.fork_rng(devices=[device] if device.type == "cuda" else [])
         with fork:
             if dropout_on:
                 torch.manual_seed(s)
-            loss, aux = train_loss(model, net, batch, generator, class_weights, t=t, xt=xt)
+            fc = None
+            if encoder_apply is not None:
+                fc = encoder_apply(encoder_net, batch["image"])
+            elif feature_fn is not None:
+                with torch.no_grad():
+                    fc = feature_fn(encoder_net, batch["image"])
+            loss, aux = train_loss(model, net, batch, generator, class_weights, fc, t=t, xt=xt)
             loss.backward()
-        grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
-                 for name, p in net.named_parameters()}
+        grads = {prefix + name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                 for prefix, m in modules.items() for name, p in m.named_parameters()}
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
         lr = state.apply_gradients(grads)
-        state.write_to(net)
-        net.zero_grad(set_to_none=True)
+        for prefix, m in modules.items():
+            state.write_to(m, prefix=prefix)
+            m.zero_grad(set_to_none=True)
         metrics = {"loss": loss.detach(), "invalid": aux["invalid"], "kl_min": aux["kl_min"],
                    "grad_norm": grad_norm, "num_items": int(batch["x0"].shape[0])}
         if lr_schedule is not None:

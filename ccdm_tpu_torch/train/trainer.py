@@ -8,9 +8,20 @@ step-indexed loop around `train.step.make_train_step`, on one device.
   in `TrainState` (see `train/state.py`); a second UNet module holds the
   EMA (the reference's `average_model`) for validation, written from the
   EMA masters when validation needs it.
+- Datasets: a module whose `training_dataset` / `validation_dataset` take
+  `params` gets them (Cityscapes builds its transform pipelines from them).
+- DINO conditioning (`feature_cond_encoder.type: dino`): frozen (`train:
+  no`), the encoder's weights live outside the state, are neither
+  optimised nor checkpointed, and the step maps the images without
+  autograd; trainable (`train: yes`), the encoder's masters join the UNet's
+  in one composite state, optimised and averaged jointly and checkpointed
+  under `feature_cond_encoder` / `average_feature_cond_encoder`, and a
+  second encoder module holds the EMA for validation.
 - Cadence by `crossed()`: `display_freq` logging, `save_freq` periodic
-  checkpoints, `validation_freq` GED/HM-IoU validation, best checkpoints
-  and a qualitative grid (`images_<step>.png`).
+  checkpoints, `validation_freq` validation (GED/HM-IoU on multi-annotator
+  sets, mIoU on single-annotator ones such as Cityscapes, each with its
+  best checkpoints) and a qualitative grid (`images_<step>.png`), whose
+  failure only warns.
 - Metrics stay on the device and are read two steps later, so the host
   never waits on the step it just queued; an invalid loss (non-finite or
   negative KL) saves `debug_state/` and raises.
@@ -19,11 +30,10 @@ step-indexed loop around `train.step.make_train_step`, on one device.
   SIGTERM saves and returns. `profile_steps: N` writes a `torch.profiler`
   trace of steps 10 .. 10 + N under `<output_path>/profile`.
 
-Not ported yet, and refused with `NotImplementedError`: DINO feature
-conditioning (frozen or trainable) and Cityscapes' mIoU validation (they
-come with Cityscapes training), and meshes (multi-host, data parallel).
-Not ported by decision: `steps_per_launch` (one step a launch; the
-trajectory is the same).
+Not ported yet, and refused with `NotImplementedError`: meshes (multi-host,
+data parallel), with the JAX version's host slicing of validation. Not
+ported by decision: `steps_per_launch` (one step a launch; the trajectory
+is the same).
 """
 
 from __future__ import annotations
@@ -44,10 +54,19 @@ from ccdm_tpu_torch.config import expanduservars, with_defaults
 from ccdm_tpu_torch.data.loader import EpochLoader, device_prefetch
 from ccdm_tpu_torch.data.registry import is_multi_annotator, resolve_dataset_module
 from ccdm_tpu_torch.eval.ged_eval import compute_ged, make_batched_sampler
+from ccdm_tpu_torch.eval.metrics import ConfusionMatrix
 from ccdm_tpu_torch.models.builder import DenoisingModel, build_model
+from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
 from ccdm_tpu_torch.train.checkpoint import CheckpointManagers, load_checkpoint
 from ccdm_tpu_torch.train.optimizer import build_optimizer
-from ccdm_tpu_torch.train.state import TrainState, create_train_state, master_params
+from ccdm_tpu_torch.train.state import (
+    ENCODER,
+    UNET,
+    TrainState,
+    create_train_state,
+    master_params,
+    prefixed,
+)
 from ccdm_tpu_torch.train.step import make_train_step, step_seed
 from ccdm_tpu_torch.utils.archive import archive_code
 from ccdm_tpu_torch.utils.logging import setup_logger
@@ -79,11 +98,38 @@ def _class_weights(dataset_module, num_classes: int, device) -> torch.Tensor:
     return torch.from_numpy(w).to(device)
 
 
+def _accepts_param(fn, name: str) -> bool:
+    """Whether `fn` takes a parameter called `name` (dataset-module protocol
+    dispatch by signature: catching TypeError instead would also swallow
+    one raised inside the dataset's constructor)."""
+    import inspect
+
+    try:
+        return name in inspect.signature(fn).parameters
+    except (TypeError, ValueError):  # builtins and extension functions
+        return True
+
+
+def _build_datasets(params: Dict[str, Any]):
+    """The dataset module and its training and validation sets; a module
+    whose constructors take `params` gets them (Cityscapes builds its
+    transform pipelines from them)."""
+    module = resolve_dataset_module(params["dataset_file"])
+    if _accepts_param(module.training_dataset, "params"):
+        train_ds = module.training_dataset(params)
+    else:
+        train_ds = module.training_dataset()
+    val_max = params.get("dataset_val_max_size", 100)
+    if _accepts_param(module.validation_dataset, "params"):
+        val_ds = module.validation_dataset(max_size=val_max, params=params)
+    else:
+        val_ds = module.validation_dataset(max_size=val_max)
+    LOGGER.info("%d train / %d val images in %s", len(train_ds), len(val_ds),
+                params["dataset_file"])
+    return module, train_ds, val_ds
+
+
 def _refuse_unported(params: Dict[str, Any]) -> None:
-    fce = params.get("feature_cond_encoder") or {"type": "none"}
-    if fce.get("type") not in (None, "none"):
-        raise NotImplementedError("training with feature_cond_encoder (DINO conditioning, "
-                                  "frozen or trainable) is not ported yet")
     mesh = params.get("mesh") or {}
     if int(mesh.get("data", 1)) > 1 or int(mesh.get("model", 1)) > 1:
         raise NotImplementedError("meshes (data or model parallel training) are not ported")
@@ -107,20 +153,14 @@ class TrainingRun:
         LOGGER.info("experiment dir: %s", self.output_path)
         LOGGER.info("Training params:\n%s", pprint.pformat(params))
 
-        self.module = resolve_dataset_module(params["dataset_file"])
-        if not is_multi_annotator(self.module, params["dataset_file"]):
-            raise NotImplementedError("mIoU validation (single-annotator datasets such as "
-                                      "Cityscapes) is not ported yet")
-        self.train_ds = self.module.training_dataset()
-        self.val_ds = self.module.validation_dataset(
-            max_size=params.get("dataset_val_max_size", 100))
-        LOGGER.info("%d train / %d val images in %s", len(self.train_ds), len(self.val_ds),
-                    params["dataset_file"])
+        self.module, self.train_ds, self.val_ds = _build_datasets(params)
         self.num_classes = self.module.get_num_classes()
+        self.ignore_class = self.module.get_ignore_class()
         image_shape = self.train_ds.get(0, np.random.default_rng(0))["image"].shape
 
         seed = int(params.get("seed", 0))
         self.seed = seed
+        self._build_encoder(params["feature_cond_encoder"])
         # image_size = min(H, W) selects the channel_mult table; the masters
         # are drawn in fp32 and the compute-dtype module is loaded from them
         build = dict(num_classes=self.num_classes, image_channels=image_shape[-1],
@@ -139,6 +179,12 @@ class TrainingRun:
                     p.copy_(masters[name])
         self.ema_net = copy.deepcopy(self.net).eval()
         LOGGER.info("UNet parameters: %.3fM", sum(p.numel() for p in masters.values()) / 1e6)
+        # a trainable encoder's masters are its fp32 parameters themselves
+        self._prefix = ""
+        if self.trainable_encoder:
+            masters = {**prefixed(UNET, masters),
+                       **prefixed(ENCODER, master_params(self.encoder_net))}
+            self._prefix = UNET
         if int(params.get("steps_per_launch", 1)) > 1:
             LOGGER.info("steps_per_launch is not ported (one step a launch; the "
                         "trajectory is the same)")
@@ -159,53 +205,134 @@ class TrainingRun:
         if load_from:
             LOGGER.info("resuming from %s", load_from)
             load_checkpoint(expanduservars(load_from), self.state)
-            self.state.write_to(self.net)
+            self.state.write_to(self.net, prefix=self._prefix)
         self.step_fn = make_train_step(
             self.model, _class_weights(self.module, self.num_classes, self.device),
-            self.lr_schedule)
-        self._samplers = {}  # num_samples -> batched sampler
+            self.lr_schedule,
+            feature_fn=None if self.trainable_encoder else self.encoder,
+            encoder_apply=self.encoder if self.trainable_encoder else None)
+        self._samplers = {}  # (num_samples, num_steps) -> batched sampler
         self._ema_step = None  # the step whose EMA `ema_net` holds
+
+    def _build_encoder(self, fce: Dict[str, Any]) -> None:
+        """The DINO encoder of `feature_cond_encoder` (None without one):
+        seed-7 random weights unless `weights:` names a converted `.npz`."""
+        self.encoder = self.encoder_net = self.ema_encoder = None
+        self.trainable_encoder = False
+        if fce.get("type") in (None, "none"):
+            return
+        if fce.get("type") != "dino":
+            raise NotImplementedError(f"feature_cond_encoder {fce.get('type')!r} is not ported")
+        self.encoder = DinoFeatureEncoder(fce)
+        self.encoder_net = self.encoder.init(torch.Generator().manual_seed(7), self.device)
+        if fce.get("weights"):
+            self.encoder.load_pretrained(self.encoder_net, expanduservars(fce["weights"]))
+        else:
+            LOGGER.warning("DINO conditioning with RANDOM weights: provide "
+                           "feature_cond_encoder.weights (a converted .npz)")
+        self.trainable_encoder = self.encoder.trainable
+        if self.trainable_encoder:
+            self.ema_encoder = copy.deepcopy(self.encoder_net).requires_grad_(False)
+        LOGGER.info("DINO feature conditioning: %s stride=%d ch=%d train=%s", self.encoder.name,
+                    self.encoder.stride, self.encoder.channels, self.trainable_encoder)
 
     # ---- validation ------------------------------------------------------
 
     def ema_unet(self) -> torch.nn.Module:
-        """The EMA UNet module, written from the EMA masters once a step."""
+        """The EMA UNet module (and the EMA encoder's, when it trains),
+        written from the EMA masters once a step."""
         if self._ema_step != self.state.step:
-            self.state.write_to(self.ema_net, ema=True)
+            self.state.write_to(self.ema_net, ema=True, prefix=self._prefix)
+            if self.trainable_encoder:
+                self.state.write_to(self.ema_encoder, ema=True, prefix=ENCODER)
             self._ema_step = self.state.step
         return self.ema_net
 
+    def _val_feature_net(self) -> Optional[torch.nn.Module]:
+        """The encoder that validation samples with: the EMA encoder when it
+        trains (written by `ema_unet`), else the frozen one."""
+        return self.ema_encoder if self.trainable_encoder else self.encoder_net
+
     def validate(self) -> Dict[str, float]:
         params = self.params
-        num_samples = int(params.get("samples", 12))
-        ged, div, hmiou = compute_ged(
-            self.model, self.ema_unet(), self.val_ds, num_samples,
-            max(1, self.batch_size // num_samples), step_seed(self.seed + 2, self.state.step),
-            max_batches=int(params.get("validation_max_batches", 0)) or None,
-            sampler=self._sampler(num_samples))
-        LOGGER.info("mean GED %.3f, mean diversity %.3f, HM-IoU %.3f", ged, div, hmiou)
-        metrics = {"GED": ged, "diversity": div, "HMIoU": hmiou}
+        if is_multi_annotator(self.module, params["dataset_file"]):
+            num_samples = int(params.get("samples", 12))
+            ged, div, hmiou = compute_ged(
+                self.model, self.ema_unet(), self.val_ds, num_samples,
+                max(1, self.batch_size // num_samples), step_seed(self.seed + 2, self.state.step),
+                max_batches=int(params.get("validation_max_batches", 0)) or None,
+                sampler=self._sampler(num_samples), feature_net=self._val_feature_net())
+            LOGGER.info("mean GED %.3f, mean diversity %.3f, HM-IoU %.3f", ged, div, hmiou)
+            metrics = {"GED": ged, "diversity": div, "HMIoU": hmiou}
+            self.metrics.log(self.state.step, metrics, tag="val")
+            self.checkpoints.save_best("ged", self.state, ged)
+            self.checkpoints.save_best("hmiou", self.state, hmiou)
+            return metrics
+        # val mIoU picks the best checkpoints; a pass over 6 train images is
+        # only logged (the reference's engine_train mIoU)
+        miou = self.validate_miou()
+        train_miou = self.validate_miou(max_images=6, dataset=self.train_ds)
+        LOGGER.info("val mIoU: %.4f (train-split mIoU: %.4f)", miou, train_miou)
+        metrics = {"mIoU": miou, "mIoU_train": train_miou}
         self.metrics.log(self.state.step, metrics, tag="val")
-        self.checkpoints.save_best("ged", self.state, ged)
-        self.checkpoints.save_best("hmiou", self.state, hmiou)
+        self.checkpoints.save_best("miou", self.state, miou)
         return metrics
 
-    def _sampler(self, num_samples: int):
-        if num_samples not in self._samplers:
-            self._samplers[num_samples] = make_batched_sampler(self.model, num_samples)
-        return self._samplers[num_samples]
+    def validate_miou(self, max_images: Optional[int] = 16, dataset=None) -> float:
+        """The confusion-matrix mIoU of one EMA sample an image over the
+        first `max_images` of `dataset` (default: the val split), in batches
+        of `max(1, min(batch_size // 4, n))`. Image i reads with
+        `default_rng(1000 + i)` (a train-split sample's augmentation) and
+        samples from the streams of its index. The truth is the first expert
+        mask, else `label`, else `argmax x0`; the prediction's argmax
+        spans every channel, the ignore class included, as the reference's
+        in-training matrix (only the reported IoUs drop that class)."""
+        ds = self.val_ds if dataset is None else dataset
+        n = min(len(ds), max_images or len(ds))
+        if n == 0:
+            return float("nan")
+        sampler = self._sampler(1)
+        cm = ConfusionMatrix(self.num_classes, self.ignore_class)
+        bs = max(1, min(self.batch_size // 4, n))
+        ema, key = self.ema_unet(), step_seed(self.seed + 2, self.state.step)
+        for start in range(0, n, bs):
+            idx = list(range(start, min(start + bs, n)))
+            samples = [ds.get(i, np.random.default_rng(1000 + i)) for i in idx]
+            images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(self.device)
+            if "labels" in samples[0]:  # multi-annotator protocol
+                true = np.argmax(np.stack([s["labels"][0] for s in samples]), -1)
+            elif "label" in samples[0]:
+                true = np.stack([s["label"] for s in samples])
+            else:  # a training sample: one-hot x0
+                true = np.argmax(np.stack([s["x0"] for s in samples]), -1)
+            preds = sampler(ema, images, key, idx, feature_net=self._val_feature_net())
+            cm.update(preds[:, 0], torch.from_numpy(true).to(preds.device))
+        return cm.miou()
+
+    def _sampler(self, num_samples: int, num_steps: Optional[int] = None):
+        """The batched sampler of `num_samples` samples, built once per
+        `(num_samples, num_steps)` and conditioned on the run's encoder."""
+        key = (num_samples, num_steps)
+        if key not in self._samplers:
+            self._samplers[key] = make_batched_sampler(self.model, num_samples, num_steps,
+                                                       feature_fn=self.encoder)
+        return self._samplers[key]
 
     def save_qualitative(self) -> str:
         """A grid of `n_validation_images` validation images, each with its
-        first expert mask and `n_validation_predictions` samples of the EMA
-        model, written to `<output_path>/images_<step>.png`."""
+        label (or first expert mask) and `n_validation_predictions` samples
+        of the EMA model, written to `<output_path>/images_<step>.png`."""
         p = self.params
         n = min(int(p.get("n_validation_images", 3)), len(self.val_ds))
         samples = [self.val_ds.get(i) for i in range(n)]
         images = np.stack([s["image"] for s in samples])
-        labels = np.argmax(np.stack([s["labels"][0] for s in samples]), -1)
+        if "labels" in samples[0]:
+            labels = np.argmax(np.stack([s["labels"][0] for s in samples]), -1)
+        else:
+            labels = np.stack([s["label"] for s in samples])
         preds = self._sampler(int(p.get("n_validation_predictions", 3)))(
-            self.ema_unet(), torch.from_numpy(images).to(self.device), step_seed(self.seed, 123))
+            self.ema_unet(), torch.from_numpy(images).to(self.device), step_seed(self.seed, 123),
+            feature_net=self._val_feature_net())
         grid = prediction_grid(images, labels, preds.cpu().numpy(), self.num_classes)
         return save_grid(grid, os.path.join(self.output_path,
                                             f"images_{self.state.step:06d}.png"))
@@ -297,7 +424,8 @@ class TrainingRun:
             for batch in device_prefetch(batches, self.device):
                 if profile_steps and total == 10 and self._profiler is None:
                     self._start_profile()
-                metrics = self.step_fn(self.state, self.net, batch, self.seed + 1)
+                metrics = self.step_fn(self.state, self.net, batch, self.seed + 1,
+                                       self.encoder_net)
                 total += 1
                 step = step0 + total
                 pending.append((step, metrics))
@@ -335,9 +463,12 @@ class TrainingRun:
                     drain(block_all=True)
                     progress.close()
                     self.validate()
-                    png = self.save_qualitative()
-                    self.metrics.log_image(step, png, f"iteration {step}")
                     progress.reset_rate_window(total * self.batch_size)
+                    try:
+                        png = self.save_qualitative()
+                        self.metrics.log_image(step, png, f"iteration {step}")
+                    except Exception as e:  # a grid is not worth a run
+                        LOGGER.warning("qualitative grid failed: %s", e)
                 if self._sigterm:
                     drain(block_all=True)
                     progress.close()

@@ -15,13 +15,16 @@ without printing its result:
    at the flagship sampler's shapes (B = 8 images x 16 samples = 128), with
    and without the fused time-embedding add, at shapes that force each of
    its paths (S, M with clusters of 1, 4 and 8 blocks, L in bf16 and fp32),
-   and at the Cityscapes sampler's sites (B = 2 images x 1 vote, 256x512,
-   base 128: path L at 768 KB-2 MB slabs, the DINO concat's 640 channels).
+   at the Cityscapes sampler's sites (B = 2 images x 1 vote, 256x512,
+   base 128: path L at 768 KB-2 MB slabs, the DINO concat's 640 channels),
+   and at the Cityscapes train step's (batch 16 at 128x256, base 32, the
+   DINO concat's 448 channels at ds 8).
 4. attention: the attention kernel against its plain version at the
    flagship's attention shapes, at T = 70 (element loads), at T = 2048 (many
    K/V tiles), with 64-channel heads, at the Cityscapes sites (BH 16 x
-   T 2048, 32 x 512, 32 x 128) and at the flagship train step's (48 x 256,
-   64 x 64).
+   T 2048, 32 x 512, 32 x 128), at the flagship train step's (48 x 256,
+   64 x 64) and at the Cityscapes train step's (32 x 512, 64 x 128, 64 x
+   32).
    Phases 3 and 4 print, per case, the max-abs error, the device time of the
    kernel, of the plain version and of the one PyTorch call that computes
    the same function where there is one (`F.group_norm` without SiLU or add,
@@ -56,8 +59,9 @@ without printing its result:
 10. attention_backward: the attention's autograd Function (the kernel's
    forward, the JAX package's backward math in PyTorch) against autograd
    through the plain `dense_attention`, at the training sites [48,32,256]
-   and [64,32,64] in bf16 and fp32 and at [16,32,2048] (the streaming
-   branch); backward, plain, library (SDPA's backward) and bound times.
+   and [64,32,64] in bf16 and fp32, at [16,32,2048] (the streaming
+   branch) and at the Cityscapes train step's [32,32,512], [64,32,128] and
+   [64,32,32]; backward, plain, library (SDPA's backward) and bound times.
 11. train: `TrainingRun(DEMO_TRAIN_PARAMS)` at full width and depth on the
    card (128x128, C=2, base 32, batch 16, bf16, synthetic LIDC), 30 steps
    with a periodic save and a GED/HM-IoU validation at step 20, into
@@ -101,6 +105,34 @@ without printing its result:
 17. eval_cli: `python -m ccdm_tpu_torch.cli.eval` in a subprocess on a
    `.json` params file (the LIDC branch, 2 images, T = 10, the card by
    default): exit 0 and its results JSON.
+18. cityscapes_train: `TrainingRun(CITYSCAPES_TRAIN_PARAMS)` at full width
+   on the card (128x256, C=20, base 32, mult (1,1,2,2,4,4), attention at ds
+   {8,16,32}, batch 16, bf16, the class weights), reading a synthetic tree
+   of 32 train and 4 val scenes at 256x512 (the release's 1024x2048 cut by
+   4 a side) written under `build/chip_smoke_cs_train/`, through the
+   config's host pipeline; 30 steps with a save and an mIoU validation at
+   step 20 (`dataset_val_max_size` 4). Checks a finite loss and no invalid
+   flag, launches of exactly 81 GroupNorm forward + 81 backward + 16
+   attention a step plus the validation's sites x UNet calls, val and
+   train-split mIoU in [0, 1] or NaN, a `best_miou/20` checkpoint, the
+   grid, and a bit-exact reload (params, EMA, Adam, step). Prints the cold
+   step, warm ms/step and images/s of steps 11-30 (validation, grid and
+   saves out), peak memory and the validation's seconds.
+19. cityscapes_train_dino: `CITYSCAPES_DINO_TRAIN_PARAMS` (ViT-S/8, random
+   weights) on the same tree, 10 steps with a validation at step 10, once
+   frozen and once trainable: the frozen encoder bit-identical after the
+   run and absent from the checkpoint, the trainable one's masters and EMA
+   moved and stored under `feature_cond_encoder` /
+   `average_feature_cond_encoder`, launches exact as in 18; ms/step of
+   each and the DINO forward's share. Then `CityscapesEvaluator` with
+   `load_from` on the trainable run holds its EMA encoder bit for bit and
+   predicts 1 image x 1 vote x 250 steps (launches 81 and 16 x 250).
+20. cityscapes_train_reference: one fp32 train step (Cityscapes widths,
+   32x64, batch 2, C=20 with the class weights, a trainable tiny DINO,
+   injected t and x_t) on the card (kernels, TF32 off) against the CPU
+   (plain versions): loss within 1e-5 relative, every UNet and encoder
+   gradient within 1e-4 of its tensor's largest magnitude (analytic zeros
+   as in 12).
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -242,6 +274,14 @@ def phase_group_norm(gen):
         ((2, 256, 32, 64), bf16, 32, True, True),       # ds 8
         ((2, 256, 2048), bf16, 32, False, False),       # attention pre-norm at ds 8
         ((2, 512, 8, 16), bf16, 32, True, True),        # ds 32: path S
+        # the Cityscapes train step's sites: batch 16 at 128x256, base 32
+        ((16, 32, 128, 256), bf16, 32, True, False),    # level-0 in-norms
+        ((16, 32, 128, 256), bf16, 32, True, True),     # level-0 out-norms
+        ((16, 64, 128, 256), bf16, 32, True, False),    # level-0 decoder concats
+        ((16, 32, 128, 256), fp32, 32, True, False),    # the fp32 head
+        ((16, 448, 16, 32), bf16, 32, True, False),     # the DINO concat at ds 8
+        ((16, 64, 512), bf16, 32, False, False),        # attention pre-norm at ds 8
+        ((16, 128, 4, 8), bf16, 32, True, True),        # ds 32
     ]
     worst, rows = 0.0, {}
     for shape, dtype, groups, silu, with_add in cases:
@@ -278,7 +318,8 @@ def phase_group_norm(gen):
         bound, bound_by = bound_ms(nbytes, ops, "float32")
         worst = max(worst, err)
         if (shape, dtype, silu, with_add) in (((128, 64, 128, 128), bf16, True, False),
-                                              ((2, 128, 256, 512), bf16, True, True)):
+                                              ((2, 128, 256, 512), bf16, True, True),
+                                              ((16, 32, 128, 256), bf16, True, False)):
             rows[shape[0]] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
                               "bound_ms": bound, "bound_by": bound_by,
                               "library_ms": library_ms}
@@ -288,7 +329,7 @@ def phase_group_norm(gen):
             f"library {library}, bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
         del x, e
     torch.cuda.empty_cache()
-    return worst, rows[128], rows[2]
+    return worst, rows[128], rows[2], rows[16]
 
 
 def phase_attention(gen):
@@ -313,6 +354,9 @@ def phase_attention(gen):
         (32, 128, 32, bf16),     # ds=32 and the middle
         (48, 256, 32, bf16),     # the flagship train step at batch 16: ds=8
         (64, 64, 32, bf16),      # ds=16 and the middle
+        # the Cityscapes train step at batch 16: ds 8 is (32, 512) above
+        (64, 128, 32, bf16),     # ds 16
+        (64, 32, 32, bf16),      # ds 32 and the middle
     ]
     worst, rows = 0.0, {}
     for bh, t, dh, dtype in cases:
@@ -349,7 +393,8 @@ def phase_attention(gen):
         nbytes = 4 * bh * dh * t * q.element_size()
         bound, bound_by = bound_ms(nbytes, 4 * bh * t * t * dh, str(dtype)[6:])
         worst = max(worst, err)
-        if (bh, t, dh, dtype) in ((384, 256, 32, bf16), (16, 2048, 32, bf16)):
+        if (bh, t, dh, dtype) in ((384, 256, 32, bf16), (16, 2048, 32, bf16),
+                                  (32, 512, 32, bf16)):
             rows[bh] = {"shape": [bh, dh, t], "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms}
         log("attention", f"{name} path {path}: max_abs_err {err:.3g}{detail}, kernel "
@@ -357,7 +402,7 @@ def phase_attention(gen):
             f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
         del qkv, q, k, v, q4, k4, v4
     torch.cuda.empty_cache()
-    return worst, rows[384], rows[16]
+    return worst, rows[384], rows[16], rows[32]
 
 
 def unzero_(net, seed: int) -> None:
@@ -638,8 +683,16 @@ def phase_group_norm_backward(gen):
         ((16, 128, 64), bf16, False, False),       # attention pre-norm at ds 16
         ((2, 128, 256, 512), bf16, True, True),    # path-L shapes: 1 MB slabs
         ((2, 128, 256, 512), fp32, False, False),  # 2 MB slabs
+        # the Cityscapes train step's sites: batch 16 at 128x256, base 32
+        ((16, 32, 128, 256), bf16, True, False),   # level-0 in-norms
+        ((16, 32, 128, 256), bf16, True, True),    # level-0 out-norms
+        ((16, 64, 128, 256), bf16, True, False),   # level-0 decoder concats
+        ((16, 32, 128, 256), fp32, True, False),   # the fp32 head
+        ((16, 448, 16, 32), bf16, True, False),    # the DINO concat at ds 8
+        ((16, 64, 512), bf16, False, False),       # attention pre-norm at ds 8
+        ((16, 128, 4, 8), bf16, True, True),       # ds 32
     ]
-    worst, row = 0.0, None  # the largest |dx - plain dx| over all cases
+    worst, rows = 0.0, {}  # worst: the largest |dx - plain dx| over all cases
     for shape, dtype, silu, with_add in cases:
         x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
         dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -685,9 +738,11 @@ def phase_group_norm_backward(gen):
             2 * e.numel() * e.element_size() if e is not None else 0)
         bound, bound_by = bound_ms(nbytes, n * (14 + 8 * silu + (e is not None)), "float32")
         worst = max(worst, dx_err)
-        if (shape, dtype, silu, with_add) == ((16, 64, 128, 128), bf16, True, False):
-            row = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                   "bound_by": bound_by, "library_ms": library_ms}
+        if (shape, dtype, silu, with_add) in (((16, 64, 128, 128), bf16, True, False),
+                                              ((16, 32, 128, 256), bf16, True, False)):
+            rows[shape[2:]] = {"shape": list(shape), "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "bound_by": bound_by,
+                               "library_ms": library_ms}
         library = "none" if library_ms is None else f"{library_ms:.4f} ms{lib_note}"
         log("group_norm_backward", f"{name}: max_abs_err dx {dx_err:.3g}; err/max " + ", ".join(
             f"{k} {v:.3g}" for k, v in errs.items()) + f"; kernel {ms:.4f} ms, plain "
@@ -695,7 +750,7 @@ def phase_group_norm_backward(gen):
             f"{bound / ms:.1%} of bound")
         del x, dy, e
     torch.cuda.empty_cache()
-    return worst, row
+    return worst, rows[(128, 128)], rows[(128, 256)]
 
 
 def phase_attention_backward(gen):
@@ -706,7 +761,10 @@ def phase_attention_backward(gen):
 
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [(48, 256, bf16), (48, 256, fp32), (64, 64, bf16), (64, 64, fp32),
-             (16, 2048, bf16), (16, 2048, fp32)]  # (BH, T, dtype), dh 32
+             (16, 2048, bf16), (16, 2048, fp32),
+             # the Cityscapes train step at batch 16: ds 8, 16, 32
+             (32, 512, bf16), (32, 512, fp32), (64, 128, bf16), (64, 32, bf16)]
+    # (BH, T, dtype), dh 32
     dh = 32
     for bh, t, dtype in cases:
         qkv = torch.randn(bh, 3 * dh, t, generator=gen, device="cuda").to(dtype)
@@ -760,6 +818,92 @@ def phase_attention_backward(gen):
 TRAIN_STEPS, TRAIN_EVENT = 30, 20  # steps; the step of the save and validation
 
 
+def run_training(run, steps: int, marks_at):
+    """Drive `run` for `steps` steps with the launch counts set to 0 just
+    before; returns the step metrics, the host clock after each step in
+    `marks_at` (after a sync), the (start, seconds) of every validation,
+    grid and save, the validation's and the grid's results, and the number
+    of UNet calls of the EMA module (validation and grid)."""
+    import torch
+
+    metrics, marks, pauses, results, calls = [], {}, [], {}, []
+    step_fn = run.step_fn
+
+    def step(*args, **kwargs):
+        m = step_fn(*args, **kwargs)
+        metrics.append(m)
+        if len(metrics) in marks_at:
+            torch.cuda.synchronize()
+            marks[len(metrics)] = time.perf_counter()
+        return m
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            pauses.append((start, time.perf_counter() - start))
+            if key:
+                results[key] = (result, pauses[-1][1])
+            return result
+        return wrapped
+
+    run.ema_net.register_forward_pre_hook(lambda *_: calls.append(1))
+    run.step_fn = step
+    run.validate = timed(run.validate, "validate")
+    run.save_qualitative = timed(run.save_qualitative, "grid")
+    run.checkpoints.save_periodic = timed(run.checkpoints.save_periodic, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks[0] = time.perf_counter()
+    state = run.run(max_steps=steps)
+    torch.cuda.synchronize()
+    launches, _ = read_counts()
+    if state.step != steps or len(metrics) != steps:
+        raise AssertionError(f"trained to step {state.step} in {len(metrics)} steps")
+    losses = [float(m["loss"]) for m in metrics]
+    if not all(np.isfinite(losses)) or any(bool(m["invalid"]) for m in metrics):
+        raise AssertionError(f"a non-finite loss or an invalid step: {losses}")
+    return metrics, marks, pauses, results, len(calls), launches
+
+
+def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
+                         attn: int = 16):
+    want = {"group_norm": gn * (steps + calls), "group_norm_backward": gn * steps,
+            "flash_attention": attn * (steps + calls)}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want} ({steps} steps, {calls} "
+                             f"validation UNet calls)")
+
+
+def check_round_trip(name: str, state, restored) -> None:
+    """A `TrainingRun` restored from `state`'s checkpoint holds the same
+    params, EMA, Adam moments, count and step, bit for bit."""
+    import torch
+
+    for what, a, b in (("params", state.params, restored.params),
+                       ("EMA", state.ema_params, restored.ema_params),
+                       ("Adam mu", state.opt_state["mu"], restored.opt_state["mu"]),
+                       ("Adam nu", state.opt_state["nu"], restored.opt_state["nu"])):
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"{name}: checkpoint round trip: {what} differ")
+    if (restored.step, restored.opt_state["count"]) != (state.step, state.opt_state["count"]):
+        raise AssertionError(f"{name}: checkpoint round trip: step {restored.step}, count "
+                             f"{restored.opt_state['count']}")
+
+
+def check_miou(name: str, results):
+    scores, val_s = results["validate"]
+    if not all(v != v or 0 <= v <= 1 for v in (scores["mIoU"], scores["mIoU_train"])):
+        raise AssertionError(f"{name}: mIoU out of range: {scores}")
+    grid, grid_s = results["grid"]
+    if not Path(grid).is_file():
+        raise AssertionError(f"{name}: no qualitative grid at {grid}")
+    return scores, val_s, grid_s
+
+
 def phase_train(smi):
     """The flagship trainer at full width on the card (see the docstring)."""
     import shutil
@@ -782,58 +926,11 @@ def phase_train(smi):
     if (gn_sites, attn_sites) != (66, 11):
         raise AssertionError(f"sites per UNet call ({gn_sites}, {attn_sites}) != (66, 11)")
 
-    metrics, marks, pauses, val = [], {}, [], {}
-    step_fn = run.step_fn
-
-    def step(*args, **kwargs):
-        m = step_fn(*args, **kwargs)
-        metrics.append(m)
-        if len(metrics) in (1, 10, TRAIN_STEPS):
-            torch.cuda.synchronize()
-            marks[len(metrics)] = time.perf_counter()
-        return m
-
-    def timed(fn, key):
-        def wrapped(*args, **kwargs):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            result = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            pauses.append((start, time.perf_counter() - start))
-            if key:
-                val[key] = (result, pauses[-1][1])
-            return result
-        return wrapped
-
-    val_calls = []
-    run.ema_net.register_forward_pre_hook(lambda *_: val_calls.append(1))
-    run.step_fn = step
-    run.validate = timed(run.validate, "validate")
-    run.save_qualitative = timed(run.save_qualitative, "grid")
-    run.checkpoints.save_periodic = timed(run.checkpoints.save_periodic, None)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    start = time.perf_counter()
-    state = run.run(max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    launches, _ = read_counts()
+    metrics, marks, pauses, val, calls, launches = run_training(
+        run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
-
-    if state.step != TRAIN_STEPS or len(metrics) != TRAIN_STEPS:
-        raise AssertionError(f"trained to step {state.step} in {len(metrics)} steps")
     losses = [float(m["loss"]) for m in metrics]
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)) or any(
-            bool(m["invalid"]) for m in metrics):
-        raise AssertionError(f"a non-finite loss or an invalid step: {losses}")
-    calls = len(val_calls)
-    want = {"group_norm": gn_sites * (TRAIN_STEPS + calls),
-            "group_norm_backward": gn_sites * TRAIN_STEPS,
-            "flash_attention": attn_sites * (TRAIN_STEPS + calls)}
-    if launches != want:
-        raise AssertionError(f"train: launches {launches} != {want} ({TRAIN_STEPS} steps, "
-                             f"{calls} validation UNet calls)")
+    check_train_launches("train", launches, TRAIN_STEPS, calls, gn_sites, attn_sites)
     scores, val_s = val["validate"]
     if not (0 <= scores["GED"] <= 2 and 0 <= scores["HMIoU"] <= 1):
         raise AssertionError(f"validation scores out of range: {scores}")
@@ -844,19 +941,9 @@ def phase_train(smi):
     # their time comes off the window
     inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[TRAIN_STEPS])
     warm = (marks[TRAIN_STEPS] - marks[10] - inside) / (TRAIN_STEPS - 10)
-    cold = marks[1] - start
-
-    restored = TrainingRun(dict(params, load_from=str(out / "run"),
-                                output_path=str(out / "restored")))
-    for what, a, b in (("params", state.params, restored.state.params),
-                       ("EMA", state.ema_params, restored.state.ema_params),
-                       ("Adam mu", state.opt_state["mu"], restored.state.opt_state["mu"]),
-                       ("Adam nu", state.opt_state["nu"], restored.state.opt_state["nu"])):
-        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
-            raise AssertionError(f"checkpoint round trip: {what} differ")
-    if (restored.state.step, restored.state.opt_state["count"]) != (TRAIN_STEPS, TRAIN_STEPS):
-        raise AssertionError(f"checkpoint round trip: step {restored.state.step}, count "
-                             f"{restored.state.opt_state['count']}")
+    cold = marks[1] - marks[0]
+    check_round_trip("train", run.state, TrainingRun(dict(
+        params, load_from=str(out / "run"), output_path=str(out / "restored"))).state)
     batch = run.batch_size
     log("train", f"DEMO_TRAIN_PARAMS bf16, batch {batch}, {TRAIN_STEPS} steps ({smi}): cold "
         f"first step {cold:.2f} s, warm {warm * 1e3:.2f} ms/step = {batch / warm:.1f} images/s "
@@ -866,6 +953,43 @@ def phase_train(smi):
         f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}; "
         f"checkpoint round trip exact (params, EMA, Adam, step {TRAIN_STEPS})")
     return {"launches": launches, "path_launches": {}}
+
+
+def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
+    """Card gradients `grads` against the CPU's `ref` (name -> tensor): the
+    worst max |diff| over the tensor's largest |ref|, which must be <= 1e-4.
+
+    Gradients that are 0 in exact arithmetic are rounding noise on both
+    devices, and a relative error means nothing there. They are what the
+    model adds per channel in front of a GroupNorm of one channel a group,
+    which the norm's mean removes (a ResBlock's first conv bias and
+    time-embedding projection, the last ResBlock's output biases in front
+    of the head's norm), and the key rows of an attention's qkv bias (the
+    softmax removes q.b_k; with `key_rows`, the UNet's packing of 32-channel
+    heads). A tensor whose largest CPU gradient is under 1e-5 of the tree's
+    largest counts as one; those and the key rows are held to 1e-6 of the
+    tree's largest gradient instead. Returns (worst, worst of the zeros,
+    the zero tensors' names)."""
+    import torch
+
+    top = max(float(g.abs().max()) for g in ref.values())
+    zero = {n for n, g in ref.items() if float(g.abs().max()) < 1e-5 * top}
+    worst, worst_zero = (0.0, ""), 0.0
+    for name, g in ref.items():
+        diff = (grads[name] - g).abs()
+        if name in zero:
+            worst_zero = max(worst_zero, float(diff.max()) / top)
+            continue
+        if key_rows and name.endswith("qkv.bias"):
+            keys = (torch.arange(g.numel()) // 32) % 3 == 1
+            worst_zero = max(worst_zero, float(diff[keys].max()) / top)
+            diff, g = diff[~keys], g[~keys]
+        e = float(diff.max()) / max(float(g.abs().max()), 1e-30)
+        worst = max(worst, (e, name))
+    if not (worst[0] <= 1e-4 and worst_zero <= 1e-6):
+        raise AssertionError(f"{phase}: gradient err/max {worst}, analytically zero "
+                             f"gradients {worst_zero:.3g} of the largest ({sorted(zero)})")
+    return worst, worst_zero, zero
 
 
 def phase_train_reference():
@@ -902,32 +1026,7 @@ def phase_train_reference():
     rel = abs(loss - ref_loss) / abs(ref_loss)
     if not rel <= 1e-5:
         raise AssertionError(f"train_reference: loss {loss} vs CPU {ref_loss} ({rel:.3g})")
-    # Gradients that are 0 in exact arithmetic are rounding noise on both
-    # devices, and a relative error means nothing there. They are what the
-    # model adds per channel in front of a GroupNorm of one channel a group,
-    # which the norm's mean removes (a ResBlock's first conv bias and
-    # time-embedding projection, the last ResBlock's output biases in front
-    # of the head's norm), and the key rows of an attention's qkv bias (the
-    # softmax removes q.b_k). A tensor whose largest CPU gradient is under
-    # 1e-5 of the model's largest counts as one; those and the key rows are
-    # held to 1e-6 of the model's largest gradient instead.
-    top = max(float(g.abs().max()) for g in ref.values())
-    zero = {n for n, g in ref.items() if float(g.abs().max()) < 1e-5 * top}
-    worst, worst_zero = (0.0, ""), 0.0
-    for name, g in ref.items():
-        diff = (grads[name] - g).abs()
-        if name in zero:
-            worst_zero = max(worst_zero, float(diff.max()) / top)
-            continue
-        if name.endswith("qkv.bias"):
-            keys = (torch.arange(g.numel()) // 32) % 3 == 1
-            worst_zero = max(worst_zero, float(diff[keys].max()) / top)
-            diff, g = diff[~keys], g[~keys]
-        e = float(diff.max()) / max(float(g.abs().max()), 1e-30)
-        worst = max(worst, (e, name))
-    if not (worst[0] <= 1e-4 and worst_zero <= 1e-6):
-        raise AssertionError(f"train_reference: gradient err/max {worst}, analytically zero "
-                             f"gradients {worst_zero:.3g} of the largest ({sorted(zero)})")
+    worst, worst_zero, zero = grad_agreement(ref, grads, "train_reference")
     log("train_reference", f"fp32 train step, flagship widths, batch {b} of {hw}x{hw}, card "
         f"vs CPU: loss {loss:.6g} vs {ref_loss:.6g} ({rel:.2g} relative), worst gradient "
         f"err/max {worst[0]:.3g} ({worst[1]}), analytically zero gradients within "
@@ -1096,32 +1195,38 @@ def phase_sampling_speed(smi):
     return {"launches": launches, "path_launches": {}}
 
 
-def write_cityscapes_tree(root: Path, n: int) -> list:
-    """`n` val scenes at 1024x2048: RGB `leftImg8bit`, 8-bit `labelIds`
-    (sky, building, road bands with car and person boxes) and 16-bit
-    `instanceIds`, in the release's layout. Returns the image paths."""
+def write_cityscapes_tree(root: Path, n: int, split: str = "val", hw=CS_LABEL_HW,
+                          seed: int = EVAL_SEED) -> list:
+    """`n` scenes of `split` at `hw` (default the release's 1024x2048): RGB
+    `leftImg8bit`, 8-bit `labelIds` (sky, building, road bands with car and
+    person boxes) and 16-bit `instanceIds`, in the release's layout.
+    Returns the image paths."""
     from ccdm_tpu_torch.utils.png import write_png
 
-    rng = np.random.default_rng(EVAL_SEED)
-    h, w = CS_LABEL_HW
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    scale = h / CS_LABEL_HW[0]
     paths = []
     for i in range(n):
         ids = np.full((h, w), 11, np.uint8)
         ids[: h // 4] = 23
         ids[h // 2:] = 7
         inst = ids.astype(np.uint16)
-        for k, (label, bh, bw) in enumerate([(26, 120, 260)] * 4 + [(24, 180, 60)] * 3):
+        boxes = [(26, 120, 260)] * 4 + [(24, 180, 60)] * 3
+        for k, (label, bh, bw) in enumerate(boxes):
+            bh, bw = int(bh * scale), int(bw * scale)
             y, x = rng.integers(h // 3, h - bh), rng.integers(0, w - bw)
             ids[y:y + bh, x:x + bw] = label
             inst[y:y + bh, x:x + bw] = label * 1000 + k
         yy, xx = np.mgrid[0:h, 0:w]
         image = np.stack([(xx // 8 + ids) % 256, (yy // 4 + 3 * ids) % 256,
                           rng.integers(0, 256, (h, w))], -1).astype(np.uint8)
-        base = f"frankfurt_{i:06d}_000019"
-        paths.append(write_png(root / "leftImg8bit" / "val" / "frankfurt" /
+        city = "frankfurt" if split == "val" else "aachen"
+        base = f"{city}_{i:06d}_000019"
+        paths.append(write_png(root / "leftImg8bit" / split / city /
                                f"{base}_leftImg8bit.png", image, level=1))
-        write_png(root / "gtFine" / "val" / "frankfurt" / f"{base}_gtFine_labelIds.png", ids)
-        write_png(root / "gtFine" / "val" / "frankfurt" / f"{base}_gtFine_instanceIds.png", inst)
+        write_png(root / "gtFine" / split / city / f"{base}_gtFine_labelIds.png", ids)
+        write_png(root / "gtFine" / split / city / f"{base}_gtFine_instanceIds.png", inst)
     return paths
 
 
@@ -1218,6 +1323,237 @@ def phase_eval_cli():
         f"{res['GED_4']:.4f}, {result}")
 
 
+CS_TRAIN_DIR = Path("build/chip_smoke_cs_train")
+CS_TREE_HW = (256, 512)  # the training tree: 1024x2048 cut by 4 a side
+
+
+def cs_train_params(base, name: str, **overrides):
+    """A Cityscapes training config on the phase's tree, into
+    `build/chip_smoke_cs_train/<name>`, saving and validating at the given
+    steps, without the progress line."""
+    params = dict(base, output_path=str(CS_TRAIN_DIR / name), dataset_val_max_size=4,
+                  progress_bar=False)
+    params.update(overrides)
+    return params
+
+
+def phase_cityscapes_train(smi):
+    """The 20-class Cityscapes trainer at full width on the card (see the
+    docstring)."""
+    import os
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    shutil.rmtree(CS_TRAIN_DIR, ignore_errors=True)
+    start = time.perf_counter()
+    write_cityscapes_tree(CS_TRAIN_DIR / "tree", 32, "train", CS_TREE_HW, seed=EVAL_SEED + 1)
+    write_cityscapes_tree(CS_TRAIN_DIR / "tree", 4, "val", CS_TREE_HW, seed=EVAL_SEED + 2)
+    tree_s = time.perf_counter() - start
+    os.environ["CCDM_CITYSCAPES_PATH"] = str(CS_TRAIN_DIR / "tree")
+    params = cs_train_params(CITYSCAPES_TRAIN_PARAMS, "run", save_freq=TRAIN_EVENT,
+                             validation_freq=TRAIN_EVENT, display_freq=10)
+    run = TrainingRun(params)  # the default device is the card
+    if run.device.type != "cuda" or next(run.net.parameters()).dtype != torch.bfloat16:
+        raise AssertionError("TrainingRun did not build a bf16 UNet on the card")
+    gn_sites = sum(isinstance(m, GroupNorm32) for m in run.net.modules())
+    attn_sites = sum(isinstance(m, AttentionBlock) for m in run.net.modules())
+    if (gn_sites, attn_sites) != (81, 16) or len(run.train_ds) != 32:
+        raise AssertionError(f"sites per UNet call ({gn_sites}, {attn_sites}) != (81, 16), or "
+                             f"{len(run.train_ds)} train images")
+    image = run.train_ds.get(0, np.random.default_rng(0))["image"]
+    hw = tuple(params["dataset_pipeline_train_settings"]["target_size"])
+    if image.shape != (*hw, 3):
+        raise AssertionError(f"the train pipeline gave {image.shape}, not {hw}")
+    metrics, marks, pauses, results, calls, launches = run_training(
+        run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls)
+    scores, val_s, grid_s = check_miou("cityscapes_train", results)
+    if not (CS_TRAIN_DIR / "run" / "best_miou" / str(TRAIN_EVENT) / "state.pt").is_file():
+        raise AssertionError(f"cityscapes_train: no best_miou/{TRAIN_EVENT} checkpoint")
+    inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[TRAIN_STEPS])
+    warm = (marks[TRAIN_STEPS] - marks[10] - inside) / (TRAIN_STEPS - 10)
+    cold = marks[1] - marks[0]
+
+    check_round_trip("cityscapes_train", run.state, TrainingRun(dict(
+        params, load_from=str(CS_TRAIN_DIR / "run"),
+        output_path=str(CS_TRAIN_DIR / "restored"))).state)
+    batch = run.batch_size
+    losses = [float(m["loss"]) for m in metrics]
+    log("cityscapes_train", f"CITYSCAPES_TRAIN_PARAMS bf16 (128x256, C=20, base 32, weighted), "
+        f"batch {batch}, {TRAIN_STEPS} steps on 32 train images at {CS_TREE_HW[0]}x"
+        f"{CS_TREE_HW[1]} written in {tree_s:.1f} s ({smi}): cold first step {cold:.2f} s, warm "
+        f"{warm * 1e3:.2f} ms/step = {batch / warm:.1f} images/s (steps 11-{TRAIN_STEPS}, the "
+        f"loader on the host included; the save, validation and grid taken out), peak "
+        f"{peak:.2f} GiB; loss {losses[0]:.4g} -> {losses[-1]:.4g}; validation at step "
+        f"{TRAIN_EVENT}: mIoU {scores['mIoU']:.4f}, train-split {scores['mIoU_train']:.4f}, "
+        f"{val_s:.2f} s; grid {grid_s:.2f} s; {calls} UNet calls of validation and grid; "
+        f"launches {launches}; checkpoint round trip exact (params, EMA, Adam, step)")
+    return {"launches": launches, "path_launches": {}}
+
+
+DINO_STEPS = 10
+
+
+def phase_cityscapes_train_dino(smi):
+    """`CITYSCAPES_DINO_TRAIN_PARAMS` on phase 18's tree, frozen and
+    trainable, then the evaluator on the trainable run (see the
+    docstring). Returns the runs' launch counts."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_DINO_TRAIN_PARAMS
+    from ccdm_tpu_torch.data import cityscapes
+    from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
+    from ccdm_tpu_torch.train.checkpoint import load_tree
+    from ccdm_tpu_torch.train.state import ENCODER
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    runs, ms = {}, {}
+    for mode in ("frozen", "trainable"):
+        fce = dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"], train=mode == "trainable")
+        params = cs_train_params(CITYSCAPES_DINO_TRAIN_PARAMS, f"dino_{mode}",
+                                 feature_cond_encoder=fce, save_freq=DINO_STEPS,
+                                 validation_freq=DINO_STEPS, display_freq=DINO_STEPS)
+        run = TrainingRun(params)
+        before = {k: v.clone() for k, v in run.encoder_net.state_dict().items()}
+        metrics, marks, pauses, results, calls, launches = run_training(
+            run, DINO_STEPS, (1, 2, DINO_STEPS))
+        check_train_launches(f"cityscapes_train_dino {mode}", launches, DINO_STEPS, calls)
+        scores, val_s, _ = check_miou(f"cityscapes_train_dino {mode}", results)
+        warm = (marks[DINO_STEPS] - marks[2]) / (DINO_STEPS - 2)  # no pause inside
+        saved = set(load_tree(str(CS_TRAIN_DIR / f"dino_{mode}")))
+        after = run.encoder_net.state_dict()
+        state = run.state
+        if mode == "frozen":
+            if not all(torch.equal(before[k], after[k]) for k in before):
+                raise AssertionError("cityscapes_train_dino: the frozen encoder moved")
+            if saved != {"model", "average_model", "opt_state", "step"}:
+                raise AssertionError(f"cityscapes_train_dino: frozen checkpoint keys {saved}")
+        else:
+            moved = [k for k in before if not torch.equal(before[k], after[k])]
+            ema_moved = [k for k in before
+                         if not torch.equal(before[k], state.ema_params[ENCODER + k])]
+            if not moved or not ema_moved:
+                raise AssertionError("cityscapes_train_dino: the trainable encoder's masters "
+                                     f"({len(moved)} moved) or EMA ({len(ema_moved)}) did not "
+                                     "move")
+            if not {"feature_cond_encoder", "average_feature_cond_encoder"} <= saved:
+                raise AssertionError(f"cityscapes_train_dino: trainable checkpoint keys {saved}")
+        images = torch.from_numpy(np.stack([run.train_ds.get(i)["image"]
+                                            for i in range(run.batch_size)])).cuda()
+        with torch.inference_mode():
+            dino_ms = time_ms(lambda: run.encoder(run.encoder_net, images), reps=3, calls=5)
+        ms[mode] = (warm, dino_ms)
+        runs[f"cityscapes_train_dino_{mode}"] = {"launches": launches, "path_launches": {}}
+        log("cityscapes_train_dino", f"{mode}: CITYSCAPES_DINO_TRAIN_PARAMS bf16, ViT-S/8 random "
+            f"weights, batch {run.batch_size}, {DINO_STEPS} steps ({smi}): warm "
+            f"{warm * 1e3:.2f} ms/step = {run.batch_size / warm:.1f} images/s (steps 3-"
+            f"{DINO_STEPS}, the loader included), DINO forward at batch {run.batch_size} "
+            f"{dino_ms:.2f} ms = {dino_ms / (warm * 1e3):.1%} of the step; validation mIoU "
+            f"{scores['mIoU']:.4f}, train-split {scores['mIoU_train']:.4f}, {val_s:.2f} s; "
+            f"launches {launches}; checkpoint keys {sorted(saved)}; encoder "
+            + ("bit-identical after the run" if mode == "frozen" else
+               f"masters moved in {len(moved)}/{len(before)} tensors, EMA in {len(ema_moved)}"))
+        del run
+
+    # the evaluator on the trainable run: its EMA UNet and encoder
+    ev_params = dict(CITYSCAPES_DINO_TRAIN_PARAMS, load_from=str(CS_TRAIN_DIR / "dino_trainable"),
+                     output_path=str(CS_TRAIN_DIR / "dino_eval"),
+                     feature_cond_encoder=dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"],
+                                               train=True),
+                     evaluation={"resolution": "dataloader", "evaluations": 1,
+                                 "evaluation_vote_strategy": "confidence"})
+    val = cityscapes.validation_dataset(max_size=1, params=CITYSCAPES_DINO_TRAIN_PARAMS)
+    image = torch.from_numpy(val.get(0)["image"][None]).cuda()
+    ev = CityscapesEvaluator(ev_params)
+    ev.build(tuple(image.shape[1:]), 1)
+    for name, p in ev.feature_net.named_parameters():
+        if not torch.equal(p.detach().cpu(), state.ema_params[ENCODER + name].cpu()):
+            raise AssertionError(f"CityscapesEvaluator's encoder {name} is not the EMA's")
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    probs = ev.predict_batch(image, 3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, _ = read_counts()
+    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0}
+    if launches != want or tuple(probs.shape) != (*image.shape[:3], 20) or not bool(
+            torch.isfinite(probs).all()):
+        raise AssertionError(f"cityscapes_train_dino eval: launches {launches} != {want} or "
+                             f"probabilities {tuple(probs.shape)}")
+    runs["cityscapes_train_dino_eval"] = {"launches": launches, "path_launches": {}}
+    log("cityscapes_train_dino", f"CityscapesEvaluator with load_from on the trainable run "
+        f"(EMA UNet and EMA encoder, bit-exact): 1 image x 1 vote x {STEPS} steps at "
+        f"{image.shape[1]}x{image.shape[2]} in {wall:.2f} s; launches {launches}; frozen vs "
+        f"trainable warm ms/step "
+        f"{ms['frozen'][0] * 1e3:.2f} / {ms['trainable'][0] * 1e3:.2f}")
+    return runs
+
+
+def phase_cityscapes_train_reference():
+    """One fp32 train step on the card (kernels, TF32 off) against the CPU
+    (plain versions): Cityscapes widths, 20 classes with the class weights,
+    a trainable tiny DINO, batch 2 of 32x64, the same injected t and x_t."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_DINO_TRAIN_PARAMS
+    from ccdm_tpu_torch.data.cityscapes import get_weights
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
+    from ccdm_tpu_torch.train.step import train_loss
+
+    fce = dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"], train=True, source_layer=1,
+               vit_config=dict(embed_dim=48, depth=2, num_heads=2, patch_size=8))
+    params = dict(CITYSCAPES_DINO_TRAIN_PARAMS, compute_dtype="float32", feature_cond_encoder=fce)
+    enc = DinoFeatureEncoder(fce)
+    cpu = build_model(params, 20, 3, 128, device="cpu")
+    unzero_(cpu.unet, seed=17)
+    cpu_vit = enc.init(device="cpu")
+    unzero_(cpu_vit, seed=18)
+    card = build_model(params, 20, 3, 128)
+    card.unet.load_state_dict(cpu.unet.state_dict())
+    card_vit = enc.init()
+    card_vit.load_state_dict(cpu_vit.state_dict())
+    gen = torch.Generator().manual_seed(19)
+    b, h, w = 2, 32, 64
+    labels = torch.randint(0, 20, (b, h, w), generator=gen)
+    batch = {"image": torch.randn(b, h, w, 3, generator=gen),
+             "x0": torch.nn.functional.one_hot(labels, 20).float()}
+    t = torch.tensor([2, int(params["time_steps"]) * 3 // 5])
+    xt = torch.nn.functional.one_hot(torch.randint(0, 20, (b, h, w), generator=gen), 20).float()
+    cw = torch.from_numpy(get_weights())
+    results = []
+    for model, vit, dev in ((cpu, cpu_vit, "cpu"), (card, card_vit, "cuda")):
+        on = {k: v.to(dev) for k, v in batch.items()}
+        fc = enc(vit, on["image"])
+        loss, _ = train_loss(model, model.unet, on, None, cw.to(dev), fc, t=t.to(dev),
+                             xt=xt.to(dev))
+        loss.backward()
+        results.append((float(loss.detach()),
+                        {n: p.grad.cpu() for n, p in model.unet.named_parameters()},
+                        {n: p.grad.cpu() if p.grad is not None else torch.zeros_like(p).cpu()
+                         for n, p in vit.named_parameters()}))
+    (ref_loss, ref, ref_enc), (loss, grads, enc_grads) = results
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    if not rel <= 1e-5:
+        raise AssertionError(f"cityscapes_train_reference: loss {loss} vs CPU {ref_loss}")
+    worst, worst_zero, zero = grad_agreement(ref, grads, "cityscapes_train_reference")
+    enc_worst, enc_zero, _ = grad_agreement(ref_enc, enc_grads, "cityscapes_train_reference "
+                                            "encoder", key_rows=False)
+    log("cityscapes_train_reference", f"fp32 train step, Cityscapes widths, C=20 weighted, "
+        f"trainable tiny DINO, batch {b} of {h}x{w}, card vs CPU: loss {loss:.6g} vs "
+        f"{ref_loss:.6g} ({rel:.2g} relative), worst UNet gradient err/max {worst[0]:.3g} "
+        f"({worst[1]}), analytically zero within {worst_zero:.2g} of the largest ({len(zero)} "
+        f"tensors and the key rows); worst encoder gradient err/max {enc_worst[0]:.3g} "
+        f"({enc_worst[1]}), zeros within {enc_zero:.2g}")
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
@@ -1225,15 +1561,15 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gn_err, gn_row, gn_cs_row = phase_group_norm(gen)
-    attn_err, attn_row, attn_cs_row = phase_attention(gen)
+    gn_err, gn_row, gn_cs_row, gn_train_row = phase_group_norm(gen)
+    attn_err, attn_row, attn_cs_row, attn_train_row = phase_attention(gen)
     runs = {}
     runs["flagship"], bare_rate = phase_slice(smi)
     phase_reference()
     for reuse in (1, 3):
         runs[f"cityscapes_r{reuse}"] = phase_cityscapes(smi, reuse)
     phase_cityscapes_reference()
-    gnb_err, gnb_row = phase_group_norm_backward(gen)
+    gnb_err, gnb_row, gnb_train_row = phase_group_norm_backward(gen)
     phase_attention_backward(gen)
     runs["train"] = phase_train(smi)
     phase_train_reference()
@@ -1242,6 +1578,9 @@ def main() -> None:
     runs["sampling_speed"] = phase_sampling_speed(smi)
     runs["cityscapes_eval"] = phase_cityscapes_eval(smi)
     phase_eval_cli()
+    runs["cityscapes_train"] = phase_cityscapes_train(smi)
+    runs.update(phase_cityscapes_train_dino(smi))
+    phase_cityscapes_train_reference()
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],
@@ -1253,20 +1592,21 @@ def main() -> None:
          "replaces": "ccdm_tpu/ops/group_norm.py:40",
          "launches": sum(r["launches"]["group_norm"] for r in runs.values()),
          "max_abs_err": gn_err, **gn_row, "cityscapes_case": gn_cs_row,
-         "runs": by_run("group_norm")},
+         "cityscapes_train_case": gn_train_row, "runs": by_run("group_norm")},
         {"name": "flash_attention", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "ccdm_tpu/ops/flash_attention.py:34",
          "launches": sum(r["launches"]["flash_attention"] for r in runs.values()),
          "max_abs_err": attn_err, **attn_row, "cityscapes_case": attn_cs_row,
-         "runs": by_run("flash_attention")},
+         "cityscapes_train_case": attn_train_row, "runs": by_run("flash_attention")},
         {"name": "group_norm_backward", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/group_norm_backward.cu",
          # K2's backward: the JAX package trains through flax's GroupNorm
          # (ccdm_tpu/models/layers.py:65), whose gradient is XLA code
          "replaces": "ccdm_tpu/ops/group_norm.py:40",
          "launches": sum(r["launches"]["group_norm_backward"] for r in runs.values()),
-         "max_abs_err": gnb_err, **gnb_row, "runs": by_run("group_norm_backward")},
+         "max_abs_err": gnb_err, **gnb_row, "cityscapes_train_case": gnb_train_row,
+         "runs": by_run("group_norm_backward")},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
