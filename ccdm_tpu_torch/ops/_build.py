@@ -44,10 +44,10 @@ _SIGNATURES = {
     # param, chunk, eps, silu, stream
     "ccdm_group_norm": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I, _I,
                         _I, _LL, _F, _I, _P],
-    # x, dy, gamma, beta, add, dx, dadd, partial, dgamma, dbeta, dtype, batch,
-    # channels, hw, groups, vec, eps, silu, stream
-    "ccdm_group_norm_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL,
-                                 _I, _I, _F, _I, _P],
+    # x, dy, gamma, beta, add, dx, dadd, scratch, counter, dgamma, dbeta, dtype, batch,
+    # channels, hw, groups, path, vec, param, chunk, eps, silu, stream
+    "ccdm_group_norm_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL,
+                                 _LL, _I, _I, _I, _I, _LL, _F, _I, _P],
     # q, k, v, out, dtype, path, bh, t, dh, q_sbh, q_sd, k_sbh, k_sd, v_sbh, v_sd,
     # scale, stream
     "ccdm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -27,9 +27,21 @@ through `GroupNormFunction`, whose backward is `group_norm_backward`: the
 hand-written kernel `csrc/group_norm_backward.cu` on the card, the plain
 `torch_group_norm_backward` on the CPU. It returns the gradients of x, the
 weight, the bias and the add; it saves x as given (not the sum with the add,
-which it recomputes) and recomputes the statistics. `launches_bwd` counts its
-calls on the card. Without autograd (the sampler, under `inference_mode`)
-the forward runs alone, as before.
+which it recomputes) and recomputes the statistics. `_plan_backward` picks
+the backward kernel's path as `_plan` does the forward's:
+
+- "S": slabs of at most `_SB_MAX_PACKS` vectors a lane for a team of up to
+  `_SB_MAX_WARPS` warps per slab and at most `_SB_MAX_CHANNELS` channels a
+  group, x and dy in registers, a cluster per group that adds the weight
+  and bias gradients over the batch;
+- "M": slabs whose x and dy fit a cluster of up to `_M_MAX_CLUSTER` blocks
+  of `_MB_CHUNK_BYTES` of each, bulk copies into shared memory and the
+  partial sums exchanged between the blocks;
+- "L": larger slabs, partial sums to scratch over three launches.
+
+S and M read x and dy once in one launch. `launches_bwd` counts its calls
+on the card, `path_launches_bwd` splits them by path. Without autograd (the
+sampler, under `inference_mode`) the forward runs alone, as before.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from ccdm_tpu_torch.ops import _build
 launches = 0
 path_launches = {"S": 0, "M": 0, "L": 0}
 launches_bwd = 0
+path_launches_bwd = {"S": 0, "M": 0, "L": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODES = {"S": 0, "M": 1, "L": 2}
@@ -58,6 +71,22 @@ _M_CHUNK_BYTES = 64 * 1024        # shared memory a path-M block holds at most: 
 _M_MAX_CLUSTER = 8                # the portable cluster size
 _LOADS_PER_THREAD = 8             # path L: 16-byte loads each thread makes per block and pass
 _MIN_BLOCKS = 4 * 132             # path L: a few blocks per H100 SM when B*G alone is too few
+# The backward's limits (csrc/group_norm_backward.cu), from timings of the
+# training sites on the H100 (tools/sweep_group_norm_backward.py, PERF.md):
+# S holds x and dy in registers, at most 2 vectors a lane for a team of at
+# most 8 warps (at 512 vectors S and M ran within 5%) and at most 16
+# channels a group; an M block holds at most 16 KB of x and of dy, so 6
+# blocks share an SM, and the least cluster that holds the slab ran fastest
+# (more, smaller blocks did not pay for their barriers); M and L cut a
+# block's chunk into tiles, each within one channel and at most
+# `_TILE_PACKS` vectors a lane long, and hold at most `_MAX_TILES` of them
+# (`_tiles_bound`).
+_SB_MAX_PACKS = 2
+_SB_MAX_WARPS = 8
+_SB_MAX_CHANNELS = 16
+_MB_CHUNK_BYTES = 16 * 1024
+_TILE_PACKS = 2
+_MAX_TILES = 128
 
 
 def torch_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -85,10 +114,11 @@ def torch_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How the kernel runs one call: `path` "S", "M" or "L"; `vec` elements
+    """How a kernel runs one call: `path` "S", "M" or "L"; `vec` elements
     per load (16 bytes, or 1 where H·W or the address does not allow it);
     `param` packs per lane (S), cluster size (M) or splits per slab (L);
-    `chunk` elements per block (M, L)."""
+    `chunk` elements per block (M, L), or warps per slab (the backward's
+    S)."""
 
     path: str
     vec: int
@@ -124,6 +154,89 @@ def _plan(shape: Sequence[int], dtype: torch.dtype, groups: int,
         return Plan("M", vec, cluster, math.ceil(math.ceil(slab / cluster) / vec) * vec)
     splits = _splits(b * groups, slab, itemsize)
     return Plan("L", vec, splits, math.ceil(math.ceil(slab / splits) / vec) * vec)
+
+
+def _pow2(n: int) -> int:
+    """The least power of 2 >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
+
+
+def _tiles_bound(chunk: int, hw: int, vec: int) -> int:
+    """The most tiles a run of `chunk` elements of a slab can hold, wherever
+    it starts (`tiles_bound` in csrc/group_norm_backward.cu). Each channel
+    of `hw` elements is cut into tiles of `_TILE_PACKS * 32 * vec` from its
+    start, the last one shorter, so a run holds at most `channels` times
+    the tiles of a channel, and at most one tile more than its pieces in
+    each channel hold at their length."""
+    tile = _TILE_PACKS * 32 * vec
+    channels = 1 + (chunk - 1 + hw - 1) // hw  # a run may start at a channel's last element
+    return min(channels * -(-hw // tile), (chunk + channels * (tile - 1)) // tile + 1)
+
+
+def _longest_chunk(hw: int, vec: int) -> int:
+    """The longest chunk, a multiple of `vec`, whose tiles fit `_MAX_TILES`."""
+    lo, hi = 1, _MAX_TILES * _TILE_PACKS * 32  # in vectors; `hi` never fits
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _tiles_bound(mid * vec, hw, vec) <= _MAX_TILES else (lo, mid)
+    return lo * vec
+
+
+def _plan_backward(shape: Sequence[int], dtype: torch.dtype, groups: int,
+                   aligned: bool = True) -> Plan:
+    """The backward kernel's path for contiguous `[B, C, *spatial]` x and dy
+    of `dtype` (`aligned`: both addresses are multiples of 16 bytes), with
+    or without the add: the same kernels take both."""
+    b, c = shape[:2]
+    hw = math.prod(shape[2:])
+    slab = c // groups * hw
+    itemsize = dtype.itemsize
+    full = 16 // itemsize
+    vec = full if aligned and hw % full == 0 else 1
+    vectors = math.ceil(slab / vec)
+    if c // groups <= _SB_MAX_CHANNELS and vectors <= _SB_MAX_PACKS * 32 * _SB_MAX_WARPS:
+        # a team of warps per slab, about 2 vectors a lane
+        warps = min(_SB_MAX_WARPS, _pow2(math.ceil(vectors / 64)))
+        return Plan("S", vec, _pow2(math.ceil(vectors / (32 * warps))), warps)
+    max_chunk = _longest_chunk(hw, vec)
+    cluster = max(math.ceil(slab * itemsize / _MB_CHUNK_BYTES), math.ceil(slab / max_chunk))
+    if cluster <= _M_MAX_CLUSTER:
+        return Plan("M", vec, cluster, math.ceil(math.ceil(slab / cluster) / vec) * vec)
+    splits = _splits(b * groups, slab, itemsize)
+    chunk = min(math.ceil(math.ceil(slab / splits) / vec) * vec, max_chunk)
+    return Plan("L", vec, math.ceil(slab / chunk), chunk)
+
+
+def _scratch_floats(plan: Plan, batch: int, channels: int, groups: int, hw: int) -> int:
+    """fp32 scratch of one backward call: the per-(sample, channel) sums of
+    g * xhat and g, and for path L each chunk's statistics, channel sums and
+    sums of dv (`Large` in csrc/group_norm_backward.cu)."""
+    if plan.path == "S":
+        return 0
+    floats = 2 * batch * channels
+    if plan.path == "L":
+        chunks = batch * groups * plan.param
+        floats += chunks * (2 + 3 * (math.ceil(plan.chunk / hw) + 1))
+    return floats
+
+
+_counters = {}
+
+
+def _counter(device: torch.device, stream) -> torch.Tensor:
+    """The backward kernel's completion counter for one (device, stream): an
+    int32 zeroed once, which each launch leaves at 0.
+
+    Launches that share a counter must not run at the same time; launches
+    on one stream never do. A CUDA graph keeps the counter of the stream it
+    was captured on: replaying it on another stream while that stream runs
+    backward kernels of its own would race on the counter and give wrong
+    weight and bias gradients. A graph of the train step must be replayed
+    on its capture stream, or be given a counter of its own."""
+    key = (device.index, stream.cuda_stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _counters[key]
 
 
 def torch_group_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
@@ -192,7 +305,6 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
     """`(dx, dweight, dbias, dadd)` of `group_norm(x, weight, bias, groups,
     eps, silu, add)` for the output gradient `dy`: the plain version on CPU
     tensors, the kernel on CUDA tensors."""
-    global launches_bwd
     if x.device.type == "cpu":
         return torch_group_norm_backward(dy, x, weight, bias, groups, eps, silu, add)
     if x.device.type != "cuda":
@@ -202,24 +314,37 @@ def group_norm_backward(dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"group_norm_backward: dy must be {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}, got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
     dy = dy.contiguous()
+    plan = _plan_backward(x.shape, x.dtype, groups,
+                          aligned=x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    return _launch_backward(plan, dy, x, weight, bias, groups, eps, silu, add)
+
+
+def _launch_backward(plan: Plan, dy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, groups: int, eps: float, silu: bool,
+                     add: Optional[torch.Tensor]):
+    """The backward kernel under `plan` on checked CUDA inputs (dy
+    contiguous): `(dx, dweight, dbias, dadd)`. The C entry point refuses a
+    plan that does not fit the shape, and the call raises."""
+    global launches_bwd
     b, c = x.shape[:2]
     hw = x.numel() // (b * c)
-    full = 16 // x.element_size()
-    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    vec = full if aligned and hw % full == 0 else 1
     dx = torch.empty_like(x)
     dadd = None if add is None else torch.empty_like(add)
     dweight = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty(c, dtype=torch.float32, device=x.device)
-    partial = torch.empty(2 * b * c, dtype=torch.float32, device=x.device)
+    scratch = torch.empty(_scratch_floats(plan, b, c, groups, hw), dtype=torch.float32,
+                          device=x.device)
+    stream = torch.cuda.current_stream(x.device)
     status = _build.library().ccdm_group_norm_backward(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         None if add is None else add.data_ptr(), dx.data_ptr(),
-        None if dadd is None else dadd.data_ptr(), partial.data_ptr(), dweight.data_ptr(),
-        dbias.data_ptr(), _DTYPE_CODES[x.dtype], b, c, hw, groups, vec, float(eps), int(silu),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        None if dadd is None else dadd.data_ptr(), scratch.data_ptr(),
+        _counter(x.device, stream).data_ptr(), dweight.data_ptr(), dbias.data_ptr(),
+        _DTYPE_CODES[x.dtype], b, c, hw, groups, _PATH_CODES[plan.path], plan.vec, plan.param,
+        plan.chunk, float(eps), int(silu), stream.cuda_stream)
     _build.check(status, "group_norm_backward")
     launches_bwd += 1
+    path_launches_bwd[plan.path] += 1
     return dx, dweight, dbias, dadd
 
 

@@ -27,6 +27,11 @@ runs).
 - `profile`: 10 such steps under `torch.profiler`: device time per step by
   kernel family, the device's busy share of the wall, the 25 largest
   kernels, and the 25 host operators with the most CPU time of their own;
+- `group_norm_sites`: the step's GroupNorm sites (hooks on one step), the
+  bound of all of them for the forward and for the backward
+  (`chip_smoke.group_norm_bound`), the profile's family time beside it and
+  its share of the bound, and the backward's sites by `_plan_backward` path
+  (`tools/time_group_norm_backward.py` times each site's backward alone);
 - `loader` (Cityscapes configs): the ms of one batch of 16 from a tree at
   the release's 1024x2048 (PNG decode and the config's pipeline on the
   host, `mp_loaders: 0` as the config runs), the decode and pipeline ms of
@@ -121,6 +126,25 @@ def measure_loader(smoke, params) -> None:
          ms_per_batch_with_8_threads=threads * 1e3, cores=os.cpu_count())
 
 
+def emit_site_bounds(smoke, sites, by_family) -> None:
+    """The bound of the step's GroupNorm sites, forward and backward, beside
+    the profile's family times (see the docstring)."""
+    from ccdm_tpu_torch.ops import group_norm as gn
+
+    bound = collections.Counter()
+    paths = collections.Counter()
+    for (shape, dtype, groups, silu, add), count in sites.items():
+        fwd, _ = smoke.group_norm_bound(shape, dtype.itemsize, silu, add)
+        bwd, _ = smoke.group_norm_bound(shape, dtype.itemsize, silu, add, backward=True)
+        bound["group_norm"] += count * fwd
+        bound["group_norm_backward"] += count * bwd
+        paths[gn._plan_backward(shape, dtype, groups).path] += count
+    emit("group_norm_sites", sites=sum(sites.values()), backward_sites_by_path=dict(paths),
+         **{fam: {"ms_per_step": by_family[fam], "bound_ms": bound[fam],
+                  "share_of_bound": bound[fam] / by_family[fam] if by_family[fam] else None}
+            for fam in ("group_norm", "group_norm_backward")})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=("flagship", "cityscapes", "cityscapes_dino"),
@@ -138,6 +162,7 @@ def main() -> None:
         raise SystemExit("profile_train: needs a CUDA card")
     import ccdm_tpu_torch
     from ccdm_tpu_torch.data.loader import device_prefetch
+    from ccdm_tpu_torch.models.layers import GroupNorm32
     from ccdm_tpu_torch.ops import _build
     from ccdm_tpu_torch.train.step import step_seed, train_loss
     from ccdm_tpu_torch.train.trainer import STEP_KEYS, TrainingRun, _class_weights
@@ -198,7 +223,15 @@ def main() -> None:
         state.write_to(net)
         mark(4)
 
+    sites = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, kwargs: sites.update([(tuple(args[0].shape), args[0].dtype, mod.groups,
+                                                 bool(kwargs.get("silu", False)),
+                                                 kwargs.get("add") is not None)]),
+        with_kwargs=True) for m in net.modules() if isinstance(m, GroupNorm32)]
     step()
+    for h in hooks:
+        h.remove()
     torch.cuda.synchronize()
     spans = collections.Counter()
     start = time.perf_counter()
@@ -236,6 +269,7 @@ def main() -> None:
          ms_per_step_by_family=dict(by_family.most_common()))
     for name, ms in by_kernel.most_common(25):
         emit("profile_kernel", name=name[:160], ms_per_step=ms, family=family(name))
+    emit_site_bounds(smoke, sites, by_family)
     # the host: operators by their own CPU time (the launches included)
     host = [(evt.self_cpu_time_total / 1e3 / PROFILE_STEPS, evt.count / PROFILE_STEPS, evt.key)
             for evt in prof.key_averages()

@@ -51,11 +51,16 @@ without printing its result:
 8. cityscapes_reference: the fp32 Cityscapes evaluator on the card against
    the CPU, 1 image of 64x128, 2 votes, T = 3, DINO on, same noise.
 9. group_norm_backward: the GroupNorm backward kernel against its plain
-   version at the flagship training step's sites (batch 16) and at path-L
-   shapes, with and without SiLU and the add, bf16 and fp32: errors of dx,
-   dweight, dbias and dadd; kernel, plain, library (autograd's backward of
-   `F.group_norm`, where it computes the same function) and bound times
-   (read x and dy, write dx).
+   version at the flagship's and the Cityscapes train step's sites (batch
+   16), at shapes that force each of its paths (S; M with clusters of 1, 2,
+   4 and 8 blocks and chunk boundaries inside channels; L in bf16 and fp32;
+   element loads at H*W = 169 and 1521; H*W of 65, 81 and 96, past one
+   tile and not a multiple of it, on M and L, the last on views 2 bytes
+   off their storage), with and without SiLU and the add:
+   each case's path as `_plan_backward` plans it and as the launch counts
+   show, errors of dx, dweight, dbias and dadd, two calls bit for bit equal;
+   kernel, plain, library (autograd's backward of `F.group_norm`, where it
+   computes the same function) and bound times (read x and dy, write dx).
 10. attention_backward: the attention's autograd Function (the kernel's
    forward, the JAX package's backward math in PyTorch) against autograd
    through the plain `dense_attention`, at the training sites [48,32,256]
@@ -67,7 +72,9 @@ without printing its result:
    with a periodic save and a GED/HM-IoU validation at step 20, into
    `build/chip_smoke_train/`. Checks a finite loss and no invalid flag at
    every step, launches of exactly 66 GroupNorm forward + 66 backward + 11
-   attention a step plus the validation sampler's sites x UNet calls, GED
+   attention a step plus the validation sampler's sites x UNet calls, the
+   backward's launches by path equal to `_plan_backward`'s path of every
+   GroupNorm call that autograd recorded (as in 18 and 19), GED
    in [0, 2] and HM-IoU in [0, 1], and that a new `TrainingRun` loading the
    checkpoint holds the same params, EMA, Adam state and step, bit for bit,
    and that the validation wrote its qualitative grid. Prints the cold
@@ -141,6 +148,7 @@ line of per-kernel results, and `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -196,6 +204,22 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def group_norm_bound(shape, itemsize: int, silu: bool, add: bool, backward: bool = False):
+    """`bound_ms` of one GroupNorm call on `[B, C, *spatial]` of `itemsize`
+    bytes, fp32 weight and bias, with or without SiLU and the `[B, C]` add.
+    The forward reads x, the weight, the bias and the add and writes y; the
+    backward reads x, dy, the weight, the bias and the add and writes dx,
+    both parameters' gradients and the add's. Operations: the fp32 work an
+    element, as the kernels do it."""
+    n, c = math.prod(shape), shape[1]
+    add_bytes = shape[0] * c * itemsize if add else 0
+    if backward:
+        return bound_ms(3 * n * itemsize + 4 * 4 * c + 2 * add_bytes,
+                        n * (14 + 8 * silu + add), "float32")
+    return bound_ms(2 * n * itemsize + 2 * 4 * c + add_bytes, n * (6 + 3 * silu + add),
+                    "float32")
 
 
 def bf16_excess(out, ref, atol: float = 3e-2) -> float:
@@ -312,10 +336,7 @@ def phase_group_norm(gen):
                 lw, lb = w.to(dtype), b.to(dtype)
                 lib_note = f" (weights cast to {str(dtype)[6:]})"
             library_ms = time_ms(lambda: F.group_norm(x, groups, lw, lb, 1e-5))
-        nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * shape[1] + (
-            e.numel() * e.element_size() if e is not None else 0)
-        ops = x.numel() * (6 + 3 * silu + (e is not None))
-        bound, bound_by = bound_ms(nbytes, ops, "float32")
+        bound, bound_by = group_norm_bound(shape, x.element_size(), silu, e is not None)
         worst = max(worst, err)
         if (shape, dtype, silu, with_add) in (((128, 64, 128, 128), bf16, True, False),
                                               ((2, 128, 256, 512), bf16, True, True),
@@ -426,7 +447,7 @@ def reset_counts() -> None:
     gn.launches = 0
     gn.launches_bwd = 0
     fa.launches = 0
-    for counts in (gn.path_launches, fa.path_launches):
+    for counts in (gn.path_launches, gn.path_launches_bwd, fa.path_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -438,7 +459,7 @@ def read_counts():
     return ({"group_norm": gn.launches, "flash_attention": fa.launches,
              "group_norm_backward": gn.launches_bwd},
             {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches),
-             "group_norm_backward": {}})
+             "group_norm_backward": dict(gn.path_launches_bwd)})
 
 
 def phase_slice(smi):
@@ -671,37 +692,76 @@ def phase_group_norm_backward(gen):
     from ccdm_tpu_torch.ops import group_norm as gn
 
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [  # (shape, dtype, silu, add): the training step's sites at batch 16
-        ((16, 32, 128, 128), bf16, True, False),   # level-0 in-norms
-        ((16, 32, 128, 128), bf16, True, True),    # level-0 out-norms, the fused add
-        ((16, 64, 128, 128), bf16, True, False),   # level-0 decoder concat: 64 KB slabs
-        ((16, 64, 128, 128), bf16, False, False),  # the same, F.group_norm's function
-        ((16, 32, 128, 128), fp32, True, False),   # the fp32 head
-        ((16, 96, 16, 16), bf16, True, True),      # ds 8, path S in the forward
-        ((16, 256, 8, 8), bf16, True, False),      # the ds-16 decoder concat
-        ((16, 96, 256), bf16, False, False),       # attention pre-norm at ds 8
-        ((16, 128, 64), bf16, False, False),       # attention pre-norm at ds 16
-        ((2, 128, 256, 512), bf16, True, True),    # path-L shapes: 1 MB slabs
-        ((2, 128, 256, 512), fp32, False, False),  # 2 MB slabs
+    cases = [  # (shape, dtype, silu, add, path): the training step's sites at batch 16
+        ((16, 32, 128, 128), bf16, True, False, "M"),   # level-0 in-norms: a cluster of 2
+        ((16, 32, 128, 128), bf16, True, True, "M"),    # level-0 out-norms, the fused add
+        ((16, 64, 128, 128), bf16, True, False, "M"),   # level-0 decoder concat: a cluster of 4
+        ((16, 64, 128, 128), bf16, False, False, "M"),  # the same, F.group_norm's function
+        ((16, 32, 128, 128), fp32, True, False, "M"),   # the fp32 head: a cluster of 4
+        ((16, 96, 16, 16), bf16, True, True, "S"),      # ds 8
+        ((16, 256, 8, 8), bf16, True, False, "S"),      # the ds-16 decoder concat
+        ((16, 96, 256), bf16, False, False, "S"),       # attention pre-norm at ds 8
+        ((16, 128, 64), bf16, False, False, "S"),       # attention pre-norm at ds 16
+        ((16, 64, 32, 32), bf16, True, True, "S"),      # ds 4, a team of 4 warps
+        ((16, 96, 64, 64), bf16, True, False, "M"),     # ds 2 decoder concat
+        ((2, 128, 256, 512), bf16, True, True, "L"),    # path-L shapes: 1 MB slabs
+        ((2, 128, 256, 512), fp32, False, False, "L"),  # 2 MB slabs
+        ((2, 128, 256, 512), fp32, True, False, "L"),
+        ((2, 64, 256, 256), bf16, True, True, "L"),     # 512 KB slabs
+        # M at clusters of 1, 2, 4 and 8 blocks; chunk boundaries inside channels
+        ((16, 768, 4, 8), bf16, True, True, "M"),       # 24 channels a group: a cluster of 1
+        ((4, 96, 96, 96), bf16, True, True, "M"),       # a cluster of 4, boundaries in channels
+        ((2, 640, 32, 64), bf16, True, False, "M"),     # the sampler's DINO concat: 5 blocks
+        # H*W = 169 and 1521: element loads, in registers and into shared memory
+        ((3, 32, 13, 13), fp32, True, True, "S"),
+        ((16, 96, 13, 13), bf16, True, False, "S"),
+        ((2, 96, 39, 39), fp32, True, True, "M"),
+        # H*W past a tile (64 elements), not a multiple of it: two tiles a channel
+        ((16, 3840, 5, 13), bf16, True, True, "M"),     # H*W = 65, 120 channels a group
+        ((16, 6368, 9, 9), bf16, True, False, "M"),     # H*W = 81, 199 channels a group
+        ((16, 2688, 96), bf16, True, True, "M"),        # x and dy views 2 bytes off: H*W = 96
+        ((2, 64000, 5, 13), bf16, True, True, "L"),
         # the Cityscapes train step's sites: batch 16 at 128x256, base 32
-        ((16, 32, 128, 256), bf16, True, False),   # level-0 in-norms
-        ((16, 32, 128, 256), bf16, True, True),    # level-0 out-norms
-        ((16, 64, 128, 256), bf16, True, False),   # level-0 decoder concats
-        ((16, 32, 128, 256), fp32, True, False),   # the fp32 head
-        ((16, 448, 16, 32), bf16, True, False),    # the DINO concat at ds 8
-        ((16, 64, 512), bf16, False, False),       # attention pre-norm at ds 8
-        ((16, 128, 4, 8), bf16, True, True),       # ds 32
+        ((16, 32, 128, 256), bf16, True, False, "M"),   # level-0 in-norms: a cluster of 4
+        ((16, 32, 128, 256), bf16, True, True, "M"),    # level-0 out-norms
+        ((16, 64, 128, 256), bf16, True, False, "M"),   # level-0 decoder concats: cluster 8
+        ((16, 32, 128, 256), fp32, True, False, "M"),   # the fp32 head: cluster 8
+        ((16, 32, 64, 128), bf16, True, True, "M"),     # level 1
+        ((16, 96, 64, 128), bf16, True, False, "M"),    # level-1 decoder concat
+        ((16, 64, 32, 64), bf16, True, True, "S"),      # level 2: a team of 8 warps
+        ((16, 448, 16, 32), bf16, True, False, "M"),    # the DINO concat at ds 8: 14 channels
+        ((16, 64, 16, 32), bf16, True, True, "S"),      # ds 8
+        ((16, 64, 512), bf16, False, False, "S"),       # attention pre-norm at ds 8
+        ((16, 128, 8, 16), bf16, True, True, "S"),      # ds 16
+        ((16, 128, 4, 8), bf16, True, True, "S"),       # ds 32
     ]
+    misaligned = {(16, 2688, 96)}  # x and dy start one element into their storage
     worst, rows = 0.0, {}  # worst: the largest |dx - plain dx| over all cases
-    for shape, dtype, silu, with_add in cases:
+    for shape, dtype, silu, with_add, path in cases:
         x = (torch.randn(shape, generator=gen, device="cuda") * 3 + 1).to(dtype)
         dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        aligned = shape not in misaligned
+        if not aligned:
+            x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(shape)
+            dy = torch.cat([dy.new_zeros(1), dy.flatten()])[1:].view(shape)
         w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
         b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
         e = torch.randn(shape[:2], generator=gen, device="cuda").to(dtype) if with_add else None
+        plan = gn._plan_backward(shape, dtype, 32, aligned=aligned)
+        name = (f"{list(shape)} {str(dtype)[6:]} silu={silu} add={with_add}"
+                + ("" if aligned else " views 2 bytes off"))
+        if plan.path != path:
+            raise AssertionError(f"group_norm_backward {name}: path {plan.path}, not {path}")
+        before = dict(gn.path_launches_bwd)
         out = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
+        again = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
         ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
         torch.cuda.synchronize()
+        if gn.path_launches_bwd[path] != before[path] + 2:
+            raise AssertionError(f"group_norm_backward {name}: launches by path "
+                                 f"{gn.path_launches_bwd}, before {before}")
+        if not all(o is None or torch.equal(o, a) for o, a in zip(out, again)):
+            raise AssertionError(f"group_norm_backward {name}: two calls differ")
         dx_err = float((out[0].float() - ref[0].float()).abs().max())
         errs = {"dx": _err_to_max(out[0], ref[0]), "dw": _err_to_max(out[1], ref[1]),
                 "db": _err_to_max(out[2], ref[2])}
@@ -710,12 +770,11 @@ def phase_group_norm_backward(gen):
             errs["dadd"] = float((out[3].float() - ref[3].float()).abs().max()) / scale
         low = 1e-4 if dtype == fp32 else 1e-2  # bf16 dx, dadd: one rounding of fp32 sums
         limits = {"dx": low, "dw": 1e-4, "db": 1e-4, "dadd": low}
-        name = f"{list(shape)} {str(dtype)[6:]} silu={silu} add={with_add}"
         bad = {k: v for k, v in errs.items() if not v <= limits[k]}
         if bad:
             raise AssertionError(f"group_norm_backward {name}: errors over the largest "
                                  f"magnitude {bad} beyond {limits}")
-        del out, ref
+        del out, again, ref
         ms = time_ms(lambda: gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e))
         plain_ms = time_ms(lambda: gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu,
                                                                  add=e))
@@ -733,10 +792,8 @@ def phase_group_norm_backward(gen):
             library_ms = time_ms(lambda: torch.autograd.grad(y, (xl, wl, bl), dy,
                                                              retain_graph=True))
             del y, xl
-        n = x.numel()
-        nbytes = 3 * n * x.element_size() + 4 * 4 * shape[1] + (
-            2 * e.numel() * e.element_size() if e is not None else 0)
-        bound, bound_by = bound_ms(nbytes, n * (14 + 8 * silu + (e is not None)), "float32")
+        bound, bound_by = group_norm_bound(shape, x.element_size(), silu, e is not None,
+                                           backward=True)
         worst = max(worst, dx_err)
         if (shape, dtype, silu, with_add) in (((16, 64, 128, 128), bf16, True, False),
                                               ((16, 32, 128, 256), bf16, True, False)):
@@ -744,10 +801,11 @@ def phase_group_norm_backward(gen):
                                "bound_ms": bound, "bound_by": bound_by,
                                "library_ms": library_ms}
         library = "none" if library_ms is None else f"{library_ms:.4f} ms{lib_note}"
-        log("group_norm_backward", f"{name}: max_abs_err dx {dx_err:.3g}; err/max " + ", ".join(
-            f"{k} {v:.3g}" for k, v in errs.items()) + f"; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {library}, bound {bound:.4f} ms ({bound_by}), "
-            f"{bound / ms:.1%} of bound")
+        log("group_norm_backward", f"{name} path {plan.path} (vec {plan.vec}, param "
+            f"{plan.param}, chunk {plan.chunk}): max_abs_err dx {dx_err:.3g}; err/max "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; two calls bit-equal; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library}, bound "
+            f"{bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
         del x, dy, e
     torch.cuda.empty_cache()
     return worst, rows[(128, 128)], rows[(128, 256)]
@@ -822,12 +880,27 @@ def run_training(run, steps: int, marks_at):
     """Drive `run` for `steps` steps with the launch counts set to 0 just
     before; returns the step metrics, the host clock after each step in
     `marks_at` (after a sync), the (start, seconds) of every validation,
-    grid and save, the validation's and the grid's results, and the number
-    of UNet calls of the EMA module (validation and grid)."""
+    grid and save, the validation's and the grid's results, the number of
+    UNet calls of the EMA module (validation and grid), and the launches
+    and launches by path. The GroupNorm backward's launches by path must
+    equal `_plan_backward`'s path of every GroupNorm call that autograd
+    records (hooks on the trained module's sites count them)."""
+    import collections
+
     import torch
+
+    from ccdm_tpu_torch.models.layers import GroupNorm32
+    from ccdm_tpu_torch.ops import group_norm as gn
 
     metrics, marks, pauses, results, calls = [], {}, [], {}, []
     step_fn = run.step_fn
+    want_bwd = collections.Counter()
+
+    def on_norm(mod, args, kwargs):
+        if torch.is_grad_enabled() and mod.weight.requires_grad:
+            x = args[0]
+            want_bwd[gn._plan_backward(x.shape, x.dtype, mod.groups,
+                                       x.data_ptr() % 16 == 0).path] += 1
 
     def step(*args, **kwargs):
         m = step_fn(*args, **kwargs)
@@ -850,6 +923,8 @@ def run_training(run, steps: int, marks_at):
         return wrapped
 
     run.ema_net.register_forward_pre_hook(lambda *_: calls.append(1))
+    hooks = [m.register_forward_pre_hook(on_norm, with_kwargs=True)
+             for m in run.net.modules() if isinstance(m, GroupNorm32)]
     run.step_fn = step
     run.validate = timed(run.validate, "validate")
     run.save_qualitative = timed(run.save_qualitative, "grid")
@@ -860,13 +935,19 @@ def run_training(run, steps: int, marks_at):
     marks[0] = time.perf_counter()
     state = run.run(max_steps=steps)
     torch.cuda.synchronize()
-    launches, _ = read_counts()
+    launches, paths = read_counts()
+    for h in hooks:
+        h.remove()
+    want = {path: want_bwd[path] for path in gn.path_launches_bwd}
+    if paths["group_norm_backward"] != want:
+        raise AssertionError(f"GroupNorm backward launches by path "
+                             f"{paths['group_norm_backward']} != the plans' {want}")
     if state.step != steps or len(metrics) != steps:
         raise AssertionError(f"trained to step {state.step} in {len(metrics)} steps")
     losses = [float(m["loss"]) for m in metrics]
     if not all(np.isfinite(losses)) or any(bool(m["invalid"]) for m in metrics):
         raise AssertionError(f"a non-finite loss or an invalid step: {losses}")
-    return metrics, marks, pauses, results, len(calls), launches
+    return metrics, marks, pauses, results, len(calls), launches, paths
 
 
 def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
@@ -926,7 +1007,7 @@ def phase_train(smi):
     if (gn_sites, attn_sites) != (66, 11):
         raise AssertionError(f"sites per UNet call ({gn_sites}, {attn_sites}) != (66, 11)")
 
-    metrics, marks, pauses, val, calls, launches = run_training(
+    metrics, marks, pauses, val, calls, launches, paths = run_training(
         run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
@@ -950,9 +1031,10 @@ def phase_train(smi):
         f"(steps 11-{TRAIN_STEPS}, the save, validation and grid taken out), peak {peak:.2f} GiB; "
         f"loss {losses[0]:.4g} -> {losses[-1]:.4g}; validation at step {TRAIN_EVENT}: GED "
         f"{scores['GED']:.4f}, HM-IoU {scores['HMIoU']:.4f}, {val_s:.2f} s; qualitative grid "
-        f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}; "
-        f"checkpoint round trip exact (params, EMA, Adam, step {TRAIN_STEPS})")
-    return {"launches": launches, "path_launches": {}}
+        f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}, "
+        f"backward by path {paths['group_norm_backward']}; checkpoint round trip exact "
+        f"(params, EMA, Adam, step {TRAIN_STEPS})")
+    return {"launches": launches, "path_launches": paths}
 
 
 def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
@@ -1369,7 +1451,7 @@ def phase_cityscapes_train(smi):
     hw = tuple(params["dataset_pipeline_train_settings"]["target_size"])
     if image.shape != (*hw, 3):
         raise AssertionError(f"the train pipeline gave {image.shape}, not {hw}")
-    metrics, marks, pauses, results, calls, launches = run_training(
+    metrics, marks, pauses, results, calls, launches, paths = run_training(
         run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
     check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls)
@@ -1393,8 +1475,9 @@ def phase_cityscapes_train(smi):
         f"{peak:.2f} GiB; loss {losses[0]:.4g} -> {losses[-1]:.4g}; validation at step "
         f"{TRAIN_EVENT}: mIoU {scores['mIoU']:.4f}, train-split {scores['mIoU_train']:.4f}, "
         f"{val_s:.2f} s; grid {grid_s:.2f} s; {calls} UNet calls of validation and grid; "
-        f"launches {launches}; checkpoint round trip exact (params, EMA, Adam, step)")
-    return {"launches": launches, "path_launches": {}}
+        f"launches {launches}, backward by path {paths['group_norm_backward']}; checkpoint "
+        f"round trip exact (params, EMA, Adam, step)")
+    return {"launches": launches, "path_launches": paths}
 
 
 DINO_STEPS = 10
@@ -1421,7 +1504,7 @@ def phase_cityscapes_train_dino(smi):
                                  validation_freq=DINO_STEPS, display_freq=DINO_STEPS)
         run = TrainingRun(params)
         before = {k: v.clone() for k, v in run.encoder_net.state_dict().items()}
-        metrics, marks, pauses, results, calls, launches = run_training(
+        metrics, marks, pauses, results, calls, launches, paths = run_training(
             run, DINO_STEPS, (1, 2, DINO_STEPS))
         check_train_launches(f"cityscapes_train_dino {mode}", launches, DINO_STEPS, calls)
         scores, val_s, _ = check_miou(f"cityscapes_train_dino {mode}", results)
@@ -1449,14 +1532,15 @@ def phase_cityscapes_train_dino(smi):
         with torch.inference_mode():
             dino_ms = time_ms(lambda: run.encoder(run.encoder_net, images), reps=3, calls=5)
         ms[mode] = (warm, dino_ms)
-        runs[f"cityscapes_train_dino_{mode}"] = {"launches": launches, "path_launches": {}}
+        runs[f"cityscapes_train_dino_{mode}"] = {"launches": launches, "path_launches": paths}
         log("cityscapes_train_dino", f"{mode}: CITYSCAPES_DINO_TRAIN_PARAMS bf16, ViT-S/8 random "
             f"weights, batch {run.batch_size}, {DINO_STEPS} steps ({smi}): warm "
             f"{warm * 1e3:.2f} ms/step = {run.batch_size / warm:.1f} images/s (steps 3-"
             f"{DINO_STEPS}, the loader included), DINO forward at batch {run.batch_size} "
             f"{dino_ms:.2f} ms = {dino_ms / (warm * 1e3):.1%} of the step; validation mIoU "
             f"{scores['mIoU']:.4f}, train-split {scores['mIoU_train']:.4f}, {val_s:.2f} s; "
-            f"launches {launches}; checkpoint keys {sorted(saved)}; encoder "
+            f"launches {launches}, backward by path {paths['group_norm_backward']}; "
+            f"checkpoint keys {sorted(saved)}; encoder "
             + ("bit-identical after the run" if mode == "frozen" else
                f"masters moved in {len(moved)}/{len(before)} tensors, EMA in {len(ema_moved)}"))
         del run
@@ -1606,6 +1690,8 @@ def main() -> None:
          "replaces": "ccdm_tpu/ops/group_norm.py:40",
          "launches": sum(r["launches"]["group_norm_backward"] for r in runs.values()),
          "max_abs_err": gnb_err, **gnb_row, "cityscapes_train_case": gnb_train_row,
+         "paths": {path: sum(r["path_launches"].get("group_norm_backward", {}).get(path, 0)
+                             for r in runs.values()) for path in ("S", "M", "L")},
          "runs": by_run("group_norm_backward")},
     ]
     print(smi, flush=True)

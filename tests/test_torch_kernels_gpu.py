@@ -94,17 +94,28 @@ def _close_to_max(out, ref, rel):
 
 
 @pytest.mark.parametrize("add", [False, True])
-@pytest.mark.parametrize("shape,dtype,silu", [
-    ((16, 256, 8, 8), BF16, True),       # path S in the forward: the 8x8 decoder concat
-    ((16, 96, 16, 16), BF16, True),      # path S, 3 channels a group
-    ((16, 64, 128, 128), BF16, True),    # path M: the flagship's largest slab
-    ((16, 32, 128, 128), F32, True),     # the fp32 head
-    ((16, 128, 256), BF16, False),       # an attention pre-norm [B, C, T]
-    ((3, 96, 13, 13), F32, True),        # H*W = 169: element loads
-    ((2, 128, 256, 512), BF16, True),    # path L: 1 MB slabs
-    ((2, 128, 256, 512), F32, False),    # path L: 2 MB slabs
+@pytest.mark.parametrize("shape,dtype,silu,path", [
+    ((16, 256, 8, 8), BF16, True, "S"),       # the 8x8 decoder concat
+    ((16, 96, 16, 16), BF16, True, "S"),      # 3 channels a group
+    ((16, 128, 4, 8), BF16, True, "S"),       # ds 32 of the Cityscapes trainer: H*W = 32
+    ((16, 64, 32, 64), BF16, True, "S"),      # a team of 8 warps
+    ((16, 448, 16, 32), BF16, True, "M"),     # the DINO concat: 14 channels a block
+    ((16, 64, 128, 128), BF16, True, "M"),    # the flagship's largest slab: a cluster of 4
+    ((16, 32, 128, 128), F32, True, "M"),     # the flagship's fp32 head: a cluster of 4
+    ((16, 128, 256), BF16, False, "S"),       # an attention pre-norm [B, C, T]
+    ((3, 32, 13, 13), F32, True, "S"),        # H*W = 169: element loads in registers
+    ((3, 96, 13, 13), F32, True, "S"),        # the same, 3 channels a group
+    ((2, 96, 39, 39), F32, True, "M"),        # H*W = 1521: element loads into shared memory
+    ((16, 3840, 5, 13), BF16, True, "M"),     # H*W = 65: two tiles a channel, 121 a block
+    ((2, 64000, 5, 13), BF16, True, "L"),     # the same on path L
+    ((16, 768, 4, 8), BF16, True, "M"),       # 24 channels a group: a cluster of 1
+    ((4, 96, 96, 96), BF16, True, "M"),       # a cluster of 4, its boundaries inside channels
+    ((16, 32, 128, 256), F32, True, "M"),     # the Cityscapes fp32 head: a cluster of 8
+    ((16, 64, 128, 256), BF16, True, "M"),    # the Cityscapes level-0 concat: a cluster of 8
+    ((2, 128, 256, 512), BF16, True, "L"),    # path L: 1 MB slabs
+    ((2, 128, 256, 512), F32, False, "L"),    # path L: 2 MB slabs
 ])
-def test_group_norm_backward_kernel_matches_plain(cuda, shape, dtype, silu, add):
+def test_group_norm_backward_kernel_matches_plain(cuda, shape, dtype, silu, path, add):
     """dx and dadd in x's dtype, dweight and dbias fp32: fp32 sums of the
     same values in another order. fp32: within 1e-4 of each tensor's
     largest magnitude (the fp32 gradient bound of the train-step parity
@@ -116,10 +127,12 @@ def test_group_norm_backward_kernel_matches_plain(cuda, shape, dtype, silu, add)
     w = torch.randn(shape[1], generator=cuda, device="cuda") + 1
     b = torch.randn(shape[1], generator=cuda, device="cuda")
     e = torch.randn(shape[:2], generator=cuda, device="cuda").to(dtype) if add else None
+    assert gn._plan_backward(shape, dtype, 32).path == path
+    before_path = gn.path_launches_bwd[path]
     before = gn.launches_bwd
     out = gn.group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
     torch.cuda.synchronize()
-    assert gn.launches_bwd == before + 1
+    assert gn.launches_bwd == before + 1 and gn.path_launches_bwd[path] == before_path + 1
     ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=silu, add=e)
     low = 1e-4 if dtype == F32 else 1e-2
     _close_to_max(out[0], ref[0], low)
@@ -180,6 +193,26 @@ def test_group_norm_misaligned_input_takes_element_loads(cuda):
     w, b = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
     out = gn.group_norm(x, w, b, 32, silu=True)
     assert bf16_within(out.float(), gn.torch_group_norm(x, w, b, 32, silu=True).float())
+
+
+@pytest.mark.parametrize("shape,path", [
+    ((4, 64, 16, 16), "S"),
+    ((16, 2688, 96), "M"),  # H*W = 96 in element loads: two tiles a channel
+])
+def test_group_norm_backward_misaligned_dy_takes_element_loads(cuda, shape, path):
+    """A dy view that starts 2 bytes into its storage: the backward plans
+    element loads and agrees with the plain version."""
+    x = torch.randn(shape, generator=cuda, device="cuda").to(BF16)
+    base = torch.randn(x.numel() + 1, generator=cuda, device="cuda").to(BF16)
+    dy = base[1:].view(x.shape)
+    plan = gn._plan_backward(x.shape, BF16, 32, aligned=False)
+    assert dy.data_ptr() % 16 and plan.vec == 1 and plan.path == path
+    c = shape[1]
+    w, b = torch.randn(c, generator=cuda, device="cuda") + 1, torch.zeros(c, device="cuda")
+    out = gn.group_norm_backward(dy, x, w, b, 32, silu=True)
+    ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=True)
+    for ours, want in zip(out[:3], ref[:3]):
+        _close_to_max(ours, want, 1e-2 if ours.dtype == BF16 else 1e-4)
 
 
 @pytest.mark.parametrize("bh,t,dh,dtype", [
