@@ -18,10 +18,12 @@ DINO conditioning frozen or trainable, and checkpoints —
 and evaluation (`python -m ccdm_tpu_torch.cli.eval`: the LIDC uncertainty
 harness, the step sweep, Cityscapes inference with the official scoring),
 with per-element noise streams (`diffusion/random.py`), its own PNG codec
-(`utils/png.py`) and PIL-exact resampling (`data/resample.py`). Two
+(`utils/png.py`) and PIL-exact resampling (`data/resample.py`) — and
+int8 quantized inference (`ops/quant.py`, dynamic or calibrated static
+scales) with the LIDC quality gate (`tools/demo_gate.py`). Two
 hand-written CUDA kernels (`csrc/`) replace the JAX package's two Pallas
 kernels: fused GroupNorm(+SiLU), with a hand-written backward for
-training, and attention.
+training, and attention; a third is the int8 convolution.
 
 Layouts: public sampler functions keep the JAX layout (`[B,H,W,C]` states
 and probabilities, `[B,H,W,Ci]` images); the UNet is NCHW inside.
@@ -208,3 +210,66 @@ CITYSCAPES_TRAIN_PARAMS = {
 CITYSCAPES_DINO_TRAIN_PARAMS = dict(
     CITYSCAPES_TRAIN_PARAMS,
     feature_cond_encoder=dict(CITYSCAPES_TRAIN_PARAMS["feature_cond_encoder"], type="dino"))
+
+# `configs/params_demo_eval.yml` as PyYAML reads it: the eval side of the
+# LIDC quality gate (`tools/demo_gate.py`), the 16-sample uncertainty
+# protocol on the synthetic test split with the EMA weights of the demo run.
+# A copy for the same reasons as the ones above; a test holds it equal to
+# the YAML.
+DEMO_EVAL_PARAMS = {
+    "output_path": "/tmp/ccdm_demo/eval",
+    "evaluation_path": "/tmp/ccdm_demo/eval",
+    "dataset_file": "ccdm_tpu.data.synthetic",
+    "dataset_val_max_size": 16,
+    "batch_size": 2,
+    "evaluations": [1, 4, 8, 16],
+    "evaluation_vote_strategy": "confidence",
+    "time_steps": 250,
+    "beta_schedule": "cosine",
+    "beta_schedule_params": {"s": 0.008},
+    "polyak_alpha": 0.999,
+    "compute_dtype": "bfloat16",
+    "unet_openai": {
+        "base_channels": 32,
+        "channel_mult": None,          # -> (1, 1, 2, 3, 4) @128px
+        "attention_resolutions": [32, 16, 8],
+        "num_heads": 1,
+        "num_head_channels": 32,
+        "softmax_output": True,
+    },
+    "load_from": "/tmp/ccdm_demo/run",
+    "seed": 0,
+}
+
+# `configs/params_eval_lidc_fast.yml` as PyYAML reads it: the accelerated
+# LIDC evaluation the repository ships, the flagship model under the LIDC
+# protocol with int8 convs on calibrated static scales and encoder reuse 2.
+# A copy for the same reasons as the ones above; a test holds it equal to
+# the YAML.
+EVAL_LIDC_FAST_PARAMS = {
+    "output_path": "./logs/eval_${NOW}",
+    "evaluations": [1, 4, 8, 16],
+    "evaluation_vote_strategy": "confidence",
+    "dataset_file": "datasets.lidc",
+    "dataset_val_max_size": None,
+    "batch_size": 2,
+    "polyak_alpha": 0.999,
+    "beta_schedule": "cosine",
+    "beta_schedule_params": {"s": 0.008},
+    "time_steps": 250,
+    "backbone": "unet_openai",
+    "feature_cond_encoder": {"type": "none"},
+    "unet_openai": {
+        "base_channels": 32,
+        "channel_mult": None,          # -> (1, 1, 2, 3, 4) @128px
+        "attention_resolutions": [32, 16, 8],
+        "num_heads": 1,
+        "num_head_channels": 32,
+        "softmax_output": True,
+        "ce_head": False,
+    },
+    "compute_dtype": "bfloat16",
+    "quantized_inference": "static",
+    "encoder_reuse": 2,
+    "load_from": None,
+}

@@ -13,7 +13,10 @@
   (`eval/cs_scoring.py`) with its JSON;
 - `run_inference(params)`: the entry point.
 
-Single process; int8 and meshes are not ported.
+`quantized_inference: static` calibrates the int8 activation scales on the
+first two validation images (each drawn with `np.random.default_rng(i)`, as
+the JAX evaluator draws them) after the weights load. Single process;
+meshes are not ported.
 """
 
 from __future__ import annotations
@@ -63,12 +66,16 @@ class CityscapesEvaluator:
         self.pred_files: list = []
         self.gt_files: list = []
 
-    def build(self, image_shape: Tuple[int, int, int], batch_size: int, *, device=None):
+    def build(self, image_shape: Tuple[int, int, int], batch_size: int, *, device=None,
+              calibration_images=None):
         """The model (image_size = min(H, W) picks the channel multipliers),
         the DINO encoder and the sampler for `[B,H,W,Ci]` batches of at most
         `batch_size` images, on `device` (default: the CUDA card). The UNet
         evaluates the EMA weights of the `load_from` checkpoint; without one
-        its weights are random, drawn from the config's seed."""
+        its weights are random, drawn from the config's seed. With
+        `quantized_inference: static`, `calibration_images` `[n,H,W,Ci]`
+        (numpy or a tensor) calibrate the int8 scales; `calibration_seconds`
+        says how long that took."""
         p = dict(self.params)
         p["step_T_sample"] = self.vote_strategy
         self.batch_size = int(batch_size)
@@ -79,6 +86,20 @@ class CityscapesEvaluator:
         load_eval_params(self.params, self.model.unet)
         self.feature_fn, self.feature_shape, self.feature_net = build_eval_feature_fn(
             self.params, image_shape, device=device)
+        self.calibration_seconds = 0.0
+        if str(self.params.get("quantized_inference", "")).lower() == "static":
+            if calibration_images is None:
+                raise ValueError("quantized_inference: static needs calibration_images")
+            from ccdm_tpu_torch.ops import quant
+
+            dev = next(self.model.unet.parameters()).device
+            t0 = time.perf_counter()
+            self.model = quant.calibrate_static_scales(
+                self.model, self.model.unet, torch.as_tensor(calibration_images).to(dev),
+                feature_fn=self.feature_fn, feature_net=self.feature_net)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self.calibration_seconds = time.perf_counter() - t0
         self.sampler = make_prob_sampler(
             self.model, self.num_evaluations, feature_fn=self.feature_fn,
             encoder_reuse=int(self.params.get("encoder_reuse", 1)))
@@ -207,6 +228,11 @@ def run_inference(params: Dict[str, Any], *, device=None) -> Dict[str, Any]:
     n = min(len(dataset), max_images) if max_images else len(dataset)
     batch_size = min(int(params.get("batch_size", 2)), max(n, 1))
     first = dataset.get(0, np.random.default_rng(0))
-    ev.build(first["image"].shape, batch_size, device=device)
+    calibration_images = None
+    if str(params.get("quantized_inference", "")).lower() == "static":
+        calibration_images = np.stack([dataset.get(i, np.random.default_rng(i))["image"]
+                                       for i in range(min(2, len(dataset)))])
+    ev.build(first["image"].shape, batch_size, device=device,
+             calibration_images=calibration_images)
     return ev.run(dataset, batch_size=batch_size, key=int(params.get("seed", 0)),
                   max_images=max_images)

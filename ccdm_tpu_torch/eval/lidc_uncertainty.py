@@ -15,6 +15,11 @@
   counterpart yet.
 - `load_eval_params`, the EMA weights of a checkpoint (`load_from`), and
   `build_eval_feature_fn`, the DINO conditioning of an eval config.
+
+`quantized_inference: static` calibrates the int8 activation scales on the
+first `min(n, 2)` test images after the weights load, as the JAX harness
+does, and samples with the calibrated model; `yes` samples with dynamic
+scales.
 """
 
 from __future__ import annotations
@@ -172,7 +177,8 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     `Dice`, `diversity_experts`, `GED_s`, `diversity_s`, `HMIoU_s` per
     sample count s, `samples_per_sec` (steady state: the first batch is
     left out when there is a second, and padded tail images are not
-    counted), and the host seconds of generation, data and metrics.
+    counted), and the host seconds of generation, data, metrics and the
+    static scales' calibration.
 
     The model builds on `device` (default: the CUDA card) and samples with
     the EMA weights of `load_from`."""
@@ -208,6 +214,18 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     device = next(net.parameters()).device
 
     n = len(dataset)
+    calibration_seconds = 0.0
+    if str(params.get("quantized_inference", "")).lower() == "static":
+        from ccdm_tpu_torch.ops import quant
+
+        t0 = time.perf_counter()
+        cal_images = torch.from_numpy(
+            np.stack([dataset.get(i)["image"] for i in range(min(n, 2))])).to(device)
+        model = quant.calibrate_static_scales(model, net, cal_images, feature_fn=feature_fn,
+                                              feature_net=feature_net)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        calibration_seconds = time.perf_counter() - t0
     batch_size = min(max(1, int(params.get("batch_size", 2))), max(n, 1))
     sampler = make_prob_sampler(model, max_samples, num_steps, feature_fn,
                                 encoder_reuse=int(params.get("encoder_reuse", 1)))
@@ -284,6 +302,7 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
         "generation_seconds": sum(batch_seconds),
         "data_seconds": data_seconds,
         "metrics_seconds": metrics_seconds,
+        "calibration_seconds": calibration_seconds,
     }
     for i, s in enumerate(evaluations):
         results[f"GED_{s}"] = float(geds[i] / count)

@@ -9,6 +9,11 @@ as the JAX package's `param_dtype=float32` and `norm_fp32=True` keep them.
 Modules are constructed on the meta device and their weights drawn from an
 explicit CPU `torch.Generator`, so building a model touches no global RNG
 and gives the same weights on every device.
+
+`quantized_inference` (any true value) builds the int8 convs
+(`ops/quant.py`); `DenoisingModel.with_quant_scales` gives a model whose
+UNet calls use calibrated static activation scales, and a model without
+them runs the dynamic scales.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from ccdm_tpu_torch.diffusion.sampling import SamplerConfig, ancestral_sampler
 from ccdm_tpu_torch.models.dino import VIT_CONFIGS
 from ccdm_tpu_torch.models.layers import GroupNorm32
 from ccdm_tpu_torch.models.unet import UNetModel, create_unet
+from ccdm_tpu_torch.ops import quant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,21 +40,45 @@ class DenoisingModel:
     As in the JAX package, the weights are an argument: `net` plays the role
     of Flax's `params` (the module holding the weights, e.g. `self.unet` or
     an EMA copy of it); `unet` is the module `build_model` made.
+
+    `quant_scales`: the calibrated int8 activation absmax per site (module
+    name -> fp32 device scalar, `ops.quant.calibrate_sampler`), applied
+    around every UNet call this model makes; None: dynamic scales. It is
+    not part of any state dict.
     """
 
     diffusion: CategoricalDiffusion
     unet: UNetModel
     step_T_sample: str = "majority"
+    quant_scales: Optional[Dict[str, torch.Tensor]] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    # the static scales max(absmax, 1e-8) / 127, derived once from quant_scales
+    act_scales: Optional[Dict[str, torch.Tensor]] = dataclasses.field(
+        default=None, init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.quant_scales is not None:
+            object.__setattr__(self, "act_scales", {
+                name: quant.static_act_scale(v) for name, v in self.quant_scales.items()})
 
     @property
     def time_steps(self) -> int:
         return self.diffusion.time_steps
 
+    def with_quant_scales(self, scales: Dict[str, torch.Tensor]) -> "DenoisingModel":
+        """A model whose int8 convs use calibrated static activation scales:
+        `scales` is `ops.quant.calibrate_sampler`'s table."""
+        return dataclasses.replace(self, quant_scales=scales)
+
+    def _call(self, net: UNetModel, *args, **kwargs) -> dict:
+        with quant.static_scales(net, self.act_scales):
+            return net(*args, **kwargs)
+
     def apply(self, net: UNetModel, xt: torch.Tensor, condition: torch.Tensor,
               t: torch.Tensor, feature_condition: Optional[torch.Tensor] = None) -> dict:
         """One UNet call: `xt` `[B,H,W,C]`, `condition` `[B,H,W,Ci]`, `t` `[B]`,
         `feature_condition` `[B,h,w,Cf]` where the UNet concatenates one."""
-        return net(xt, condition, t, feature_condition)
+        return self._call(net, xt, condition, t, feature_condition)
 
     def denoise_fn(self, net: UNetModel, condition: torch.Tensor,
                    feature_condition: Optional[torch.Tensor] = None):
@@ -64,11 +94,11 @@ class DenoisingModel:
         `reuse(xt, t, skips) -> p0` replays them through the middle and the
         decoder with the current step's time embedding."""
         def full(xt, t):
-            ret = net(xt, condition, t, feature_condition, return_skips=True)
+            ret = self._call(net, xt, condition, t, feature_condition, return_skips=True)
             return ret["diffusion_out"], ret["skips"]
 
         def reuse(xt, t, skips):
-            return net(xt, condition, t, cached_skips=skips)["diffusion_out"]
+            return self._call(net, xt, condition, t, cached_skips=skips)["diffusion_out"]
 
         return full, reuse
 
@@ -91,7 +121,9 @@ class DenoisingModel:
 def init_weights_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight from `generator` (a CPU generator): conv and linear
     weights ~ N(0, 1/fan_in) (lecun normal), biases 0, GroupNorm 1/0, and
-    zeros for modules marked `zero_init` (output projections and heads)."""
+    zeros for modules marked `zero_init` (output projections and heads).
+    The int8 `QuantConv2d` is an `nn.Conv2d` and draws the same weights, kept
+    in fp32."""
     for module in net.modules():
         if isinstance(module, GroupNorm32):
             module.weight.fill_(1.0)
@@ -134,8 +166,6 @@ def build_model(
         feature_channels = int(vit["embed_dim"])
     elif fce.get("type") not in (None, "none"):
         raise NotImplementedError(f"feature_cond_encoder {fce.get('type')!r} is not ported")
-    if params.get("quantized_inference", False):
-        raise NotImplementedError("quantized_inference is not ported yet")
 
     if device is None:
         if not torch.cuda.is_available():
@@ -171,6 +201,7 @@ def build_model(
             feature_cond_stride=feature_stride,
             feature_channels=feature_channels,
             dtype=dtype,
+            quantize_convs=bool(params.get("quantized_inference", False)),
         )
     unet = unet.to_empty(device=device)
     init_weights_(unet, generator or torch.Generator().manual_seed(0))

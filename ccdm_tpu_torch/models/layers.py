@@ -14,7 +14,9 @@ their positions.
 
 Every GroupNorm goes through `ops.group_norm.group_norm` and every
 attention through `ops.flash_attention.flash_attention`: the hand-written
-kernels on the card, their plain versions on the CPU.
+kernels on the card, their plain versions on the CPU. With `quant` (the
+`quantized_inference` mode) the ResBlock's convs and the resampling convs
+are `ops.quant.QuantConv2d`s, as the JAX package's `quant` flag makes them.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from ccdm_tpu_torch.ops.flash_attention import flash_attention
 from ccdm_tpu_torch.ops.group_norm import group_norm
+from ccdm_tpu_torch.ops.quant import QuantConv2d
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -77,12 +80,17 @@ class GroupNorm32(nn.Module):
         return group_norm(x, self.weight, self.bias, self.groups, 1e-5, silu, add)
 
 
-def conv3x3(in_ch: int, out_ch: int, dtype, stride: int = 1) -> nn.Conv2d:
-    """3x3 conv with torch-style padding 1."""
+def conv3x3(in_ch: int, out_ch: int, dtype, stride: int = 1, quant: bool = False) -> nn.Conv2d:
+    """3x3 conv with torch-style padding 1; the int8 `QuantConv2d` (fp32
+    weights) when `quant`."""
+    if quant:
+        return QuantConv2d(in_ch, out_ch, 3, stride=stride, padding=1)
     return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, dtype=dtype)
 
 
-def conv1x1(in_ch: int, out_ch: int, dtype) -> nn.Conv2d:
+def conv1x1(in_ch: int, out_ch: int, dtype, quant: bool = False) -> nn.Conv2d:
+    if quant:
+        return QuantConv2d(in_ch, out_ch, 1)
     return nn.Conv2d(in_ch, out_ch, 1, dtype=dtype)
 
 
@@ -94,9 +102,9 @@ def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
 class Upsample(nn.Module):
     """2x nearest upsample + 3x3 conv."""
 
-    def __init__(self, channels: int, out_channels: int, dtype):
+    def __init__(self, channels: int, out_channels: int, dtype, quant: bool = False):
         super().__init__()
-        self.conv = conv3x3(channels, out_channels, dtype)
+        self.conv = conv3x3(channels, out_channels, dtype, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(nearest_upsample_2x(x))
@@ -105,9 +113,9 @@ class Upsample(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3x3 conv, padding 1."""
 
-    def __init__(self, channels: int, out_channels: int, dtype):
+    def __init__(self, channels: int, out_channels: int, dtype, quant: bool = False):
         super().__init__()
-        self.op = conv3x3(channels, out_channels, dtype, stride=2)
+        self.op = conv3x3(channels, out_channels, dtype, stride=2, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
@@ -117,22 +125,22 @@ class ResBlock(nn.Module):
     """Timestep-conditioned residual block: `norm→SiLU→conv3x3`, add the
     projected time embedding (or FiLM it with `use_scale_shift_norm`), then
     `norm→SiLU→dropout→zero-conv3x3`, plus a 1x1 skip projection when the
-    channel count changes."""
+    channel count changes. `quant`: its three convs are int8 `QuantConv2d`s."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  dropout: float = 0.0, use_scale_shift_norm: bool = False,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, quant: bool = False):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.Sequential(
-            GroupNorm32(channels), nn.SiLU(), conv3x3(channels, out_channels, dtype))
+            GroupNorm32(channels), nn.SiLU(), conv3x3(channels, out_channels, dtype, quant=quant))
         emb_width = 2 * out_channels if use_scale_shift_norm else out_channels
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, emb_width, dtype=dtype))
         self.out_layers = nn.Sequential(
             GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(dropout),
-            zero_init(conv3x3(out_channels, out_channels, dtype)))
-        self.skip_connection = (conv1x1(channels, out_channels, dtype)
+            zero_init(conv3x3(out_channels, out_channels, dtype, quant=quant)))
+        self.skip_connection = (conv1x1(channels, out_channels, dtype, quant=quant)
                                 if channels != out_channels else nn.Identity())
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,11 @@ block runs at `ds == feature_cond_stride` (Flax infers the wider input, a
 torch module is told `feature_channels`). Encoder reuse: `return_skips`
 returns the encoder's activations (`in_conv`'s output and every input
 block's), and `cached_skips` replays them, running only the middle and the
-decoder with the current step's time embedding. Not ported: int8 convs.
+decoder with the current step's time embedding. `quantize_convs` (the
+`quantized_inference` mode) makes exactly the JAX package's sites int8
+`QuantConv2d`s: the input conv, every ResBlock's two 3x3 convs and 1x1 skip,
+and every Downsample and Upsample conv; the fp32 heads, attention's qkv and
+projection and the time MLP stay float.
 """
 
 from __future__ import annotations
@@ -77,9 +81,10 @@ class UNetModel(nn.Module):
                  use_scale_shift_norm: bool = False, softmax_output: bool = True,
                  ce_head: bool = False, feature_cond_block_idx: int = -1,
                  feature_cond_stride: int = 8, feature_channels: int = 0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, quantize_convs: bool = False):
         super().__init__()
         self.dtype = dtype
+        q = quantize_convs
         self.softmax_output = softmax_output
         # the input block the feature map is concatenated in front of, if any
         self.feature_block: Optional[int] = None
@@ -90,13 +95,13 @@ class UNetModel(nn.Module):
             nn.Linear(time_dim, time_dim, dtype=dtype))
 
         def res(in_ch, out_ch):
-            return ResBlock(in_ch, time_dim, out_ch, dropout, use_scale_shift_norm, dtype)
+            return ResBlock(in_ch, time_dim, out_ch, dropout, use_scale_shift_norm, dtype, q)
 
         def attn(ch):
             return AttentionBlock(ch, num_heads, num_head_channels, dtype)
 
         ch = int(channel_mult[0] * mc)
-        self.input_blocks = nn.ModuleList([TimestepBlock(conv3x3(in_channels, ch, dtype))])
+        self.input_blocks = nn.ModuleList([TimestepBlock(conv3x3(in_channels, ch, dtype, quant=q))])
         skip_chs = [ch]
         ds = 1
         for level, mult in enumerate(channel_mult):
@@ -114,7 +119,7 @@ class UNetModel(nn.Module):
                 self.input_blocks.append(TimestepBlock(*layers))
                 skip_chs.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(TimestepBlock(Downsample(ch, ch, dtype)))
+                self.input_blocks.append(TimestepBlock(Downsample(ch, ch, dtype, q)))
                 skip_chs.append(ch)
                 ds *= 2
 
@@ -129,7 +134,7 @@ class UNetModel(nn.Module):
                 if ds in attention_resolutions:
                     layers.append(attn(ch))
                 if level and i == num_res_blocks:
-                    layers.append(Upsample(ch, ch, dtype))
+                    layers.append(Upsample(ch, ch, dtype, q))
                     ds //= 2
                 self.output_blocks.append(TimestepBlock(*layers))
         assert not skip_chs
@@ -203,6 +208,7 @@ def create_unet(
     feature_cond_stride: int = 8,
     feature_channels: int = 0,
     dtype=torch.bfloat16,
+    quantize_convs: bool = False,
 ) -> UNetModel:
     """Factory with the JAX `create_unet`'s arguments. `in_channels`
     defaults to `out_channels + 1` (the one-hot state plus one image
@@ -227,4 +233,5 @@ def create_unet(
         feature_cond_stride=feature_cond_stride,
         feature_channels=feature_channels,
         dtype=dtype,
+        quantize_convs=quantize_convs,
     )

@@ -3,6 +3,7 @@
 
     python3 ccdm_tpu_torch/tools/profile_sampler.py [--config flagship|cityscapes]
                                                     [--encoder-reuse R] [--root DIR]
+                                                    [--quant off|dynamic|static]
 
 `--config flagship` (the default): the model `chip_smoke.py` runs (flagship
 LIDC config, bf16, seeded random weights with the zero-initialised leaves
@@ -11,6 +12,10 @@ redrawn) through `make_prob_sampler`, 8 images x 16 samples.
 (256x512, C=20, base 128, DINO ViT-S/8, bf16; seeded random weights, the
 UNet's zero leaves redrawn), the protocol batch of 2 images x 1 vote,
 with encoder reuse R (default 1).
+`--quant dynamic|static` builds either with `quantized_inference` (int8
+convs, `ops/quant.py`): dynamic scales, or static scales calibrated on the
+run's first two images; the profile's `quant_conv` family is the int8
+kernel, beside `conv_compute` (cuDNN) of `--quant off`, the default.
 
 - `sites`: the GroupNorm and attention calls of one UNet call, by shape,
   each timed alone through its wrapper (`chip_smoke.time_ms`: device time of
@@ -49,6 +54,7 @@ PROFILE_STEPS = 10
 
 # kernel families of the profile, by a substring of the device kernel's name
 FAMILIES = [
+    ("quant_conv", ("quant_conv_kernel",)),
     ("group_norm", ("gn_small", "gn_cluster", "gn_partial_stats", "gn_apply")),
     ("attention", ("attn_fwd",)),
     ("conv_layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),
@@ -82,19 +88,28 @@ class Workload(NamedTuple):
     forward: Callable     # one UNet call at the run's shapes
 
 
-def flagship(smoke, reuse: int) -> Workload:
+def quant_params(quant: str) -> dict:
+    """The config keys of a `--quant` mode (none for "off")."""
+    return {} if quant == "off" else {"quantized_inference": quant if quant == "static" else True}
+
+
+def flagship(smoke, reuse: int, quant: str = "off") -> Workload:
     import torch
 
     from ccdm_tpu_torch import FLAGSHIP_PARAMS
     from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
     from ccdm_tpu_torch.models.builder import build_model
 
-    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence")
+    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence", **quant_params(quant))
     model = build_model(params, num_classes=2, image_channels=1, image_size=128,
                         device="cuda", generator=torch.Generator().manual_seed(0))
     smoke.unzero_(model.unet, seed=1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     images = torch.randn(smoke.IMAGES, 128, 128, 1, generator=gen, device="cuda")
+    if quant == "static":
+        from ccdm_tpu_torch.ops import quant as q
+
+        model = q.calibrate_static_scales(model, model.unet, images[:2])
     n = smoke.IMAGES * smoke.SAMPLES
 
     def make_run(steps):
@@ -103,25 +118,33 @@ def flagship(smoke, reuse: int) -> Workload:
         return lambda: run(model.unet, images, 2)
 
     def forward():
-        return model.unet(torch.zeros(n, 128, 128, 2, device="cuda"),
-                          images.repeat_interleave(smoke.SAMPLES, 0),
-                          torch.full((n,), 5, device="cuda"))
+        return model.apply(model.unet, torch.zeros(n, 128, 128, 2, device="cuda"),
+                           images.repeat_interleave(smoke.SAMPLES, 0),
+                           torch.full((n,), 5, device="cuda"))
 
     return Workload(model.unet, "samples", n, make_run, forward)
 
 
-def cityscapes(smoke, reuse: int) -> Workload:
+def cityscapes(smoke, reuse: int, quant: str = "off") -> Workload:
     import torch
 
     from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS
     from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
     from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
 
-    ev = CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS, encoder_reuse=reuse))
+    ev = CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS, encoder_reuse=reuse,
+                                  **quant_params(quant if quant != "static" else "dynamic")))
     ev.build((*smoke.CS_HW, 3), smoke.CS_IMAGES, device="cuda")
     smoke.unzero_(ev.model.unet, seed=5)
     gen = torch.Generator(device="cuda").manual_seed(6)
     images = torch.randn(smoke.CS_IMAGES, *smoke.CS_HW, 3, generator=gen, device="cuda")
+    if quant == "static":  # calibrated after the zero leaves are redrawn
+        from ccdm_tpu_torch.ops import quant as q
+
+        ev.model = q.calibrate_static_scales(ev.model, ev.model.unet, images,
+                                             feature_fn=ev.feature_fn, feature_net=ev.feature_net)
+        ev.sampler = make_prob_sampler(ev.model, ev.num_evaluations, feature_fn=ev.feature_fn,
+                                       encoder_reuse=reuse)
     with torch.inference_mode():
         emit("dino", ms=smoke.time_ms(lambda: ev.feature_fn(ev.feature_net, images),
                                       reps=3, calls=5), shape=[smoke.CS_IMAGES, *smoke.CS_HW, 3])
@@ -135,8 +158,9 @@ def cityscapes(smoke, reuse: int) -> Workload:
 
     def forward():
         feats = ev.feature_fn(ev.feature_net, images)
-        return ev.model.unet(torch.zeros(smoke.CS_IMAGES, *smoke.CS_HW, 20, device="cuda"),
-                             images, torch.full((smoke.CS_IMAGES,), 5, device="cuda"), feats)
+        return ev.model.apply(ev.model.unet,
+                              torch.zeros(smoke.CS_IMAGES, *smoke.CS_HW, 20, device="cuda"),
+                              images, torch.full((smoke.CS_IMAGES,), 5, device="cuda"), feats)
 
     return Workload(ev.model.unet, "images", smoke.CS_IMAGES, make_run, forward)
 
@@ -263,6 +287,8 @@ def main() -> None:
                     help="R: the UNet encoder runs on every R-th step (default 1)")
     ap.add_argument("--root", type=Path, default=REPO,
                     help="checkout whose ccdm_tpu_torch to measure (default: this one)")
+    ap.add_argument("--quant", choices=("off", "dynamic", "static"), default="off",
+                    help="int8 convs: dynamic or calibrated static scales (default off)")
     args = ap.parse_args()
 
     root = args.root.resolve()
@@ -283,12 +309,12 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", root=str(root), card=smi("name,power.limit"), torch=torch.__version__,
-         config=args.config, encoder_reuse=args.encoder_reuse)
+         config=args.config, encoder_reuse=args.encoder_reuse, quant=args.quant)
     from ccdm_tpu_torch.ops import _build
 
     emit("build", seconds=_build.build())
-    work = {"flagship": flagship, "cityscapes": cityscapes}[args.config](
-        smoke, args.encoder_reuse)
+    workload = {"flagship": flagship, "cityscapes": cityscapes}[args.config]
+    work = workload(smoke, args.encoder_reuse, args.quant)
     runs(work, smoke, WARM_RUNS)
     profile(work, PROFILE_STEPS)
     sites(work, smoke)

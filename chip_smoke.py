@@ -141,6 +141,40 @@ without printing its result:
    gradient within 1e-4 of its tensor's largest magnitude (analytic zeros
    as in 12).
 
+21. quant_conv: the int8 conv kernel (`csrc/quant_conv.cu`) against its
+   plain version, bit for bit (the products are exact), and two calls bit
+   for bit equal, at every int8 site shape of a flagship UNet call at
+   batch 32 (the harness's 2 x 16) and 128 and of a Cityscapes call at
+   batch 2 (the in_convs' K = 27 and 207, the stride-2 Downsamples, the 1x1
+   skips, the DINO concat's 640 channels), bf16 with a static scale; fp32
+   and dynamic variants on the ragged and strided sites. Per site shape:
+   kernel, bf16 cuDNN conv (`float_conv_ms`: what the float path runs
+   there) and bound times (x, the codes and the output moved once; 2 M N K
+   int8 operations at 1,979 TOP/s), summed over a UNet call; the plain
+   version's time at six of them. Rows in `build/chip_smoke_quant_conv.json`.
+22. quant_eval: `eval_lidc_uncertainty(EVAL_LIDC_FAST_PARAMS)` (int8 on
+   calibrated static scales, encoder reuse 2, T = 250, batch 2) on phase
+   13's 8 PNG images with phase 11's weights; `quantized_inference: True`
+   (dynamic) at R = 1 on 2 of them; `CityscapesEvaluator` at full width
+   with static scales on phase 16's checkpoint, 2 images x 1 vote x 250
+   steps at R = 1; between them `python -m ccdm_tpu_torch.cli.eval` on
+   `.json` params in a subprocess, on the card by default: the step sweep
+   (10 and 5 steps) with static scales and reuse 2, and the dynamic mode
+   at T = 10, 2 images each (exit 0, results with calibration seconds
+   exactly where static). Each in-process run checks the metrics' ranges
+   and launches exactly:
+   the int8 kernel 81 (Cityscapes 96) a whole UNet call and 53 a replay,
+   GroupNorm and attention as in phases 7 and 13, plus the calibration's 8
+   float UNet calls; prints the calibration's seconds and samples/s
+   against phase 13's float harness.
+23. quant_reference: the fp32 int8 sampler on the card (kernels, TF32 off)
+   against the CPU (plain versions), flagship widths at 64x64, 1 image x 2
+   samples x 3 steps, the same noise, dynamic and on one calibrated
+   table, and the calibration itself card against CPU (within 1e-3
+   relative). Moved int8 codes compound (see the phase): maps agree on
+   >= 97% of pixels, and the mean probability difference is at most twice
+   the CPU int8 run's mean distance from the float run.
+
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
 """
@@ -160,9 +194,9 @@ import numpy as np
 IMAGES, SAMPLES, STEPS = 8, 16, 250
 
 # NVIDIA H100 SXM peaks (data sheet, dense): device memory, bf16 tensor
-# cores, fp32 outside the tensor cores
+# cores, fp32 outside the tensor cores, int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def log(phase: str, msg: str) -> None:
@@ -443,10 +477,12 @@ def reset_counts() -> None:
     """Every kernel's launch counts to 0, just before a main-path run."""
     from ccdm_tpu_torch.ops import flash_attention as fa
     from ccdm_tpu_torch.ops import group_norm as gn
+    from ccdm_tpu_torch.ops import quant
 
     gn.launches = 0
     gn.launches_bwd = 0
     fa.launches = 0
+    quant.launches = 0
     for counts in (gn.path_launches, gn.path_launches_bwd, fa.path_launches):
         counts.update(dict.fromkeys(counts, 0))
 
@@ -455,9 +491,10 @@ def read_counts():
     """(launches per kernel, launches per kernel and path) since the reset."""
     from ccdm_tpu_torch.ops import flash_attention as fa
     from ccdm_tpu_torch.ops import group_norm as gn
+    from ccdm_tpu_torch.ops import quant
 
     return ({"group_norm": gn.launches, "flash_attention": fa.launches,
-             "group_norm_backward": gn.launches_bwd},
+             "group_norm_backward": gn.launches_bwd, "quant_conv": quant.launches},
             {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches),
              "group_norm_backward": dict(gn.path_launches_bwd)})
 
@@ -500,7 +537,7 @@ def phase_slice(smi):
     if not sum_err <= 1e-3:
         raise AssertionError(f"slice probabilities sum to 1 only within {sum_err}")
     want = {"group_norm": gn_sites * STEPS, "flash_attention": attn_sites * STEPS,
-            "group_norm_backward": 0}
+            "group_norm_backward": 0, "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != sites x steps {want}")
     n = IMAGES * SAMPLES
@@ -626,7 +663,7 @@ def phase_cityscapes(smi, reuse: int):
     full = len(range(0, STEPS, reuse))  # steps with step % R == 0 run the whole UNet
     want = {"group_norm": full * full_gn + (STEPS - full) * replay_gn,
             "flash_attention": full * full_attn + (STEPS - full) * replay_attn,
-            "group_norm_backward": 0}
+            "group_norm_backward": 0, "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches} != {want} "
                              f"({full} full UNet calls, {STEPS - full} replays)")
@@ -953,7 +990,7 @@ def run_training(run, steps: int, marks_at):
 def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
                          attn: int = 16):
     want = {"group_norm": gn * (steps + calls), "group_norm_backward": gn * steps,
-            "flash_attention": attn * (steps + calls)}
+            "flash_attention": attn * (steps + calls), "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} != {want} ({steps} steps, {calls} "
                              f"validation UNet calls)")
@@ -1170,7 +1207,7 @@ def phase_eval_lidc(smi, bare_rate: float):
     launches, _ = read_counts()
     batches = 4
     want = {"group_norm": 66 * STEPS * batches, "flash_attention": 11 * STEPS * batches,
-            "group_norm_backward": 0}
+            "group_norm_backward": 0, "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"eval_lidc: launches {launches} != {want} (sites x {STEPS} steps "
                              f"x {batches} batches)")
@@ -1191,7 +1228,7 @@ def phase_eval_lidc(smi, bare_rate: float):
         + "/".join(f"{res[f'HMIoU_{s}']:.4f}" for s in (1, 4, 8, 16))
         + f", Dice {[round(v, 4) for v in res['Dice']]}, mIoU {res['mIoU']:.4f}, nonzero "
         f"{res['nonzero_fraction']:.3f}; launches {launches}")
-    return {"launches": launches, "path_launches": {}}
+    return {"launches": launches, "path_launches": {}}, res["samples_per_sec"]
 
 
 def phase_eval_invariance():
@@ -1264,7 +1301,7 @@ def phase_sampling_speed(smi):
     wall = time.perf_counter() - start
     launches, _ = read_counts()
     steps = sum(DEFAULT_STEP_SWEEP)
-    want = {"group_norm": 66 * steps, "flash_attention": 11 * steps, "group_norm_backward": 0}
+    want = {"group_norm": 66 * steps, "flash_attention": 11 * steps, "group_norm_backward": 0, "quant_conv": 0}
     if sorted(res) != sorted(DEFAULT_STEP_SWEEP) or launches != want:
         raise AssertionError(f"sampling_speed: sweep {sorted(res)}, launches {launches} != "
                              f"{want} (sites x {steps} steps)")
@@ -1348,7 +1385,7 @@ def phase_cityscapes_eval(smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, paths_by = read_counts()
-    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0}
+    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0, "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"cityscapes_eval: launches {launches} != {want}")
     official = res["official"]
@@ -1566,7 +1603,7 @@ def phase_cityscapes_train_dino(smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, _ = read_counts()
-    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0}
+    want = {"group_norm": 81 * STEPS, "flash_attention": 16 * STEPS, "group_norm_backward": 0, "quant_conv": 0}
     if launches != want or tuple(probs.shape) != (*image.shape[:3], 20) or not bool(
             torch.isfinite(probs).all()):
         raise AssertionError(f"cityscapes_train_dino eval: launches {launches} != {want} or "
@@ -1638,6 +1675,428 @@ def phase_cityscapes_train_reference():
         f"({enc_worst[1]}), zeros within {enc_zero:.2g}")
 
 
+QUANT_MAPS = 0.97  # phase 23: the least share of the maps card and CPU agree on
+
+
+def quant_site_shapes(unet, *inputs):
+    """The int8 conv sites of one UNet call on `inputs`, by (input shape
+    without the batch, kernel, stride, Cout): how many sites each."""
+    import collections
+
+    import torch
+
+    from ccdm_tpu_torch.ops import quant
+
+    shapes = collections.Counter()
+
+    def record(mod, args):
+        shapes[(tuple(args[0].shape[1:]), mod.kernel_size[0], mod.stride[0],
+                mod.out_channels)] += 1
+
+    hooks = [m.register_forward_pre_hook(record) for _, m in quant.quant_sites(unet)]
+    with torch.inference_mode():
+        unet(*inputs)
+    for h in hooks:
+        h.remove()
+    return shapes
+
+
+def quant_bound(x, w_q, out, k: int, cout: int):
+    """`bound_ms` of one int8 conv: x, w_q, s_w and the bias read once, the
+    output written once; 2 M N K int8 operations with K = Cin k^2."""
+    nbytes = (x.numel() * x.element_size() + w_q.numel() + 8 * cout
+              + out.numel() * out.element_size())
+    m = out.shape[0] * out.shape[2] * out.shape[3]
+    return bound_ms(nbytes, 2 * m * cout * x.shape[1] * k * k, "int8")
+
+
+def quant_case(gen, shape, k: int, stride: int, cout: int, dtype, static: bool,
+               timed: bool = False, plain_timed: bool = False):
+    """One int8 conv case: the kernel against its plain version, bit for bit,
+    and a second call against the first; with `timed`, the kernel's, the
+    bf16/fp32 cuDNN conv's (`float_conv_ms`, the float path's cost) and
+    optionally the plain version's device times beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ccdm_tpu_torch.ops import quant
+
+    cin = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2).to(dtype)
+    weight = torch.randn(cout, cin, k, k, generator=gen, device="cuda") / math.sqrt(cin * k * k)
+    bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+    w_q, s_w = quant.weight_codes(weight)
+    s_x = (quant.static_act_scale(x.abs().amax() * 0.7) if static
+           else quant.dynamic_act_scale(x))
+    pad = (k - 1) // 2
+
+    def kernel():
+        return quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, pad)
+
+    out = kernel()
+    again = kernel()
+    ref = quant.quant_conv_plain(x, w_q, s_w, bias, s_x, k, stride, pad)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    if not (torch.equal(out, ref) and torch.equal(out, again)):
+        raise AssertionError(f"quant_conv {tuple(shape)} k{k} s{stride} -> {cout} {dtype} "
+                             f"{'static' if static else 'dynamic'}: kernel != plain (max err "
+                             f"{err:.3g}) or two calls differ")
+    row = {"shape": list(shape), "kernel": k, "stride": stride, "cout": cout,
+           "dtype": str(dtype)[6:], "scale": "static" if static else "dynamic",
+           "max_abs_err": err}
+    if timed:
+        wf, bf = weight.to(dtype), bias.to(dtype)
+        bound, by = quant_bound(x, w_q, out, k, cout)
+        ms = time_ms(kernel)
+        row.update(ms=ms, float_conv_ms=time_ms(lambda: F.conv2d(x, wf, bf, stride, pad)),
+                   plain_ms=(time_ms(lambda: quant.quant_conv_plain(
+                       x, w_q, s_w, bias, s_x, k, stride, pad), reps=3, calls=2)
+                       if plain_timed else None),
+                   bound_ms=bound, bound_by=by, share=bound / ms, library_ms=None)
+    return row
+
+
+def phase_quant_conv(gen):
+    """K3 against its plain version at every int8 site shape of the flagship
+    (batch 32 and 128) and of Cityscapes (batch 2), bf16 with a static
+    scale as the fast eval runs it; dtype and scale variants on the ragged
+    and strided sites; times beside the bound and the float path's cuDNN
+    conv."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    flag = build_model(dict(FLAGSHIP_PARAMS, quantized_inference=True), 2, 1, 128)
+    flag_sites = quant_site_shapes(flag.unet, torch.zeros(1, 128, 128, 2, device="cuda"),
+                                   torch.zeros(1, 128, 128, 1, device="cuda"),
+                                   torch.full((1,), 5, device="cuda"))
+    cs = build_model(dict(CITYSCAPES_EVAL_PARAMS, quantized_inference=True), 20, 3, 256)
+    cs_sites = quant_site_shapes(cs.unet, torch.zeros(1, *CS_HW, 20, device="cuda"),
+                                 torch.zeros(1, *CS_HW, 3, device="cuda"),
+                                 torch.full((1,), 5, device="cuda"),
+                                 torch.zeros(1, CS_HW[0] // 8, CS_HW[1] // 8, 384, device="cuda"))
+    del flag, cs
+    if sum(flag_sites.values()) != 81 or sum(cs_sites.values()) != 96:
+        raise AssertionError(f"int8 sites a UNet call: flagship {sum(flag_sites.values())}, "
+                             f"Cityscapes {sum(cs_sites.values())}, not 81 and 96")
+    rows, worst = [], 0.0
+    per_call = {}
+    for name, sites, batches in (("flagship", flag_sites, (32, 128)),
+                                 ("cityscapes", cs_sites, (CS_IMAGES,))):
+        for batch in batches:
+            total = {"ms": 0.0, "float_conv_ms": 0.0, "bound_ms": 0.0}
+            for (chw, k, stride, cout), count in sorted(sites.items()):
+                headline = (name, batch, chw[0], chw[1], k, stride) in (
+                    ("flagship", 128, 32, 128, 3, 1), ("flagship", 32, 32, 128, 3, 1),
+                    ("flagship", 128, 3, 128, 3, 1), ("cityscapes", 2, 128, 256, 3, 1),
+                    ("cityscapes", 2, 23, 256, 3, 1), ("cityscapes", 2, 640, 32, 3, 1))
+                row = quant_case(gen, (batch, *chw), k, stride, cout, bf16, True, timed=True,
+                                 plain_timed=headline)
+                row.update(config=name, sites=count)
+                for key in total:
+                    total[key] += count * row[key]
+                worst = max(worst, row["max_abs_err"])
+                rows.append(row)
+                torch.cuda.empty_cache()
+            per_call[f"{name}_b{batch}"] = total
+            log("quant_conv", f"{name} batch {batch}: {sum(sites.values())} int8 sites "
+                f"({len(sites)} shapes) a UNet call, each bit-equal to the plain version; sum "
+                f"over a call: kernel {total['ms']:.3f} ms, bf16 cuDNN conv "
+                f"{total['float_conv_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
+                f"({total['bound_ms'] / total['ms']:.1%} of bound)")
+    # dtype and scale variants on the ragged and strided sites
+    variants = [((32, 32, 128, 128), 3, 1, 32), ((32, 3, 128, 128), 3, 1, 32),
+                ((32, 32, 128, 128), 3, 2, 32), ((32, 64, 64, 64), 1, 1, 32),
+                ((2, 23, 256, 512), 3, 1, 128), ((2, 640, 32, 64), 3, 1, 256),
+                ((3, 40, 13, 21), 3, 1, 20)]
+    for shape, k, stride, cout in variants:
+        for dtype, static in ((f32, True), (f32, False), (bf16, False)):
+            worst = max(worst, quant_case(gen, shape, k, stride, cout, dtype, static)["max_abs_err"])
+    for row in rows:
+        if row["plain_ms"] is not None:
+            log("quant_conv", f"{row['config']} {row['shape']} {row['kernel']}x{row['kernel']} "
+                f"s{row['stride']} -> {row['cout']} bf16 static: kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f}, bf16 cuDNN conv {row['float_conv_ms']:.4f}, bound "
+                f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), {row['share']:.1%} of bound")
+    log("quant_conv", f"{len(rows)} timed site cases and {3 * len(variants)} fp32/dynamic "
+        f"variants (the flagship in_conv K = 27, the Cityscapes in_conv K = 207, stride 2, 1x1, "
+        f"the DINO concat's 640 channels, ragged 13x21 -> 20): all bit-equal, two calls equal; "
+        f"per-site rows in build/chip_smoke_quant_conv.json")
+    Path("build").mkdir(exist_ok=True)
+    Path("build/chip_smoke_quant_conv.json").write_text(json.dumps(
+        {"sites": rows, "per_call": per_call}, indent=1))
+    head = next(r for r in rows if r["config"] == "flagship" and r["shape"] == [128, 32, 128, 128]
+                and r["kernel"] == 3 and r["stride"] == 1)
+    cs_head = next(r for r in rows if r["config"] == "cityscapes"
+                   and r["shape"] == [2, 128, 256, 512] and r["kernel"] == 3)
+    keys = ("ms", "plain_ms", "float_conv_ms", "bound_ms", "bound_by", "library_ms")
+    return (worst, {k: head[k] for k in keys}, {k: cs_head[k] for k in keys},
+            {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in per_call.items()})
+
+
+def unet_sites(unet):
+    """Per kernel, its sites in a whole UNet call and in an encoder-reuse
+    replay (the middle, the decoder and the head)."""
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.ops.quant import QuantConv2d
+
+    replayed = [unet.middle_block, *unet.output_blocks, unet.out]
+
+    def count(kind, modules):
+        return sum(isinstance(m, kind) for mod in modules for m in mod.modules())
+
+    kinds = {"group_norm": GroupNorm32, "flash_attention": AttentionBlock,
+             "quant_conv": QuantConv2d}
+    return ({k: count(v, [unet]) for k, v in kinds.items()},
+            {k: count(v, replayed) for k, v in kinds.items()})
+
+
+def expected_launches(full_sites, replay_sites, full: int, replays: int, float_calls: int = 0):
+    """Launch counts of `full` whole UNet calls, `replays` replays and
+    `float_calls` calibration calls (float convs: no int8 launches)."""
+    want = {k: full * full_sites[k] + replays * replay_sites[k] for k in full_sites}
+    want["group_norm"] += float_calls * full_sites["group_norm"]
+    want["flash_attention"] += float_calls * full_sites["flash_attention"]
+    want["group_norm_backward"] = 0
+    return want
+
+
+def check_lidc_results(name: str, res, count: int) -> None:
+    bad = [k for k in ("GED_1", "GED_4", "GED_8", "GED_16") if not 0 <= res.get(k, 0) <= 2]
+    bad += [k for k in ("HMIoU_1", "HMIoU_4", "HMIoU_8", "HMIoU_16") if not 0 <= res.get(k, 0) <= 1]
+    bad += [k for k in ("IoU", "Dice") if not all(0 <= v <= 1 for v in res[k])]
+    if res["count"] != count or bad:
+        raise AssertionError(f"{name}: count {res['count']}, out of range: {bad} in {res}")
+
+
+def phase_quant_eval(smi, float_rate: float):
+    """`EVAL_LIDC_FAST_PARAMS` (int8 on calibrated static scales, encoder
+    reuse 2) through the LIDC harness on phase 13's tree with phase 11's
+    weights; the dynamic mode at R = 1; `CityscapesEvaluator` at full width
+    with static scales."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, EVAL_LIDC_FAST_PARAMS
+    from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
+    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty
+    from ccdm_tpu_torch.models.builder import build_model
+
+    full_sites, replay_sites = unet_sites(build_model(EVAL_LIDC_FAST_PARAMS, 2, 1, 128).unet)
+    if (full_sites["quant_conv"], replay_sites["quant_conv"]) != (81, 53):
+        raise AssertionError(f"flagship int8 sites {full_sites}, replay {replay_sites}")
+    runs, rates = {}, {}
+    base = dict(EVAL_LIDC_FAST_PARAMS, dataset_file="datasets.lidc_orig",
+                load_from="build/chip_smoke_train/run", seed=EVAL_SEED)
+    for name, overrides, images in (
+            ("eval_lidc_fast", {}, 8),
+            ("eval_lidc_dynamic", {"quantized_inference": True, "encoder_reuse": 1,
+                                   "dataset_val_max_size": 2}, 2)):
+        params = dict(base, evaluation_path=str(EVAL_DIR / f"{name}_out"), **overrides)
+        reuse = int(params["encoder_reuse"])
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.perf_counter()
+        res = eval_lidc_uncertainty(params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        launches, _ = read_counts()
+        batches = images // 2
+        full = len(range(0, STEPS, reuse))
+        calib = 8 if str(params["quantized_inference"]) == "static" else 0
+        want = expected_launches(full_sites, replay_sites, batches * full,
+                                 batches * (STEPS - full), calib)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want} ({batches} batches x "
+                                 f"({full} full UNet calls, {STEPS - full} replays), {calib} "
+                                 f"calibration calls)")
+        check_lidc_results(name, res, images)
+        rates[name] = res["samples_per_sec"]
+        log("quant_eval", f"{name}: quantized_inference {params['quantized_inference']!r}, "
+            f"encoder reuse {reuse}, {images} PNG images x 16 samples x {STEPS} steps at batch 2 "
+            f"({smi}): wall {wall:.2f} s, calibration {res['calibration_seconds']:.2f} s, harness "
+            f"{res['samples_per_sec']:.2f} samples/s against the float harness's "
+            f"{float_rate:.2f} (phase 13); GED 1/4/8/16 "
+            + "/".join(f"{res[f'GED_{s}']:.4f}" for s in (1, 4, 8, 16)) + ", HM-IoU_16 "
+            + f"{res['HMIoU_16']:.4f}, Dice {[round(v, 4) for v in res['Dice']]}; launches "
+            f"{launches}")
+        runs[name] = {"launches": launches, "path_launches": {}}
+
+    # the eval CLI on the card by default, on .json params as the card reads
+    # them: the step sweep with static scales and reuse 2, then dynamic
+    for name, overrides in (
+            ("cli_sweep_static", {"dataset_file": "datasets.lidc_orig_sampling_speed",
+                                  "step_sweep": [10, 5]}),
+            ("cli_dynamic", {"quantized_inference": True, "encoder_reuse": 1,
+                             "time_steps": 10})):
+        out = EVAL_DIR / f"{name}_out"
+        path = EVAL_DIR / f"{name}.json"
+        path.write_text(json.dumps(dict(base, dataset_val_max_size=2, evaluations=[1, 4],
+                                        evaluation_path=str(out), **overrides)))
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ccdm_tpu_torch.cli.eval", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - start
+        files = sorted(out.glob("lidc_uncertainty_*.json"))
+        results = [json.loads(f.read_text()) for f in files]
+        want_files = 2 if "sweep" in name else 1
+        static = "sweep" in name
+        if proc.returncode != 0 or len(files) != want_files or any(
+                r["count"] != 2 or (r["calibration_seconds"] > 0) != static for r in results):
+            raise AssertionError(f"{name}: exit {proc.returncode}, results {files}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        log("quant_eval", f"{name}: python -m ccdm_tpu_torch.cli.eval {path} (on the card by "
+            f"default): exit 0 in {wall:.1f} s, " + ", ".join(
+                f"{f.name} GED_4 {r['GED_4']:.4f} calibration {r['calibration_seconds']:.2f} s"
+                for f, r in zip(files, results)))
+
+    # Cityscapes at full width on phase 16's checkpoint, static scales
+    ev = CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS, quantized_inference="static",
+                                  load_from=str(EVAL_DIR / "cs_ckpt"),
+                                  output_path=str(EVAL_DIR / "cs_quant_out")))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    images = torch.randn(CS_IMAGES, *CS_HW, 3, generator=gen, device="cuda")
+    ev.build((*CS_HW, 3), CS_IMAGES, calibration_images=images)
+    cs_full, _ = unet_sites(ev.model.unet)
+    if cs_full["quant_conv"] != 96 or len(ev.model.quant_scales) != 96:
+        raise AssertionError(f"Cityscapes int8 sites {cs_full}, {len(ev.model.quant_scales)} "
+                             f"calibrated scales")
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    mean = ev.predict_batch(images, 6)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches, _ = read_counts()
+    labels = ev.predict_labels(mean, CS_LABEL_HW)
+    want = expected_launches(cs_full, cs_full, STEPS, 0)
+    if launches != want:
+        raise AssertionError(f"cityscapes_quant: launches {launches} != {want}")
+    sum_err = float((mean.sum(-1) - 1).abs().max())
+    if tuple(mean.shape) != (CS_IMAGES, *CS_HW, 20) or not sum_err <= 1e-3 or not (
+            0 <= int(labels.min()) and int(labels.max()) <= 18):
+        raise AssertionError(f"cityscapes_quant: probabilities {tuple(mean.shape)} sum err "
+                             f"{sum_err}, labels in [{int(labels.min())}, {int(labels.max())}]")
+    log("quant_eval", f"cityscapes_quant: CITYSCAPES_EVAL_PARAMS with quantized_inference "
+        f"'static', {CS_IMAGES} images x 1 vote x {STEPS} steps at 256x512, R=1 ({smi}): "
+        f"calibration {ev.calibration_seconds:.2f} s (8 float steps with DINO), wall "
+        f"{wall:.2f} s, {CS_IMAGES / wall:.3f} images/s, {wall / STEPS * 1e3:.2f} ms per step; "
+        f"labels in [{int(labels.min())}, {int(labels.max())}]; launches {launches}")
+    runs["cityscapes_quant"] = {"launches": launches, "path_launches": {}}
+    return runs, rates
+
+
+def sites_against_cpu(card_net, cpu_net, table):
+    """Forward hooks on every int8 site of `card_net`: each call's output
+    against the plain version on the CPU on the same input, with the CPU
+    net's weight codes and, given `table`, that table's static scale (else
+    the input's dynamic scale). Returns (hooks, {site: [calls, bit-equal]})."""
+    import torch
+
+    from ccdm_tpu_torch.ops import quant
+
+    seen = {}
+
+    def check(mod, args, out, name):
+        ref_mod = cpu_net.get_submodule(name)
+        x = args[0].cpu()
+        s_x = (quant.static_act_scale(table[name].cpu()) if table is not None
+               else quant.dynamic_act_scale(x))
+        ref = quant.quant_conv_plain(x, *ref_mod.codes(), ref_mod.bias, s_x,
+                                     mod.kernel_size[0], mod.stride[0], mod.padding[0])
+        calls = seen.setdefault(name, [0, 0])
+        calls[0] += 1
+        calls[1] += int(torch.equal(out.cpu(), ref))
+
+    hooks = [m.register_forward_hook(lambda mod, args, out, n=name: check(mod, args, out, n))
+             for name, m in quant.quant_sites(card_net)]
+    return hooks, seen
+
+
+def phase_quant_reference():
+    """The fp32 int8 sampler on the card (kernels, TF32 off) against the CPU
+    (plain versions), flagship widths at 64x64, 1 image x 2 samples x 3
+    steps, the same injected noise, dynamic and on one calibrated table:
+    every site call of the card's run bit-equal to the plain version on the
+    CPU with the expected scale, and the whole run near the CPU's; and the
+    calibration itself, card against CPU."""
+    import torch
+
+    from ccdm_tpu_torch import FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.ops import quant
+
+    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence", compute_dtype="float32",
+                  quantized_inference=True)
+    cpu = build_model(params, 2, 1, 128, device="cpu")
+    unzero_(cpu.unet, seed=17)
+    card = build_model(params, 2, 1, 128)
+    card.unet.load_state_dict(cpu.unet.state_dict())
+    gen = torch.Generator().manual_seed(18)
+    s, k, hw = 2, 3, 64
+    images = torch.randn(1, hw, hw, 1, generator=gen)
+    prior = torch.nn.functional.one_hot(torch.randint(0, 2, (s, hw, hw), generator=gen), 2).float()
+    gumbel = -torch.log(-torch.log(torch.rand(k, s, hw, hw, 2, generator=gen).clamp_min(1e-38)))
+    flt = build_model(dict(params, quantized_inference=False), 2, 1, 128, device="cpu")
+    flt.unet.load_state_dict(cpu.unet.state_dict())
+    float_ref = make_prob_sampler(flt, s, k)(flt.unet, images, prior=prior, gumbel=gumbel)
+    table = quant.calibrate_sampler(cpu, cpu.unet, images)
+    card_table = quant.calibrate_sampler(card, card.unet, images.cuda())
+    # fp32 convs (TF32 off) summed in another order, and the same noise streams
+    table_err = max(abs(float(card_table[n]) - float(v)) / float(v) for n, v in table.items())
+    if set(card_table) != set(table) or len(table) != 81 or not table_err <= 1e-3:
+        raise AssertionError(f"quant_reference: card calibration {len(card_table)} sites, "
+                             f"rel err {table_err} against the CPU's {len(table)}")
+    results = []
+    for mode, (ref_model, card_model) in (
+            ("dynamic", (cpu, card)),
+            ("static", (cpu.with_quant_scales(table),
+                        card.with_quant_scales({n: v.cuda() for n, v in table.items()})))):
+        ref = make_prob_sampler(ref_model, s, k)(ref_model.unet, images, prior=prior,
+                                                 gumbel=gumbel)
+        hooks, seen = sites_against_cpu(card.unet, cpu.unet, table if mode == "static" else None)
+        try:
+            out = make_prob_sampler(card_model, s, k)(
+                card_model.unet, images.cuda(), prior=prior.cuda(), gumbel=gumbel.cuda()).cpu()
+        finally:
+            for h in hooks:
+                h.remove()
+        # where codes cannot move: each site call of the card's run, on its
+        # own input, equals the plain version with the expected scale; a site
+        # left in float, a wrong scale or a wrong weight code fails here
+        if len(seen) != 81 or any(calls != [k, k] for calls in seen.values()):
+            raise AssertionError(f"quant_reference {mode}: site calls [calls, bit-equal to "
+                                 f"the CPU's plain version] {seen}, expected [{k}, {k}] at "
+                                 f"81 sites")
+        # the whole run: the float parts (GroupNorm, attention) sum in another
+        # order on each device, and an ulp moves an int8 code wherever an
+        # activation sits at a rounding boundary; moved codes compound over
+        # the 81 sites (tests/test_torch_quant.py measures the same drift
+        # against the JAX package), so two correct int8 runs differ by about
+        # as much as int8 differs from float. Held: the mean |dp| between
+        # card and CPU at most twice the CPU int8 run's mean distance from
+        # the float run (two roundings of one trajectory, each that far from
+        # it), and the maps agreeing on >= QUANT_MAPS of the pixels
+        agree = out.argmax(-1) == ref.argmax(-1)
+        share, mean_dp = float(agree.float().mean()), float((out - ref).abs().mean())
+        int8_noise = float((ref - float_ref).abs().mean())
+        if not (share >= QUANT_MAPS and mean_dp <= 2 * int8_noise):
+            raise AssertionError(f"quant_reference {mode}: maps agree on {share}, mean |dp| "
+                                 f"{mean_dp} against int8's own {int8_noise} from float")
+        results.append(f"{mode}: {81 * k} site calls bit-equal to the CPU's plain version, "
+                       f"maps agree on {share:.5f}, mean |dp| {mean_dp:.3g} (int8 "
+                       f"from float on the CPU: {int8_noise:.3g}), largest "
+                       f"{float((out - ref).abs().max()):.3g}")
+    log("quant_reference", f"fp32 int8 sampler, 1 image {hw}x{hw} x {s} samples x {k} steps, "
+        f"card vs CPU (tolerance: each site call bit for bit; the run's maps >= "
+        f"{QUANT_MAPS}, mean |dp| <= twice int8's own from float): "
+        + "; ".join(results) + f"; calibration tables (81 sites, 8 steps) within {table_err:.3g} "
+        f"relative")
+
+
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch
@@ -1657,7 +2116,7 @@ def main() -> None:
     phase_attention_backward(gen)
     runs["train"] = phase_train(smi)
     phase_train_reference()
-    runs["eval_lidc"] = phase_eval_lidc(smi, bare_rate)
+    runs["eval_lidc"], harness_rate = phase_eval_lidc(smi, bare_rate)
     phase_eval_invariance()
     runs["sampling_speed"] = phase_sampling_speed(smi)
     runs["cityscapes_eval"] = phase_cityscapes_eval(smi)
@@ -1665,6 +2124,10 @@ def main() -> None:
     runs["cityscapes_train"] = phase_cityscapes_train(smi)
     runs.update(phase_cityscapes_train_dino(smi))
     phase_cityscapes_train_reference()
+    q_err, q_row, q_cs_row, q_per_call = phase_quant_conv(gen)
+    quant_runs, _ = phase_quant_eval(smi, harness_rate)
+    runs.update(quant_runs)
+    phase_quant_reference()
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],
@@ -1693,6 +2156,12 @@ def main() -> None:
          "paths": {path: sum(r["path_launches"].get("group_norm_backward", {}).get(path, 0)
                              for r in runs.values()) for path in ("S", "M", "L")},
          "runs": by_run("group_norm_backward")},
+        {"name": "quant_conv", "route": "cuda", "source": "ccdm_tpu_torch/csrc/quant_conv.cu",
+         # K3, no TPU kernel: the JAX package's int8 conv is XLA code
+         "replaces": "ccdm_tpu/ops/quant.py:115",
+         "launches": sum(r["launches"]["quant_conv"] for r in runs.values()),
+         "max_abs_err": q_err, **q_row, "cityscapes_case": q_cs_row,
+         "per_unet_call": q_per_call, "runs": by_run("quant_conv")},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

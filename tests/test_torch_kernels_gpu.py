@@ -14,6 +14,7 @@ import torch
 
 from ccdm_tpu_torch.ops import flash_attention as fa
 from ccdm_tpu_torch.ops import group_norm as gn
+from ccdm_tpu_torch.ops import quant
 
 pytestmark = pytest.mark.gpu
 
@@ -319,3 +320,67 @@ def test_unet_forward_on_card_matches_cpu(cuda):
         out = card.unet(xt.cuda(), cond.cuda(), t.cuda())["diffusion_out"]
     assert math.isfinite(float(out.sum()))
     torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("b,cin,h,w,cout,k,stride", [
+    (2, 3, 128, 128, 32, 3, 1),     # the flagship in_conv: K = 27
+    (2, 23, 64, 128, 128, 3, 1),    # the Cityscapes in_conv: K = 207
+    (2, 32, 64, 64, 32, 3, 2),      # a Downsample
+    (2, 64, 32, 32, 96, 1, 1),      # a 1x1 skip
+    (2, 640, 32, 64, 256, 3, 1),    # the DINO concat's in_conv: 20 chunks of 32 channels
+    (3, 40, 13, 21, 20, 3, 1),      # ragged H, W, Cin and Cout
+    (2, 32, 13, 17, 48, 3, 2),      # stride 2 on odd H and W
+    (2, 64, 7, 5, 64, 3, 1),        # W < 8: an 8 x 8 tile, mostly masked
+    (1, 32, 16, 16, 100, 1, 1),     # Cout past one 64-channel block, ragged
+])
+def test_quant_conv_kernel_equals_plain(cuda, dtype, static, b, cin, h, w, cout, k, stride):
+    """Exact integer products: the kernel equals its plain version bit for
+    bit, and a second call the first."""
+    x = (torch.randn(b, cin, h, w, generator=cuda, device="cuda") * 2).to(dtype)
+    weight = torch.randn(cout, cin, k, k, generator=cuda, device="cuda") * 0.1
+    bias = torch.randn(cout, generator=cuda, device="cuda") * 0.1
+    w_q, s_w = quant.weight_codes(weight)
+    # a calibrated scale below the input's absmax saturates codes at +-127
+    s_x = (quant.static_act_scale(x.abs().amax() * 0.7) if static
+           else quant.dynamic_act_scale(x))
+    before = quant.launches
+    out = quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
+    torch.cuda.synchronize()
+    assert quant.launches == before + 1 and out.dtype == dtype
+    ref = quant.quant_conv_plain(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
+    assert out.shape == ref.shape
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+    assert torch.equal(quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2), out)
+
+
+def test_scales_and_weight_codes_on_the_card_equal_the_cpus(cuda):
+    """The scales' divisions by 127 round once on the card too (PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal, an ulp
+    off the JAX package's scale for many values): static and dynamic
+    scales, the weight scales and the weight codes equal the CPU's."""
+    absmax = torch.rand(4096, generator=cuda, device="cuda") * 10
+    assert torch.equal(quant.static_act_scale(absmax).cpu(),
+                       quant.static_act_scale(absmax.cpu()))
+    for i in range(64):
+        x = (torch.randn(2, 8, 5, 5, generator=cuda, device="cuda") * (i + 1)).to(
+            BF16 if i % 2 else F32)
+        assert torch.equal(quant.dynamic_act_scale(x).cpu(), quant.dynamic_act_scale(x.cpu()))
+    weight = torch.randn(512, 32, 3, 3, generator=cuda, device="cuda") * 0.1
+    for ours, ref in zip(quant.weight_codes(weight), quant.weight_codes(weight.cpu())):
+        assert torch.equal(ours.cpu(), ref)
+
+
+def test_quant_conv_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 8, 6, 6, device="cuda")
+    w_q, s_w = quant.weight_codes(torch.randn(4, 8, 3, 3, device="cuda"))
+    bias, s_x = torch.zeros(4, device="cuda"), quant.dynamic_act_scale(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant.quant_conv(x.transpose(2, 3), w_q, s_w, bias, s_x, 3, 1, 1)
+    with pytest.raises(ValueError, match="kernel 5"):
+        quant.quant_conv(x, w_q, s_w, bias, s_x, 5, 1, 2)
+    with pytest.raises(ValueError, match="s_x"):
+        quant.quant_conv(x, w_q, s_w, bias, s_x.cpu(), 3, 1, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        quant.quant_conv(x.half(), w_q, s_w, bias, s_x, 3, 1, 1)
