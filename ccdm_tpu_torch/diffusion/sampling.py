@@ -40,6 +40,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post_prob,
     theta_post_prob_from_idx,
 )
+from ccdm_tpu_torch.utils.precision import fp32_precision
 
 # DenoiseFn: (xt [B,H,W,C] one-hot, t [B] int 1-based) -> p0 probs [B,H,W,C].
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -127,8 +128,17 @@ def ancestral_sampler(
     drew (the tests feed it): `gumbel[k]` `[K,B,H,W,C]` in the one-hot
     state, `uniforms[k]` `[K,B,H,W]` in the index state. With
     `config.encoder_reuse > 1`, `denoise_pair` is
-    `DenoisingModel.denoise_fns_cached`'s `(full, reuse)`.
+    `DenoisingModel.denoise_fns_cached`'s `(full, reuse)`. The UNet calls
+    run their fp32 convolutions in fp32 (`utils.precision.fp32_precision`).
     """
+    with fp32_precision():
+        return _ancestral_sampler(d, denoise_fn, xt, config, element_keys=element_keys,
+                                  gumbel=gumbel, uniforms=uniforms, denoise_pair=denoise_pair)
+
+
+def _ancestral_sampler(d: CategoricalDiffusion, denoise_fn: DenoiseFn, xt: torch.Tensor,
+                       config: SamplerConfig, *, element_keys, gumbel, uniforms,
+                       denoise_pair) -> torch.Tensor:
     t_grid = subsampled_t_values(d.time_steps, config.num_steps)
     k = len(t_grid)
     if gumbel is not None and gumbel.shape != (k, *xt.shape):

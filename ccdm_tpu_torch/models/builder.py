@@ -117,13 +117,19 @@ class DenoisingModel:
                                  uniforms=uniforms)
 
 
+# flax's lecun_normal: a normal truncated at 2 sigma, its scale raised so the
+# variance stays 1/fan_in (the std of N(0, 1) truncated to [-2, 2])
+_TRUNCATED_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights_(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every weight from `generator` (a CPU generator): conv and linear
-    weights ~ N(0, 1/fan_in) (lecun normal), biases 0, GroupNorm 1/0, and
-    zeros for modules marked `zero_init` (output projections and heads).
-    The int8 `QuantConv2d` is an `nn.Conv2d` and draws the same weights, kept
-    in fp32."""
+    """Draw every weight from `generator` (a CPU generator) as the JAX
+    package's flax modules draw theirs: conv and linear weights lecun normal
+    (a normal truncated to +-2 sigma with variance 1/fan_in), biases 0,
+    GroupNorm 1/0, and zeros for modules marked `zero_init` (output
+    projections and heads). The int8 `QuantConv2d` is an `nn.Conv2d` and
+    draws the same weights, kept in fp32."""
     for module in net.modules():
         if isinstance(module, GroupNorm32):
             module.weight.fill_(1.0)
@@ -134,7 +140,9 @@ def init_weights_(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 w.zero_()
             else:
                 fan_in = math.prod(w.shape[1:])
-                w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(fan_in))
+                draw = nn.init.trunc_normal_(torch.empty(w.shape), 0.0, 1.0, -2.0, 2.0,
+                                             generator=generator)
+                w.copy_(draw / (math.sqrt(fan_in) * _TRUNCATED_STD))
             if module.bias is not None:
                 module.bias.zero_()
     return net

@@ -54,9 +54,10 @@ _SIGNATURES = {
                              _LL, _LL, _LL, _LL, _LL, _LL, _F, _P],
     # q, k, out, bh, t, dh, q_sbh, q_sd, k_sbh, k_sd, stream
     "ccdm_attention_logits": [_P, _P, _P, _I, _I, _I, _LL, _LL, _LL, _LL, _P],
-    # x, w_q, s_w, bias, s_x, out, dtype, batch, cin, h, w, cout, kernel, stride, padding,
-    # cin_pad, stream
-    "ccdm_quant_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w_q, s_w, bias, s_x, out, acc32, dtype, batch, cin, h, w, cout, kernel, stride,
+    # padding, cin_pad, path, p0, p1, p2, p3, p4, stream
+    "ccdm_quant_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,12 @@ the JAX package's and both are kept.
   plain PyTorch version, `quant_conv_plain` (the integer convolution as a
   float64 `F.conv2d` of the codes, exact since every sum stays far below
   2^53); on a CUDA tensor it launches the hand-written kernel
-  (`csrc/quant_conv.cu`) or raises. `launches` counts the kernel launches.
+  (`csrc/quant_conv.cu`) or raises. `_plan_conv` picks the kernel's path
+  from the shape: "ring" (a block walks a strip of output rows with a ring
+  of quantized input rows in shared memory; output rows of 32 pixels and
+  up, 64 for a 3x3 of stride 1) or "tile" (64-pixel tiles, K split over
+  blocks where the tiles alone are too few for the card). `launches` counts the wrapper's calls
+  on the card, `path_launches` splits them by path.
 - `QuantConv2d` is the model's conv: an `nn.Conv2d` whose weight and bias
   stay fp32 whatever the torso's dtype, so the codes come from the fp32
   masters, as the JAX package quantizes its fp32 parameters. Its state
@@ -39,21 +44,151 @@ package).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
 import logging
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ccdm_tpu_torch.ops import _build
+from ccdm_tpu_torch.utils.precision import fp32_precision
 
 LOGGER = logging.getLogger(__name__)
 
 launches = 0
+path_launches = {"ring": 0, "tile": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_PATH_CODES = {"tile": 0, "ring": 1}
 _CHUNK = 32  # the kernel's input channels a step: a tap's channels are padded to it
+# The kernel's limits (csrc/quant_conv.cu). Ring: a block of at most 512
+# threads (a warp per 32 pixels x 32 channels, at least 4 warps), tiles of
+# 128, 64 or 32 output pixels and channels, at most 4 prefetched 16-byte
+# items a thread per output row, and the ring, weights and stage within the
+# 227 KB a block may have. Tile: 64 pixels x 64 channels a block.
+_RING_TILES = (128, 64, 32)
+_RING_MAX_THREADS = 512
+_RING_MIN_THREADS = 128
+_RING_MAX_ITEMS = 4
+_RING_SMEM_MAX = 232448
+_SM_SMEM = 233472          # shared memory of one H100 SM, less 1 KB a block for the system
+_SMS = 132                 # H100 SXM
+_RING_REGS = 128           # registers a ring thread holds (ptxas, every instance)
+_RING_WARM_ROWS = 3        # a strip's start costs about its first window's rows
+_RING_MIN_ROWS = 4         # rows a strip at least, so the ring's first rows pay off
+_TILE_MIN_BLOCKS = 2 * _SMS  # fewer tiles than this: split K
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How the kernel runs one call. "ring": `tw` output pixels, `bn` output
+    channels and `rs` output rows a block of `threads`, `items` prefetched
+    16-byte loads a thread; "tile": K in `split` ranges of chunks (int32
+    atomics and a second launch where split > 1)."""
+    path: str
+    tw: int = 0
+    bn: int = 0
+    rs: int = 0
+    items: int = 1
+    threads: int = 0
+    split: int = 1
+
+    def args(self):
+        """The C entry point's p0..p4."""
+        if self.path == "ring":
+            return self.tw, self.bn, self.rs, self.items, self.threads
+        return self.split, 0, 0, 0, 0
+
+
+def _out_size(n: int, k: int, stride: int) -> int:
+    return (n + 2 * ((k - 1) // 2) - k) // stride + 1
+
+
+def ring_smem(cin: int, k: int, stride: int, tw: int, bn: int) -> int:
+    """Shared bytes of a ring block: k ring rows of `twin` pixels and all
+    taps' weights for `bn` channels, each at a pitch of cin_pad + 16, and the
+    fp32 stage [bn][tw + 4]."""
+    pitch = -(-cin // _CHUNK) * _CHUNK + 16
+    twin = (tw - 1) * stride + k
+    return k * twin * pitch + k * k * bn * pitch + bn * (tw + 4) * 4
+
+
+def _ring_plan(shape: Sequence[int], cout: int, k: int, stride: int, itemsize: int,
+               vec: bool) -> Optional[ConvPlan]:
+    b, cin, h, w = shape
+    ho, wo = _out_size(h, k, stride), _out_size(w, k, stride)
+    if wo < 32 or (k == 1 and stride != 1):
+        return None
+    v = 16 // itemsize
+    widest = 1 << (wo.bit_length() - 1)  # the largest power of 2 <= wo
+    cout_pad = -(-cout // 32) * 32
+    cands = []
+    for tw in _RING_TILES:
+        if tw > widest:
+            continue
+        for bn in _RING_TILES:
+            if bn > cout_pad:
+                continue
+            # 3x3 stride 1 on 32-pixel rows, or 32 of more than 32 output
+            # channels a block, lost to the tile (PERF.md §6): too little
+            # work a block for its weights and ring rows
+            if k == 3 and stride == 1 and (tw < 64 or bn < min(64, cout_pad)):
+                continue
+            smem = ring_smem(cin, k, stride, tw, bn)
+            twin = (tw - 1) * stride + k
+            nv = -(-(twin + (v - 1 if k == 3 else 0)) // v)
+            loads = stride * -(-cin // 4) * nv  # 16-byte items of a step's new rows
+            # a warp per 32 x 32 tile; more threads where the loads need them
+            threads = max(32 * (tw // 32) * (bn // 32), _RING_MIN_THREADS,
+                          32 * -(-loads // (32 * _RING_MAX_ITEMS)) if vec else 0)
+            items = -(-loads // threads) if vec else 1
+            if threads > _RING_MAX_THREADS or smem > _RING_SMEM_MAX:
+                continue
+            # fewest output-channel tiles first (each re-reads the input), then
+            # the widest tile (its edge columns are read twice)
+            cands.append((-(-cout // bn), -tw, tw, bn, threads, smem, items))
+    if not cands:
+        return None
+    ntiles, _, tw, bn, threads, smem, items = min(cands)
+    resident = _SMS * max(1, min(_SM_SMEM // (smem + 1024), 2048 // threads,
+                                 65536 // (threads * _RING_REGS)))
+    per_row = b * -(-wo // tw) * ntiles
+    # strips: the fewest waves of resident blocks times the rows each block
+    # walks (its first window included); on the H100 one full wave of long
+    # strips beat four of short ones at the sites measured (PERF.md §6)
+    strips = min(range(1, ho + 1), key=lambda n: (
+        -(-per_row * n // resident) * (-(-ho // n) + _RING_WARM_ROWS), -n))
+    rs = max(-(-ho // strips), min(ho, _RING_MIN_ROWS))
+    return ConvPlan("ring", tw=tw, bn=bn, rs=rs, items=items, threads=threads)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_conv(shape: Sequence[int], cout: int, k: int, stride: int, dtype: torch.dtype,
+               aligned: bool = True) -> ConvPlan:
+    """The kernel's path for NCHW `shape` (a tuple) of `dtype` into `cout`
+    channels (`aligned`: x and the output start on 16 bytes): the ring where
+    its output rows are long enough and a block of it fits, else the tile,
+    with K split where its blocks alone are too few for the card. Cached: a
+    model's sites repeat on every UNet call."""
+    itemsize = dtype.itemsize
+    vec = aligned and shape[3] % (16 // itemsize) == 0
+    plan = _ring_plan(shape, cout, k, stride, itemsize, vec)
+    if plan is not None:
+        return plan
+    b, cin, h, w = shape
+    ho, wo = _out_size(h, k, stride), _out_size(w, k, stride)
+    tw = 64 if wo > 32 else 32 if wo > 16 else 16 if wo > 8 else 8
+    blocks = b * -(-wo // tw) * -(-ho // (64 // tw)) * -(-cout // 64)
+    chunks = -(-cin // _CHUNK)
+    split = 1
+    if blocks < _TILE_MIN_BLOCKS and chunks > 1:
+        per = -(-chunks // min(chunks, math.ceil(2 * _TILE_MIN_BLOCKS / blocks)))
+        split = -(-chunks // per)
+    return ConvPlan("tile", split=split)
 
 
 _DIVISORS: Dict[torch.device, torch.Tensor] = {}
@@ -161,13 +296,20 @@ def quant_conv(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, bias: torc
     ho = (h + 2 * padding - kernel_size) // stride + 1
     wo = (w + 2 * padding - kernel_size) // stride + 1
     out = torch.empty(b, cout, ho, wo, dtype=x.dtype, device=x.device)
+    plan = _plan_conv(x.shape, cout, kernel_size, stride, x.dtype,
+                      aligned=x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    acc32 = (torch.zeros(b, cout, ho, wo, dtype=torch.int32, device=x.device)
+             if plan.split > 1 else None)
     with torch.cuda.device(x.device):
         status = _build.library().ccdm_quant_conv(
             x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(), bias.data_ptr(), s_x.data_ptr(),
-            out.data_ptr(), _DTYPE_CODES[x.dtype], b, cin, h, w, cout, kernel_size, stride,
-            padding, cin_pad, torch.cuda.current_stream(x.device).cuda_stream)
+            out.data_ptr(), None if acc32 is None else acc32.data_ptr(),
+            _DTYPE_CODES[x.dtype], b, cin, h, w, cout, kernel_size, stride, padding, cin_pad,
+            _PATH_CODES[plan.path], *plan.args(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "quant_conv")
     launches += 1
+    path_launches[plan.path] += 1
     return out
 
 
@@ -252,18 +394,6 @@ def recording_absmax(net: nn.Module):
             m.recording, m.absmax = False, None
 
 
-@contextlib.contextmanager
-def _fp32_convolutions():
-    """cuDNN's fp32 convolutions in fp32, not TF32 (its default), and fp32
-    matrix products, for the duration."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-
-
 def calibrate_sampler(model, net: nn.Module, images: torch.Tensor, key: int = 0,
                       num_steps: int = 8, feature_fn=None, feature_net=None, *,
                       prior: Optional[torch.Tensor] = None,
@@ -286,7 +416,7 @@ def calibrate_sampler(model, net: nn.Module, images: torch.Tensor, key: int = 0,
     c = model.diffusion.num_classes
     ids = torch.arange(b, device=images.device)
     scales: Optional[Dict[str, torch.Tensor]] = None
-    with torch.inference_mode(), _fp32_convolutions():
+    with torch.inference_mode(), fp32_precision():
         fc = feature_fn(feature_net, images) if feature_fn is not None else None
         xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
               if prior is None else prior)

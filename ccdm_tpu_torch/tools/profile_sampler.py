@@ -54,7 +54,7 @@ PROFILE_STEPS = 10
 
 # kernel families of the profile, by a substring of the device kernel's name
 FAMILIES = [
-    ("quant_conv", ("quant_conv_kernel",)),
+    ("quant_conv", ("quant_conv_ring", "quant_conv_tile", "quant_conv_epilogue")),
     ("group_norm", ("gn_small", "gn_cluster", "gn_partial_stats", "gn_apply")),
     ("attention", ("attn_fwd",)),
     ("conv_layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),

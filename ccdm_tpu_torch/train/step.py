@@ -15,6 +15,9 @@ into its key). `train_loss` also takes injected `t` and `x_t`. The metrics
 stay on the device; the trainer reads them two steps later. Not ported, by
 decision: `make_multi_step` (several steps a launch).
 
+The forward and the backward run under `utils.precision.fp32_precision`:
+fp32 convolutions (the output heads) in fp32, not in PyTorch's default TF32.
+
 DINO conditioning, as the JAX step: a frozen encoder (`feature_fn`) maps
 the batch's images under `torch.no_grad()` (the JAX `stop_gradient`); a
 trainable one (`encoder_apply`) runs under autograd, and its gradients join
@@ -38,6 +41,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
 from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
+from ccdm_tpu_torch.utils.precision import fp32_precision
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -99,7 +103,9 @@ def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
         fork = contextlib.nullcontext()
         if dropout_on:
             fork = torch.random.fork_rng(devices=[device] if device.type == "cuda" else [])
-        with fork:
+        # forward and backward in fp32 where the model computes in fp32 (the
+        # output heads): TF32 there cost the LIDC gate its quality
+        with fork, fp32_precision():
             if dropout_on:
                 torch.manual_seed(s)
             fc = None

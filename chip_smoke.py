@@ -80,10 +80,25 @@ without printing its result:
    and that the validation wrote its qualitative grid. Prints the cold
    first step, the warm s/step and images/s of steps 11-30 (validation,
    grid and saves taken out), peak memory and the validation's seconds.
-12. train_reference: one fp32 train step (flagship widths, 32x32 input,
-   batch 2, injected t and x_t) on the card (kernels, TF32 off) against the
-   CPU (plain versions): loss within 1e-5 relative, every gradient within
-   1e-4 of its tensor's largest magnitude.
+12. train_reference: one train step on the card (kernels, TF32 off) against
+   the CPU (plain versions), injected t and x_t. First fp32 at flagship
+   widths, 32x32 input, batch 2: loss within 1e-5 relative, every gradient
+   within 1e-4 of its tensor's largest magnitude. Then at the LIDC gate's
+   training geometry: `DEMO_TRAIN_PARAMS` at 128x128, batch 2 of synthetic
+   lesions, from the masters phase 11 trained, so attention runs at T 256
+   and 64 and the GroupNorm backward takes its path-M sites (15 in bf16,
+   24 in fp32): fp32 under
+   the same rule, and the same step with TF32 left on (the step's
+   `fp32_precision` taken out), which must break it; then bf16 (the
+   gate's torso) against the CPU's bf16 run, the same rule per tensor
+   with bf16's limits: loss within 1e-4 relative, every gradient within
+   0.1 of its tensor's largest (bf16 roundings after sums in two orders
+   move a tensor's gradient by a few percent of its largest), the
+   analytically zero ones within 1e-5 of the tree's largest; the card's
+   fp32 step against the CPU's bf16 step is printed beside it (bf16's own
+   rounding). The steps go through `make_train_step` under PyTorch's
+   default TF32 setting, as the trainer runs: the step keeps its fp32
+   convolutions in fp32 itself.
 13. eval_lidc: `eval_lidc_uncertainty` at the flagship's full width (bf16,
    T = 250, evaluations 1/4/8/16, batch 2) with the weights phase 11
    saved, on 8 synthetic lesions that the phase writes as a PNG tree in the
@@ -147,11 +162,18 @@ without printing its result:
    batch 32 (the harness's 2 x 16) and 128 and of a Cityscapes call at
    batch 2 (the in_convs' K = 27 and 207, the stride-2 Downsamples, the 1x1
    skips, the DINO concat's 640 channels), bf16 with a static scale; fp32
-   and dynamic variants on the ragged and strided sites. Per site shape:
-   kernel, bf16 cuDNN conv (`float_conv_ms`: what the float path runs
-   there) and bound times (x, the codes and the output moved once; 2 M N K
-   int8 operations at 1,979 TOP/s), summed over a UNet call; the plain
-   version's time at six of them. Rows in `build/chip_smoke_quant_conv.json`.
+   and dynamic variants on the ragged and strided sites and on each path's
+   edge cases (the ring on ragged rows and stride 2, K split over blocks).
+   Per site shape: its path and plan, kernel, bf16 cuDNN conv
+   (`float_conv_ms`: what the float path runs there) and bound times (x,
+   the codes and the output moved once; 2 M N K int8 operations at 1,979
+   TOP/s), summed over a UNet call; the plain version's time at six of
+   them. Then the host's side of an int8 flagship UNet call at batch 32
+   (static scales): its host ms with the kernel's plans cached, as in a
+   run, and with the cache emptied first, the 81 sites' plans alone
+   uncached and cached, and the call's device ms. Rows in
+   `build/chip_smoke_quant_conv.json`; the kernel's time against an earlier
+   commit's is `tools/time_quant_conv.py`'s.
 22. quant_eval: `eval_lidc_uncertainty(EVAL_LIDC_FAST_PARAMS)` (int8 on
    calibrated static scales, encoder reuse 2, T = 250, batch 2) on phase
    13's 8 PNG images with phase 11's weights; `quantized_inference: True`
@@ -181,6 +203,7 @@ line of per-kernel results, and `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -483,7 +506,8 @@ def reset_counts() -> None:
     gn.launches_bwd = 0
     fa.launches = 0
     quant.launches = 0
-    for counts in (gn.path_launches, gn.path_launches_bwd, fa.path_launches):
+    for counts in (gn.path_launches, gn.path_launches_bwd, fa.path_launches,
+                   quant.path_launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -496,7 +520,8 @@ def read_counts():
     return ({"group_norm": gn.launches, "flash_attention": fa.launches,
              "group_norm_backward": gn.launches_bwd, "quant_conv": quant.launches},
             {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches),
-             "group_norm_backward": dict(gn.path_launches_bwd)})
+             "group_norm_backward": dict(gn.path_launches_bwd),
+             "quant_conv": dict(quant.path_launches)})
 
 
 def phase_slice(smi):
@@ -1062,6 +1087,7 @@ def phase_train(smi):
     cold = marks[1] - marks[0]
     check_round_trip("train", run.state, TrainingRun(dict(
         params, load_from=str(out / "run"), output_path=str(out / "restored"))).state)
+    masters = {name: p.detach().cpu().clone() for name, p in run.state.params.items()}
     batch = run.batch_size
     log("train", f"DEMO_TRAIN_PARAMS bf16, batch {batch}, {TRAIN_STEPS} steps ({smi}): cold "
         f"first step {cold:.2f} s, warm {warm * 1e3:.2f} ms/step = {batch / warm:.1f} images/s "
@@ -1071,12 +1097,14 @@ def phase_train(smi):
         f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}, "
         f"backward by path {paths['group_norm_backward']}; checkpoint round trip exact "
         f"(params, EMA, Adam, step {TRAIN_STEPS})")
-    return {"launches": launches, "path_launches": paths}
+    return {"launches": launches, "path_launches": paths}, masters
 
 
-def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
+def grad_errors(ref, grads, zero=None, key_rows: bool = True):
     """Card gradients `grads` against the CPU's `ref` (name -> tensor): the
-    worst max |diff| over the tensor's largest |ref|, which must be <= 1e-4.
+    worst max |diff| over the tensor's largest |ref|, as (err, name), and
+    the worst max |diff| of the analytically zero gradients over the tree's
+    largest |ref|.
 
     Gradients that are 0 in exact arithmetic are rounding noise on both
     devices, and a relative error means nothing there. They are what the
@@ -1085,14 +1113,14 @@ def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
     time-embedding projection, the last ResBlock's output biases in front
     of the head's norm), and the key rows of an attention's qkv bias (the
     softmax removes q.b_k; with `key_rows`, the UNet's packing of 32-channel
-    heads). A tensor whose largest CPU gradient is under 1e-5 of the tree's
-    largest counts as one; those and the key rows are held to 1e-6 of the
-    tree's largest gradient instead. Returns (worst, worst of the zeros,
-    the zero tensors' names)."""
+    heads). Unless `zero` names them, a tensor whose largest CPU gradient is
+    under 1e-5 of the tree's largest counts as one. Returns (worst, worst
+    of the zeros, the zero tensors' names)."""
     import torch
 
     top = max(float(g.abs().max()) for g in ref.values())
-    zero = {n for n, g in ref.items() if float(g.abs().max()) < 1e-5 * top}
+    if zero is None:
+        zero = {n for n, g in ref.items() if float(g.abs().max()) < 1e-5 * top}
     worst, worst_zero = (0.0, ""), 0.0
     for name, g in ref.items():
         diff = (grads[name] - g).abs()
@@ -1105,21 +1133,72 @@ def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
             diff, g = diff[~keys], g[~keys]
         e = float(diff.max()) / max(float(g.abs().max()), 1e-30)
         worst = max(worst, (e, name))
+    return worst, worst_zero, zero
+
+
+def grad_agreement(ref, grads, phase: str, key_rows: bool = True):
+    """`grad_errors` held to fp32's limits: every gradient within 1e-4 of
+    its tensor's largest, the analytically zero ones within 1e-6 of the
+    tree's largest gradient. Returns `grad_errors`' triple."""
+    worst, worst_zero, zero = grad_errors(ref, grads, key_rows=key_rows)
     if not (worst[0] <= 1e-4 and worst_zero <= 1e-6):
         raise AssertionError(f"{phase}: gradient err/max {worst}, analytically zero "
                              f"gradients {worst_zero:.3g} of the largest ({sorted(zero)})")
     return worst, worst_zero, zero
 
 
-def phase_train_reference():
-    """One fp32 train step on the card (kernels) against the CPU (plain
-    versions): flagship widths, batch 2 of 32x32, the same injected t and
-    x_t."""
+def step_grads(model, batch, t, xt, device):
+    """(loss, {name: fp32 CPU gradient}) of one `make_train_step` step of
+    `model` on `device`, with the injected t and x_t and unit class weights;
+    the state's update records the gradients instead of applying them."""
+    import torch
+
+    from ccdm_tpu_torch.train.optimizer import Optimizer
+    from ccdm_tpu_torch.train.state import create_train_state, master_params
+    from ccdm_tpu_torch.train.step import make_train_step
+
+    state = create_train_state(master_params(model.unet), Optimizer("Adam", lambda s: 0.0))
+    grads = {}
+
+    def record(g):
+        grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return 0.0
+
+    state.apply_gradients = record
+    metrics = make_train_step(model, torch.ones(2, device=device))(
+        state, model.unet, {k: v.to(device) for k, v in batch.items()}, 0, t=t.to(device),
+        xt=xt.to(device))
+    return float(metrics["loss"]), grads
+
+
+def lesion_batch(b: int, hw: int, seed: int):
+    """`b` synthetic training lesions at hw x hw and x_t drawn on the CPU
+    from q(x_t | x_0) at t spread over the schedule."""
+    import torch
+
+    from ccdm_tpu_torch.data.synthetic import synthetic_training_dataset
+
+    ds = synthetic_training_dataset(n=b, resolution=hw, seed=seed)
+    samples = [ds.get(i, np.random.default_rng((seed, i))) for i in range(b)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in ("image", "x0")}
+    t = torch.linspace(20, 230, b).round().long()
+    gen = torch.Generator().manual_seed(seed)
+    keep = torch.rand(batch["x0"].shape[:3], generator=gen) < 0.6
+    noise = torch.nn.functional.one_hot(
+        torch.randint(0, 2, batch["x0"].shape[:3], generator=gen), 2).float()
+    xt = torch.where(keep[..., None], batch["x0"], noise)
+    return batch, t, xt
+
+
+def phase_train_reference(masters):
+    """One train step on the card (kernels) against the CPU (plain versions),
+    the same injected t and x_t: fp32 at flagship widths on 32x32; then the
+    gate's training geometry (128x128) from phase 11's trained `masters`,
+    in fp32 and in bf16."""
     import torch
 
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
     from ccdm_tpu_torch.models.builder import build_model
-    from ccdm_tpu_torch.train.step import train_loss
 
     params = dict(DEMO_TRAIN_PARAMS, compute_dtype="float32")
     cpu = build_model(params, 2, 1, 128, device="cpu")
@@ -1133,15 +1212,8 @@ def phase_train_reference():
                  torch.randint(0, 2, (b, hw, hw), generator=gen), 2).float()}
     t = torch.tensor([3, 170])
     xt = torch.nn.functional.one_hot(torch.randint(0, 2, (b, hw, hw), generator=gen), 2).float()
-    cw = torch.ones(2)
-    results = []
-    for model, dev in ((cpu, "cpu"), (card, "cuda")):
-        loss, _ = train_loss(model, model.unet, {k: v.to(dev) for k, v in batch.items()}, None,
-                             cw.to(dev), t=t.to(dev), xt=xt.to(dev))
-        loss.backward()
-        results.append((float(loss.detach()), {n: p.grad.cpu()
-                                               for n, p in model.unet.named_parameters()}))
-    (ref_loss, ref), (loss, grads) = results
+    ref_loss, ref = step_grads(cpu, batch, t, xt, "cpu")
+    loss, grads = step_grads(card, batch, t, xt, "cuda")
     rel = abs(loss - ref_loss) / abs(ref_loss)
     if not rel <= 1e-5:
         raise AssertionError(f"train_reference: loss {loss} vs CPU {ref_loss} ({rel:.3g})")
@@ -1150,6 +1222,101 @@ def phase_train_reference():
         f"vs CPU: loss {loss:.6g} vs {ref_loss:.6g} ({rel:.2g} relative), worst gradient "
         f"err/max {worst[0]:.3g} ({worst[1]}), analytically zero gradients within "
         f"{worst_zero:.2g} of the largest ({len(zero)} tensors and the key rows)")
+
+    # the gate's training geometry, from a trained state, under PyTorch's
+    # default TF32 setting (cuDNN's fp32 convolutions in TF32), as the
+    # trainer runs: the step itself keeps its fp32 convolutions in fp32
+    import contextlib
+
+    from ccdm_tpu_torch.models.layers import GroupNorm32
+    from ccdm_tpu_torch.ops import flash_attention as fa
+    from ccdm_tpu_torch.ops import group_norm as gn
+    from ccdm_tpu_torch.train import step as train_step
+
+    b, hw = 2, 128
+    batch, t, xt = lesion_batch(b, hw, seed=11)
+    torch.backends.cudnn.allow_tf32 = True
+    fp32 = {}
+    for dtype in ("float32", "bfloat16"):
+        p = dict(DEMO_TRAIN_PARAMS, compute_dtype=dtype)
+        models = {dev: build_model(p, 2, 1, hw, device=dev) for dev in ("cpu", "cuda")}
+        with torch.no_grad():
+            for model in models.values():
+                for name, prm in model.unet.named_parameters():
+                    prm.copy_(masters[name])
+        ref_loss, ref = step_grads(models["cpu"], batch, t, xt, "cpu")
+        m_paths = {}
+
+        def on_norm(mod, args, kwargs):
+            x = args[0]
+            path = gn._plan_backward(x.shape, x.dtype, mod.groups, x.data_ptr() % 16 == 0).path
+            m_paths[path] = m_paths.get(path, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(on_norm, with_kwargs=True)
+                 for m in models["cuda"].unet.modules() if isinstance(m, GroupNorm32)]
+        before = (fa.launches, gn.launches_bwd)
+        loss, grads = step_grads(models["cuda"], batch, t, xt, "cuda")
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        want_m = {"float32": 24, "bfloat16": 15}[dtype]  # slabs of 16 KB and up
+        if (fa.launches - before[0], gn.launches_bwd - before[1]) != (11, 66) or \
+                m_paths.get("M") != want_m:
+            raise AssertionError(f"train_reference {dtype}: attention launches "
+                                 f"{fa.launches - before[0]}, backward launches "
+                                 f"{gn.launches_bwd - before[1]}, backward paths {m_paths}: "
+                                 f"not 11, 66 and {want_m} on path M")
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        if dtype == "float32":
+            if not rel <= 1e-5:
+                raise AssertionError(f"train_reference 128x128 fp32: loss {loss} vs CPU "
+                                     f"{ref_loss} ({rel:.3g})")
+            worst, worst_zero, zero = grad_agreement(ref, grads, "train_reference 128x128 fp32")
+            # the control: the same step with the process's TF32 left on (the
+            # step's own fp32_precision taken out), which the rule must see
+            saved = train_step.fp32_precision
+            train_step.fp32_precision = contextlib.nullcontext
+            try:
+                tf32 = grad_errors(ref, step_grads(models["cuda"], batch, t, xt, "cuda")[1],
+                                   zero)[0]
+            finally:
+                train_step.fp32_precision = saved
+            if not tf32[0] > 1e-4:
+                raise AssertionError(f"train_reference 128x128 fp32: the step with TF32 left on "
+                                     f"reads {tf32}, inside the 1e-4 limit: the rule cannot see "
+                                     f"TF32")
+            fp32 = {"ref": ref, "grads": grads, "zero": zero}
+            detail = (f"worst gradient err/max {worst[0]:.3g} ({worst[1]}), analytically zero "
+                      f"gradients within {worst_zero:.2g} of the largest ({len(zero)} tensors "
+                      f"and the key rows); control, the step with TF32 left on: {tf32[0]:.3g} "
+                      f"({tf32[1]})")
+        else:
+            # bf16: the fp32 rule per tensor, with bf16's limits. The two
+            # devices round activations to bf16 after sums in different
+            # orders, and a tensor's gradient moves by a few percent of its
+            # largest (PERF.md §6): every tensor within 0.1 of its largest
+            # (a lost quarter of a fold reads 0.25), the analytically zero
+            # ones (fp32's list) within 1e-5 of the tree's largest
+            worst, worst_zero, _ = grad_errors(ref, grads, fp32["zero"])
+            gap = grad_errors(ref, fp32["grads"], fp32["zero"])[0]
+            if not (rel <= 1e-4 and worst[0] <= 0.1 and worst_zero <= 1e-5):
+                raise AssertionError(f"train_reference 128x128 bf16: loss {loss} vs CPU "
+                                     f"{ref_loss} ({rel:.3g}), worst gradient err/max {worst}, "
+                                     f"analytically zero gradients {worst_zero:.3g} of the "
+                                     f"largest")
+            total = float(torch.linalg.vector_norm(torch.stack([
+                torch.linalg.vector_norm(grads[n] - g) for n, g in ref.items()]))) / float(
+                torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g)
+                                                      for g in ref.values()])))
+            detail = (f"worst gradient err/max {worst[0]:.3g} ({worst[1]}), analytically zero "
+                      f"gradients within {worst_zero:.2g} of the largest, the whole tree's err "
+                      f"{total:.3g} of its norm; bf16's own rounding, the card's fp32 step "
+                      f"against this CPU bf16 step: {gap[0]:.3g} ({gap[1]})")
+        log("train_reference", f"{dtype} train step at the gate's geometry (DEMO_TRAIN_PARAMS, "
+            f"batch {b} of {hw}x{hw}, phase 11's masters, attention at T 256 and 64, backward "
+            f"paths {m_paths}, PyTorch's default TF32 setting), card vs CPU: loss {loss:.7g} vs "
+            f"{ref_loss:.7g} ({rel:.2g} relative), {detail}")
+    torch.backends.cudnn.allow_tf32 = False  # phase 1's setting again
 
 
 EVAL_DIR = Path("build/chip_smoke_eval")
@@ -1742,9 +1909,10 @@ def quant_case(gen, shape, k: int, stride: int, cout: int, dtype, static: bool,
         raise AssertionError(f"quant_conv {tuple(shape)} k{k} s{stride} -> {cout} {dtype} "
                              f"{'static' if static else 'dynamic'}: kernel != plain (max err "
                              f"{err:.3g}) or two calls differ")
+    plan = quant._plan_conv(x.shape, cout, k, stride, dtype)
     row = {"shape": list(shape), "kernel": k, "stride": stride, "cout": cout,
            "dtype": str(dtype)[6:], "scale": "static" if static else "dynamic",
-           "max_abs_err": err}
+           "max_abs_err": err, "path": plan.path, "plan": list(plan.args())}
     if timed:
         wf, bf = weight.to(dtype), bias.to(dtype)
         bound, by = quant_bound(x, w_q, out, k, cout)
@@ -1757,12 +1925,61 @@ def quant_case(gen, shape, k: int, stride: int, cout: int, dtype, static: bool,
     return row
 
 
+def quant_host_ms(model, sites, batch: int = 32):
+    """Host ms of one int8 UNet call of the flagship `model` at `batch` on
+    static scales (the launches queued, not waited for): medians of 5 with
+    the kernel's plans cached and with the plan cache emptied before each
+    call; the plans of the call's `sites` alone, uncached and cached; and
+    the call's device ms (CUDA events)."""
+    import torch
+
+    from ccdm_tpu_torch.ops import quant
+
+    table = {name: torch.tensor(3.0, device="cuda") for name, _ in quant.quant_sites(model.unet)}
+    inputs = (torch.zeros(batch, 128, 128, 2, device="cuda"),
+              torch.zeros(batch, 128, 128, 1, device="cuda"), torch.full((batch,), 5, device="cuda"))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def call(cold: bool):
+        if cold:
+            quant._plan_conv.cache_clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), quant.static_scales(model.unet, table):
+            start.record()
+            model.unet(*inputs)
+            end.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return host, start.elapsed_time(end)
+
+    call(False)
+    warm = [call(False) for _ in range(5)]
+    cold = [call(True)[0] for _ in range(5)]
+    plans = [((batch, *chw), cout, k, stride, torch.bfloat16)
+             for (chw, k, stride, cout), count in sites.items() for _ in range(count)]
+
+    def plan_ms(fn):
+        t0 = time.perf_counter()
+        for args in plans:
+            fn(*args)
+        return (time.perf_counter() - t0) * 1e3
+
+    return {"host_ms_cached": statistics.median(h for h, _ in warm),
+            "host_ms_uncached": statistics.median(cold),
+            "plans_ms_uncached": statistics.median(plan_ms(quant._plan_conv.__wrapped__)
+                                                   for _ in range(5)),
+            "plans_ms_cached": statistics.median(plan_ms(quant._plan_conv) for _ in range(5)),
+            "device_ms": statistics.median(d for _, d in warm)}
+
+
 def phase_quant_conv(gen):
     """K3 against its plain version at every int8 site shape of the flagship
     (batch 32 and 128) and of Cityscapes (batch 2), bf16 with a static
     scale as the fast eval runs it; dtype and scale variants on the ragged
-    and strided sites; times beside the bound and the float path's cuDNN
-    conv."""
+    and strided sites and on each path's edge cases; times beside the bound
+    and the float path's cuDNN conv; the plan's and a UNet call's host
+    time."""
     import torch
 
     from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, FLAGSHIP_PARAMS
@@ -1778,6 +1995,13 @@ def phase_quant_conv(gen):
                                  torch.zeros(1, *CS_HW, 3, device="cuda"),
                                  torch.full((1,), 5, device="cuda"),
                                  torch.zeros(1, CS_HW[0] // 8, CS_HW[1] // 8, 384, device="cuda"))
+    host = quant_host_ms(flag, flag_sites)
+    log("quant_conv", f"host side of an int8 flagship UNet call at batch 32 (static scales): "
+        f"{host['host_ms_cached']:.3f} ms of host time with the kernel's plans cached, "
+        f"{host['host_ms_uncached']:.3f} ms with the plan cache emptied first; the "
+        f"{sum(flag_sites.values())} sites' plans alone {host['plans_ms_uncached']:.3f} ms "
+        f"uncached, {host['plans_ms_cached']:.4f} ms cached; the call's device time "
+        f"{host['device_ms']:.3f} ms")
     del flag, cs
     if sum(flag_sites.values()) != 81 or sum(cs_sites.values()) != 96:
         raise AssertionError(f"int8 sites a UNet call: flagship {sum(flag_sites.values())}, "
@@ -1788,6 +2012,7 @@ def phase_quant_conv(gen):
                                  ("cityscapes", cs_sites, (CS_IMAGES,))):
         for batch in batches:
             total = {"ms": 0.0, "float_conv_ms": 0.0, "bound_ms": 0.0}
+            paths = collections.Counter()
             for (chw, k, stride, cout), count in sorted(sites.items()):
                 headline = (name, batch, chw[0], chw[1], k, stride) in (
                     ("flagship", 128, 32, 128, 3, 1), ("flagship", 32, 32, 128, 3, 1),
@@ -1796,6 +2021,7 @@ def phase_quant_conv(gen):
                 row = quant_case(gen, (batch, *chw), k, stride, cout, bf16, True, timed=True,
                                  plain_timed=headline)
                 row.update(config=name, sites=count)
+                paths[row["path"]] += count
                 for key in total:
                     total[key] += count * row[key]
                 worst = max(worst, row["max_abs_err"])
@@ -1803,15 +2029,19 @@ def phase_quant_conv(gen):
                 torch.cuda.empty_cache()
             per_call[f"{name}_b{batch}"] = total
             log("quant_conv", f"{name} batch {batch}: {sum(sites.values())} int8 sites "
-                f"({len(sites)} shapes) a UNet call, each bit-equal to the plain version; sum "
-                f"over a call: kernel {total['ms']:.3f} ms, bf16 cuDNN conv "
-                f"{total['float_conv_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
+                f"({len(sites)} shapes; by path {dict(paths)}) a UNet call, each bit-equal to "
+                f"the plain version; sum over a call: kernel {total['ms']:.3f} ms, bf16 cuDNN "
+                f"conv {total['float_conv_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms "
                 f"({total['bound_ms'] / total['ms']:.1%} of bound)")
     # dtype and scale variants on the ragged and strided sites
     variants = [((32, 32, 128, 128), 3, 1, 32), ((32, 3, 128, 128), 3, 1, 32),
                 ((32, 32, 128, 128), 3, 2, 32), ((32, 64, 64, 64), 1, 1, 32),
                 ((2, 23, 256, 512), 3, 1, 128), ((2, 640, 32, 64), 3, 1, 256),
-                ((3, 40, 13, 21), 3, 1, 20)]
+                ((3, 40, 13, 21), 3, 1, 20),
+                # the ring at ragged H and W (element loads), stride 2 on odd sizes, and
+                # split K at the deep sites
+                ((2, 32, 37, 77), 3, 1, 48), ((2, 32, 33, 67), 3, 2, 40),
+                ((2, 512, 8, 16), 3, 1, 512), ((2, 1024, 4, 8), 1, 1, 512)]
     for shape, k, stride, cout in variants:
         for dtype, static in ((f32, True), (f32, False), (bf16, False)):
             worst = max(worst, quant_case(gen, shape, k, stride, cout, dtype, static)["max_abs_err"])
@@ -1823,7 +2053,8 @@ def phase_quant_conv(gen):
                 f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}), {row['share']:.1%} of bound")
     log("quant_conv", f"{len(rows)} timed site cases and {3 * len(variants)} fp32/dynamic "
         f"variants (the flagship in_conv K = 27, the Cityscapes in_conv K = 207, stride 2, 1x1, "
-        f"the DINO concat's 640 channels, ragged 13x21 -> 20): all bit-equal, two calls equal; "
+        f"the DINO concat's 640 channels, ragged 13x21 -> 20, the ring on ragged 37x77 and "
+        f"stride 2 on 33x67, K split 16 and 32 ways): all bit-equal, two calls equal; "
         f"per-site rows in build/chip_smoke_quant_conv.json")
     Path("build").mkdir(exist_ok=True)
     Path("build/chip_smoke_quant_conv.json").write_text(json.dumps(
@@ -1834,7 +2065,8 @@ def phase_quant_conv(gen):
                    and r["shape"] == [2, 128, 256, 512] and r["kernel"] == 3)
     keys = ("ms", "plain_ms", "float_conv_ms", "bound_ms", "bound_by", "library_ms")
     return (worst, {k: head[k] for k in keys}, {k: cs_head[k] for k in keys},
-            {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in per_call.items()})
+            {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in per_call.items()},
+            {k: round(v, 4) for k, v in host.items()})
 
 
 def unet_sites(unet):
@@ -2114,8 +2346,8 @@ def main() -> None:
     phase_cityscapes_reference()
     gnb_err, gnb_row, gnb_train_row = phase_group_norm_backward(gen)
     phase_attention_backward(gen)
-    runs["train"] = phase_train(smi)
-    phase_train_reference()
+    runs["train"], trained = phase_train(smi)
+    phase_train_reference(trained)
     runs["eval_lidc"], harness_rate = phase_eval_lidc(smi, bare_rate)
     phase_eval_invariance()
     runs["sampling_speed"] = phase_sampling_speed(smi)
@@ -2124,7 +2356,7 @@ def main() -> None:
     runs["cityscapes_train"] = phase_cityscapes_train(smi)
     runs.update(phase_cityscapes_train_dino(smi))
     phase_cityscapes_train_reference()
-    q_err, q_row, q_cs_row, q_per_call = phase_quant_conv(gen)
+    q_err, q_row, q_cs_row, q_per_call, q_host = phase_quant_conv(gen)
     quant_runs, _ = phase_quant_eval(smi, harness_rate)
     runs.update(quant_runs)
     phase_quant_reference()
@@ -2161,7 +2393,8 @@ def main() -> None:
          "replaces": "ccdm_tpu/ops/quant.py:115",
          "launches": sum(r["launches"]["quant_conv"] for r in runs.values()),
          "max_abs_err": q_err, **q_row, "cityscapes_case": q_cs_row,
-         "per_unet_call": q_per_call, "runs": by_run("quant_conv")},
+         "per_unet_call": q_per_call, "host_per_unet_call": q_host,
+         "runs": by_run("quant_conv")},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

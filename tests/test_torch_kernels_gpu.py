@@ -334,10 +334,21 @@ def test_unet_forward_on_card_matches_cpu(cuda):
     (2, 32, 13, 17, 48, 3, 2),      # stride 2 on odd H and W
     (2, 64, 7, 5, 64, 3, 1),        # W < 8: an 8 x 8 tile, mostly masked
     (1, 32, 16, 16, 100, 1, 1),     # Cout past one 64-channel block, ragged
+    # the ring path (output rows of 32 pixels and up)
+    (2, 32, 37, 77, 48, 3, 1),      # ragged H and W: element loads, a second column tile
+    (2, 32, 40, 64, 40, 3, 1),      # 16-byte loads, ragged Cout, strips of ragged length
+    (1, 3, 96, 160, 32, 3, 1),      # K = 27 on 128-pixel tiles, the second one ragged
+    (2, 128, 32, 256, 128, 3, 1),   # 128 output channels a block (the Cityscapes level 0)
+    (2, 64, 64, 128, 32, 3, 2),     # stride 2: even and odd columns apart in the ring
+    (2, 32, 33, 67, 40, 3, 2),      # stride 2 on odd H and W, element loads
+    (2, 256, 40, 64, 64, 1, 1),     # a 1x1 on the ring
+    # the tile path with K split over blocks (int32 atomics, then the epilogue)
+    (2, 512, 8, 16, 512, 3, 1),     # the deep Cityscapes site: 16 ranges of 32 channels
+    (2, 1024, 4, 8, 512, 1, 1),     # a deep 1x1
 ])
 def test_quant_conv_kernel_equals_plain(cuda, dtype, static, b, cin, h, w, cout, k, stride):
     """Exact integer products: the kernel equals its plain version bit for
-    bit, and a second call the first."""
+    bit, and a second call the first; the launch goes down the planned path."""
     x = (torch.randn(b, cin, h, w, generator=cuda, device="cuda") * 2).to(dtype)
     weight = torch.randn(cout, cin, k, k, generator=cuda, device="cuda") * 0.1
     bias = torch.randn(cout, generator=cuda, device="cuda") * 0.1
@@ -345,14 +356,35 @@ def test_quant_conv_kernel_equals_plain(cuda, dtype, static, b, cin, h, w, cout,
     # a calibrated scale below the input's absmax saturates codes at +-127
     s_x = (quant.static_act_scale(x.abs().amax() * 0.7) if static
            else quant.dynamic_act_scale(x))
-    before = quant.launches
+    before, paths = quant.launches, dict(quant.path_launches)
     out = quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
     torch.cuda.synchronize()
     assert quant.launches == before + 1 and out.dtype == dtype
+    path = quant._plan_conv(x.shape, cout, k, stride, dtype).path
+    assert quant.path_launches[path] == paths[path] + 1
     ref = quant.quant_conv_plain(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
     assert out.shape == ref.shape
     assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
     assert torch.equal(quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2), out)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (1, 1)])
+def test_quant_conv_ring_on_a_view_off_16_bytes(cuda, dtype, k, stride):
+    """x 2 or 4 bytes past a 16-byte boundary: the ring loads elements, and
+    still equals the plain version bit for bit."""
+    b, cin, h, w, cout = 2, 32, 36, 64, 32
+    storage = (torch.randn(b * cin * h * w + 1, generator=cuda, device="cuda") * 2).to(dtype)
+    x = storage[1:].view(b, cin, h, w)
+    assert x.data_ptr() % 16 and quant._plan_conv(x.shape, cout, k, stride, dtype,
+                                                  aligned=False).path == "ring"
+    w_q, s_w = quant.weight_codes(torch.randn(cout, cin, k, k, generator=cuda,
+                                              device="cuda") * 0.1)
+    bias = torch.randn(cout, generator=cuda, device="cuda") * 0.1
+    s_x = quant.dynamic_act_scale(x)
+    out = quant.quant_conv(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
+    ref = quant.quant_conv_plain(x, w_q, s_w, bias, s_x, k, stride, (k - 1) // 2)
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
 
 
 def test_scales_and_weight_codes_on_the_card_equal_the_cpus(cuda):
@@ -384,3 +416,60 @@ def test_quant_conv_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         quant.quant_conv(x, w_q, s_w, bias, s_x.cpu(), 3, 1, 1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         quant.quant_conv(x.half(), w_q, s_w, bias, s_x, 3, 1, 1)
+
+
+def test_an_fp32_train_step_on_the_card_stays_fp32_under_pytorchs_tf32_default(cuda):
+    """PyTorch runs cuDNN's fp32 convolutions in TF32 by default, and the
+    LIDC gate's model trained that way lost 0.086 GED_16 (PERF.md). The
+    train step turns TF32 off for its duration, so under the default an
+    fp32 step's gradients on the card equal the CPU's within 1e-4 of each
+    tensor's largest (TF32 in the output head's convolution moves them by
+    ~1e-3); tensors whose gradient is rounding noise (under 1e-5 of the
+    tree's largest) are held to 1e-6 of it."""
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.train.optimizer import Optimizer
+    from ccdm_tpu_torch.train.state import create_train_state, master_params
+    from ccdm_tpu_torch.train.step import make_train_step
+
+    params = dict(DEMO_TRAIN_PARAMS, compute_dtype="float32")
+    cpu = build_model(params, 2, 1, 128, device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    with torch.no_grad():
+        for p in cpu.unet.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    card = build_model(params, 2, 1, 128)
+    card.unet.load_state_dict(cpu.unet.state_dict())
+    b, hw = 2, 32
+    batch = {"image": torch.randn(b, hw, hw, 1, generator=gen),
+             "x0": torch.nn.functional.one_hot(torch.randint(0, 2, (b, hw, hw), generator=gen),
+                                               2).float()}
+    t = torch.tensor([3, 170])
+    xt = torch.nn.functional.one_hot(torch.randint(0, 2, (b, hw, hw), generator=gen), 2).float()
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as the trainer runs
+    results = []
+    for model, dev in ((cpu, "cpu"), (card, "cuda")):
+        state = create_train_state(master_params(model.unet), Optimizer("Adam", lambda s: 0.0))
+        grads = {}
+        state.apply_gradients = lambda g, grads=grads: grads.update(
+            {k: v.float().cpu() for k, v in g.items()}) or 0.0
+        m = make_train_step(model, torch.ones(2, device=dev))(
+            state, model.unet, {k: v.to(dev) for k, v in batch.items()}, 0, t=t.to(dev),
+            xt=xt.to(dev))
+        results.append((float(m["loss"]), grads))
+    assert torch.backends.cudnn.allow_tf32  # restored after the step
+    (ref_loss, ref), (loss, grads) = results
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    top = max(float(g.abs().max()) for g in ref.values())
+    for name, g in ref.items():
+        diff = (grads[name] - g).abs()
+        if name.endswith("qkv.bias"):  # the key rows' gradients are rounding noise
+            keys = (torch.arange(g.numel()) // 32) % 3 == 1
+            assert float(diff[keys].max()) <= 1e-6 * top, name
+            diff, g = diff[~keys], g[~keys]
+        err, peak = float(diff.max()), float(g.abs().max())
+        if peak < 1e-5 * top:
+            assert err <= 1e-6 * top, name
+        else:
+            assert err <= 1e-4 * peak, (name, err / peak)

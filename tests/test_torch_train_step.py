@@ -195,3 +195,76 @@ def test_class_weight_masking(models):
         np.testing.assert_allclose(float(ours), float(ref), rtol=1e-5)
         losses[name] = float(ours)
     assert losses["masked"] < losses["full"]
+
+
+def test_the_step_and_the_sampler_compute_fp32_convolutions_in_fp32(models):
+    """PyTorch lets cuDNN run fp32 convolutions in TF32 by default. Trained
+    that way on the card, the LIDC gate's model lost 0.086 GED_16 and 0.12
+    HM-IoU_16 (PERF.md). The train step (forward and backward) and the
+    sampler turn TF32 off for fp32 convolutions and matrix products while
+    they run, and restore the caller's settings: every conv of the UNet,
+    forward and backward, sees both flags off."""
+    jmodel, jparams, pmodel = models
+    net = copy.deepcopy(pmodel.unet)
+    seen = []
+
+    def record(*_):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+
+    convs = [m for m in net.modules() if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d))]
+    hooks = [h for m in convs for h in (m.register_forward_pre_hook(record),
+                                        m.register_full_backward_hook(record))]
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tx, schedule = build_optimizer(PARAMS, steps_per_epoch=4)
+        state = create_train_state(master_params(net), tx, polyak_alpha=0.9)
+        step = make_train_step(pmodel, torch.ones(C), schedule)
+        step(state, net, _torch_batch(_batch(7)), seed=3)
+        assert len(seen) == 2 * len(convs) and not any(any(s) for s in seen), seen[:4]
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == \
+            (True, True)
+        seen.clear()
+        from ccdm_tpu_torch.diffusion import random
+
+        with torch.no_grad():
+            pmodel.sample(net, torch.from_numpy(_batch(8)["x0"][:1]),
+                          torch.from_numpy(_batch(8)["image"][:1]), num_steps=2,
+                          element_keys=random.element_keys(0, torch.arange(1), random.CHAIN))
+        assert seen and not any(any(s) for s in seen)
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        for h in hooks:
+            h.remove()
+
+
+def test_the_init_draws_flax_lecun_normal():
+    """The port's own init draws what the JAX package's flax modules draw:
+    lecun normal, a normal truncated at 2 sigma with variance 1/fan_in (no
+    weight past 2 / (0.8796 sqrt(fan_in))), not an untruncated N(0,
+    1/fan_in). Held on the flagship's widths against flax's initializer."""
+    from flax import linen as nn
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+
+    model = build_model(dict(DEMO_TRAIN_PARAMS, compute_dtype="float32"), 2, 1, 128,
+                        device="cpu", generator=torch.Generator().manual_seed(0))
+    flax_draw = np.asarray(nn.initializers.lecun_normal()(jax.random.PRNGKey(0),
+                                                         (3, 3, 64, 64)))
+    flax_scaled = flax_draw.ravel() * np.sqrt(576)
+    checked = 0
+    for name, p in model.unet.named_parameters():
+        if p.dim() < 2 or not p.any():
+            continue
+        fan_in = p[0].numel()
+        scaled = p.detach().numpy().ravel() * np.sqrt(fan_in)
+        assert np.abs(scaled).max() <= 2 / 0.87962566103423978 + 1e-5, name
+        if scaled.size >= 36864:
+            assert abs(scaled.std() - 1) < 0.03, (name, scaled.std())
+            # the same distribution as flax's: quantiles within sampling noise
+            q = np.linspace(0.05, 0.95, 7)
+            np.testing.assert_allclose(np.quantile(scaled, q), np.quantile(flax_scaled, q),
+                                       atol=0.06)
+            checked += 1
+    assert checked >= 10
