@@ -15,8 +15,13 @@
 
 `quantized_inference: static` calibrates the int8 activation scales on the
 first two validation images (each drawn with `np.random.default_rng(i)`, as
-the JAX evaluator draws them) after the weights load. Single process;
-meshes are not ported.
+the JAX evaluator draws them) after the weights load.
+
+In a process group (`parallel/mesh.py`) each rank predicts its strided
+share of the images and dumps their PNGs, named by global index; one
+float64 allgather sums the confusion matrices (and is the barrier after
+which every PNG is written), and rank 0 runs the official scoring over all
+of them. The output path must be one that every rank writes.
 """
 
 from __future__ import annotations
@@ -37,11 +42,11 @@ from ccdm_tpu_torch.eval.lidc_uncertainty import (
     build_eval_feature_fn,
     load_eval_params,
     make_prob_sampler,
-    pad_chunk,
 )
 from ccdm_tpu_torch.eval.metrics import ConfusionMatrix
 from ccdm_tpu_torch.models.builder import build_model
 from ccdm_tpu_torch.models.dino import resize_bilinear
+from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.utils.png import write_png
 
 LOGGER = logging.getLogger(__name__)
@@ -143,7 +148,8 @@ class CityscapesEvaluator:
         `dataset` (all by default) in batches of `batch_size`, the tail
         padded with repeats of its last image. Returns `mIoU` and `IoU` of
         the train-id confusion matrix, the image count, the official scores
-        of the dumped PNGs, and the host seconds of each stage."""
+        of the dumped PNGs (None on ranks other than 0), and this rank's
+        host seconds of each stage."""
         n = len(dataset)
         if max_images:
             n = min(n, max_images)
@@ -171,8 +177,9 @@ class CityscapesEvaluator:
             seconds[stage] += time.perf_counter() - t0
             return time.perf_counter()
 
-        for start in range(0, n, batch_size):
-            idx, real = pad_chunk(list(range(start, min(start + batch_size, n))), batch_size)
+        mine = mesh.host_slice(n)
+        for start in range(0, len(mine), batch_size):
+            idx, real = mesh.pad_chunk(mine[start:start + batch_size], batch_size)
             t0 = time.perf_counter()
             samples = [dataset.get(i, rng) for i in idx]
             images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(device)
@@ -196,20 +203,32 @@ class CityscapesEvaluator:
                 self._dump_pngs(idx[b], pred[b].astype(np.int64), labels[b].astype(np.int64))
                 t0 = tick("dumps", t0)
                 img_cnt += 1
-            LOGGER.info("evaluated %d/%d images, running mIoU=%.4f", img_cnt, n, self.cm.miou())
+            LOGGER.info("evaluated %d/%d images, running mIoU=%.4f", img_cnt, len(mine),
+                        self.cm.miou())
 
-        results = {"mIoU": self.cm.miou(), "IoU": self.cm.iou().tolist(), "images": img_cnt}
-        # the official re-scoring of the saved label-id PNGs
-        t0 = time.perf_counter()
-        official = score_img_lists(
-            self.pred_files, self.gt_files,
-            export_file=os.path.join(self.output_path, "resultPixelLevelSemanticLabeling.json"),
-            inst_list=inst_files)
-        tick("scoring", t0)
-        results["official"] = official
-        results["seconds"] = seconds
-        LOGGER.info("mIoU (train-id CM): %.4f | official class mIoU: %.4f",
-                    results["mIoU"], official["averageScoreClasses"])
+        if mesh.process_count() > 1:
+            # the gather is also the barrier: every rank's PNGs are written
+            # before rank 0 scores them; their names follow the global index
+            self.cm.matrix = mesh.allgather_f64(self.cm.matrix).sum(axis=0).reshape(
+                self.cm.matrix.shape).astype(self.cm.matrix.dtype)
+            img_cnt = n
+            self.pred_files = [os.path.join(self.output_path, "submit",
+                                            f"{i:06d}_pred_labelIds.png") for i in range(n)]
+            self.gt_files = [os.path.join(self.output_path, "gt", f"{i:06d}_gt_labelIds.png")
+                             for i in range(n)]
+        results = {"mIoU": self.cm.miou(), "IoU": self.cm.iou().tolist(), "images": img_cnt,
+                   "official": None, "seconds": seconds}
+        if mesh.process_index() == 0:
+            # the official re-scoring of the saved label-id PNGs
+            t0 = time.perf_counter()
+            results["official"] = score_img_lists(
+                self.pred_files, self.gt_files,
+                export_file=os.path.join(self.output_path,
+                                         "resultPixelLevelSemanticLabeling.json"),
+                inst_list=inst_files)
+            tick("scoring", t0)
+            LOGGER.info("mIoU (train-id CM): %.4f | official class mIoU: %.4f",
+                        results["mIoU"], results["official"]["averageScoreClasses"])
         return results
 
 

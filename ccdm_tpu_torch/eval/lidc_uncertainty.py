@@ -10,9 +10,10 @@
   samples in one batched sampler call; GED, sample and expert diversity
   and HM-IoU at every sample count; the confusion matrix of the mean
   log-probability prediction against every non-empty expert mask; the
-  steady-state samples/s; the results JSON in `evaluation_path`.
-  Single-process: the JAX version's host slicing and allgather have no
-  counterpart yet.
+  steady-state samples/s; the results JSON in `evaluation_path`. In a
+  process group each rank scores its strided share of the test images and
+  one float64 allgather combines the partial sums (`parallel/mesh.py`): the
+  results do not depend on the number of ranks; rank 0 writes the JSON.
 - `load_eval_params`, the EMA weights of a checkpoint (`load_from`), and
   `build_eval_feature_fn`, the DINO conditioning of an eval config.
 
@@ -41,6 +42,8 @@ from ccdm_tpu_torch.diffusion.sampling import (
     sample_prior_per_key,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.parallel import mesh
+from ccdm_tpu_torch.parallel.mesh import pad_chunk  # noqa: F401  (re-exported)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -100,14 +103,6 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
         return out.reshape(b, num_samples, h, w, c)
 
     return run
-
-
-def pad_chunk(chunk: List[int], batch_size: int):
-    """Pad a tail chunk of global indices to `batch_size` by repeating its
-    last one: `(indices, real)`; only the first `real` results count. The
-    repeats draw the last image's noise again, so nothing real changes."""
-    real = len(chunk)
-    return chunk + [chunk[-1]] * (batch_size - real), real
 
 
 def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.Module:
@@ -178,7 +173,9 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     sample count s, `samples_per_sec` (steady state: the first batch is
     left out when there is a second, and padded tail images are not
     counted), and the host seconds of generation, data, metrics and the
-    static scales' calibration.
+    static scales' calibration (in a process group: the slowest rank's;
+    the rate is every rank's steady samples over the slowest rank's
+    steady seconds).
 
     The model builds on `device` (default: the CUDA card) and samples with
     the EMA weights of `load_from`."""
@@ -242,8 +239,9 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     batch_real: List[int] = []
     data_seconds = metrics_seconds = 0.0
 
-    for start in range(0, n, batch_size):
-        idx, real = pad_chunk(list(range(start, min(start + batch_size, n))), batch_size)
+    mine = mesh.host_slice(n)
+    for start in range(0, len(mine), batch_size):
+        idx, real = mesh.pad_chunk(mine[start:start + batch_size], batch_size)
         t0 = time.perf_counter()
         samples = [dataset.get(i) for i in idx]
         images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(device)
@@ -282,8 +280,6 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
         count += real
         metrics_seconds += time.perf_counter() - t0
 
-    if count == 0:
-        raise ValueError(f"empty test dataset ({n} images)")
     # steady state: the first batch pays the warm-up, so it is left out
     # whenever a second exists; only real samples count
     steady = list(zip(batch_seconds, batch_real))
@@ -291,6 +287,25 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
         steady = steady[1:]
     steady_samples = sum(r for _, r in steady) * max_samples
     steady_seconds = sum(s for s, _ in steady)
+    generation_seconds = sum(batch_seconds)
+    if mesh.process_count() > 1:
+        # one allgather: counts and sums combine by +, the wall clocks by max
+        # (the ranks ran side by side)
+        e = len(evaluations)
+        parts = mesh.allgather_f64(np.concatenate([
+            geds, div_samples, div_experts, hm_ious, cm.matrix.reshape(-1),
+            [count, nonzero_total, steady_samples, steady_seconds, generation_seconds,
+             data_seconds, metrics_seconds, calibration_seconds]]))
+        summed, slowest = parts.sum(axis=0), parts.max(axis=0)
+        geds, div_samples = summed[:e], summed[e:2 * e]
+        div_experts, hm_ious = summed[2 * e:3 * e], summed[3 * e:4 * e]
+        cm.matrix = summed[4 * e:4 * e + num_classes ** 2].reshape(
+            cm.matrix.shape).astype(cm.matrix.dtype)
+        count, nonzero_total, steady_samples = (int(v) for v in summed[-8:-5])
+        (steady_seconds, generation_seconds, data_seconds, metrics_seconds,
+         calibration_seconds) = slowest[-5:].tolist()
+    if count == 0:
+        raise ValueError(f"empty test dataset ({n} images)")
     results: Dict[str, Any] = {
         "count": count,
         "nonzero_fraction": nonzero_total / max(count * num_annotators, 1),
@@ -299,7 +314,7 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
         "Dice": cm.dice().tolist(),
         "diversity_experts": float(div_experts[0] / count),
         "samples_per_sec": float(steady_samples) / max(float(steady_seconds), 1e-9),
-        "generation_seconds": sum(batch_seconds),
+        "generation_seconds": generation_seconds,
         "data_seconds": data_seconds,
         "metrics_seconds": metrics_seconds,
         "calibration_seconds": calibration_seconds,
@@ -321,7 +336,7 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     LOGGER.info("samples/sec: %.2f", results["samples_per_sec"])
 
     out_dir = params.get("evaluation_path") or params.get("output_path")
-    if out_dir:
+    if out_dir and mesh.process_index() == 0:
         out_dir = expanduservars(out_dir)
         os.makedirs(out_dir, exist_ok=True)
         tag = f"steps{num_steps}" if num_steps else "full"

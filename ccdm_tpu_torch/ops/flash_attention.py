@@ -160,11 +160,12 @@ def _flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     path = _path(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     scale = (1.0 / math.sqrt(math.sqrt(dh))) ** 2  # the TPU kernel's constant
-    status = _build.library().ccdm_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[q.dtype], _PATH_CODES[path], bh, t, dh, q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # launch on q's card, not the current one
+        status = _build.library().ccdm_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], _PATH_CODES[path], bh, t, dh, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "flash_attention")
     launches += 1
     path_launches[path] += 1

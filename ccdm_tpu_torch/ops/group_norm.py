@@ -335,13 +335,16 @@ def _launch_backward(plan: Plan, dy: torch.Tensor, x: torch.Tensor, weight: torc
     scratch = torch.empty(_scratch_floats(plan, b, c, groups, hw), dtype=torch.float32,
                           device=x.device)
     stream = torch.cuda.current_stream(x.device)
-    status = _build.library().ccdm_group_norm_backward(
-        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        None if add is None else add.data_ptr(), dx.data_ptr(),
-        None if dadd is None else dadd.data_ptr(), scratch.data_ptr(),
-        _counter(x.device, stream).data_ptr(), dweight.data_ptr(), dbias.data_ptr(),
-        _DTYPE_CODES[x.dtype], b, c, hw, groups, _PATH_CODES[plan.path], plan.vec, plan.param,
-        plan.chunk, float(eps), int(silu), stream.cuda_stream)
+    # the C entry point reads the current device's attributes and launches
+    # there: make it x's
+    with torch.cuda.device(x.device):
+        status = _build.library().ccdm_group_norm_backward(
+            x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            None if add is None else add.data_ptr(), dx.data_ptr(),
+            None if dadd is None else dadd.data_ptr(), scratch.data_ptr(),
+            _counter(x.device, stream).data_ptr(), dweight.data_ptr(), dbias.data_ptr(),
+            _DTYPE_CODES[x.dtype], b, c, hw, groups, _PATH_CODES[plan.path], plan.vec,
+            plan.param, plan.chunk, float(eps), int(silu), stream.cuda_stream)
     _build.check(status, "group_norm_backward")
     launches_bwd += 1
     path_launches_bwd[plan.path] += 1
@@ -394,12 +397,13 @@ def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     y = torch.empty_like(x)
     partial = (torch.empty(b * groups * plan.param * 2, dtype=torch.float32, device=x.device)
                if plan.path == "L" else None)
-    status = _build.library().ccdm_group_norm(
-        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        None if add is None else add.data_ptr(),
-        None if partial is None else partial.data_ptr(), _DTYPE_CODES[x.dtype], b, c,
-        x.numel() // (b * c), groups, _PATH_CODES[plan.path], plan.vec, plan.param,
-        plan.chunk, float(eps), int(silu), torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # the launch and the attributes it reads
+        status = _build.library().ccdm_group_norm(
+            x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            None if add is None else add.data_ptr(),
+            None if partial is None else partial.data_ptr(), _DTYPE_CODES[x.dtype], b, c,
+            x.numel() // (b * c), groups, _PATH_CODES[plan.path], plan.vec, plan.param,
+            plan.chunk, float(eps), int(silu), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "group_norm")
     launches += 1
     path_launches[plan.path] += 1

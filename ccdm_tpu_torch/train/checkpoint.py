@@ -15,11 +15,15 @@ not saved). Managers under the experiment directory:
   batches under `tensors`.
 
 Saves are synchronous and atomic: a file is written under a temporary name
-and renamed, so a reader never sees half a checkpoint.
+and renamed, so a reader never sees half a checkpoint. In a process group
+every rank holds the same state: rank 0 writes, and every rank waits at a
+barrier until it has (`parallel/mesh.py`). A checkpoint does not depend on
+the world size that wrote it.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -27,6 +31,8 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+
+from ccdm_tpu_torch.parallel import mesh
 
 LOGGER = logging.getLogger(__name__)
 
@@ -50,20 +56,35 @@ def _write(manager_dir: str, step: int, tree: Dict[str, Any]) -> str:
     return step_dir
 
 
+def _on_main(save):
+    """Run `save` on rank 0 only, then hold every rank at a barrier (a save
+    that raises leaves the others waiting there until rank 0's process
+    ends, which fails their barrier)."""
+    @functools.wraps(save)
+    def wrapped(*args, **kwargs):
+        if mesh.process_index() == 0:
+            save(*args, **kwargs)
+        mesh.barrier()
+    return wrapped
+
+
 class CheckpointManagers:
     def __init__(self, output_path: str, keep: int = 3):
         self.output_path = os.path.abspath(output_path)
         self.keep = keep
 
+    @_on_main
     def save_periodic(self, state) -> None:
         manager = os.path.join(self.output_path, "model")
         _write(manager, state.step, state.tree())
         for step in _steps(manager)[:-self.keep]:
             shutil.rmtree(os.path.join(manager, str(step)))
 
+    @_on_main
     def save_best(self, name: str, state, score: float) -> None:
         """Save under `best_<name>/` and keep the `keep` best scores (ties:
-        the newer step stays)."""
+        the newer step stays). `score` must be the same on every rank
+        (`mesh.broadcast_from_main`)."""
         manager = os.path.join(self.output_path, f"best_{name}")
         step_dir = _write(manager, state.step, state.tree())
         with open(os.path.join(step_dir, "score.json"), "w") as f:
@@ -77,6 +98,7 @@ class CheckpointManagers:
         for _, step in scored[self.keep:]:
             shutil.rmtree(os.path.join(manager, str(step)))
 
+    @_on_main
     def save_debug(self, state, extras: Optional[Dict[str, Any]] = None) -> None:
         """The debug dump of an invalid loss: the state and `extras`."""
         tree = state.tree()

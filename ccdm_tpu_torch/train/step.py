@@ -22,6 +22,20 @@ DINO conditioning, as the JAX step: a frozen encoder (`feature_fn`) maps
 the batch's images under `torch.no_grad()` (the JAX `stop_gradient`); a
 trainable one (`encoder_apply`) runs under autograd, and its gradients join
 the UNet's in one composite update (`train/state.py`).
+
+Data parallel (a process group of P ranks, `parallel/mesh.py`): rank p
+holds rows `p::P` of the global batch (`data/loader.py`). It draws `t` and
+the Gumbel noise of `x_t` for the whole global batch from the step's
+generator and keeps its rows, so the step equals the one-process step on
+the global batch example for example. After the backward the fp32
+gradients, with the loss, travel as one flat fp32 buffer through one
+`all_reduce` and are divided by P, before `grad_norm` and the update; the
+minimum KL and the invalid flag are reduced too, so every rank logs the
+same loss and raises at the same step. The gradients are reduced in fp32
+and outside the module, so `net` is not wrapped in
+`DistributedDataParallel` (which would reduce the bf16 copies). Dropout
+masks draw from `(seed, step, rank)` on rank > 0, so they are not the
+one-process run's.
 """
 
 from __future__ import annotations
@@ -34,12 +48,14 @@ import torch
 
 from ccdm_tpu_torch.diffusion.categorical import (
     categorical_kl,
+    gumbel_noise,
     q_xt_given_x0_probs,
     sample_onehot,
     theta_post,
     theta_post_prob,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
 from ccdm_tpu_torch.utils.precision import fp32_precision
 
@@ -52,17 +68,23 @@ def step_seed(seed: int, step: int) -> int:
 def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator], class_weights: torch.Tensor,
                feature_condition: Optional[torch.Tensor] = None, *,
-               t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
+               t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None,
+               rows: slice = slice(None), global_batch: Optional[int] = None):
     """The CCDM loss of one batch (`image` [B,H,W,Ci], `x0` one-hot
     [B,H,W,C]; `feature_condition` [B,h,w,Cf] where the UNet concatenates
-    one) -> `(loss, aux)`; `t` and `xt`, when given, replace the draws."""
+    one) -> `(loss, aux)`; `t` and `xt`, when given, replace the draws.
+    The draws are made for `global_batch` examples (default B), of which
+    the batch is `rows`."""
     image, x0 = batch["image"], batch["x0"]
     b = x0.shape[0]
     d = model.diffusion
+    shape = (global_batch or b, *x0.shape[1:])
     if t is None:
-        t = torch.randint(1, d.time_steps + 1, (b,), generator=generator, device=x0.device)
+        t = torch.randint(1, d.time_steps + 1, shape[:1], generator=generator,
+                          device=x0.device)[rows]
     if xt is None:
-        xt = sample_onehot(q_xt_given_x0_probs(d, x0, t), generator)
+        gumbel = gumbel_noise(shape, generator, x0.device)[rows]
+        xt = sample_onehot(q_xt_given_x0_probs(d, x0, t), gumbel=gumbel)
     x0pred = model.apply(net, xt, image, t, feature_condition)["diffusion_out"].float()
     kl = categorical_kl(theta_post_prob(d, xt, x0pred, t), theta_post(d, xt, x0, t))
     mask = class_weights[x0.argmax(dim=-1)]
@@ -70,6 +92,25 @@ def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, tor
     kl_min = kl.detach().min()
     invalid = ~torch.isfinite(loss.detach()) | (kl_min < -1e-3)
     return loss, {"kl_min": kl_min, "invalid": invalid}
+
+
+def _reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                      aux: Dict[str, torch.Tensor], count: int):
+    """The mean over the ranks of `grads` and `loss` (one flat fp32 buffer,
+    one sum), the minimum of `kl_min` and the maximum of `invalid`: new
+    `(grads, loss, aux)`, the same on every rank."""
+    import torch.distributed as dist
+
+    flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat)
+    flat /= count
+    out, offset = {}, 0
+    for name, g in grads.items():
+        out[name] = flat[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+    worst = torch.stack([-aux["kl_min"].float(), aux["invalid"].float()])
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    return out, flat[-1], {"kl_min": -worst[0], "invalid": worst[1] > 0}
 
 
 def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
@@ -86,13 +127,20 @@ def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
     `feature_fn(encoder_net, images)`: a frozen encoder, outside the state.
     `encoder_apply(encoder_net, images)`: a trainable one, whose masters are
     the state's `encoder.` entries (the UNet's are `unet.`); it is updated
-    with the UNet and `grad_norm` covers both."""
-    dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0 for m in model.unet.modules())
+    with the UNet and `grad_norm` covers both.
 
-    def step(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
-             seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
-             t: Optional[torch.Tensor] = None,
-             xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    Inside a process group of P ranks (read when the step is made), `batch`
+    is this rank's rows `p::P` of the global batch, injected `t` and `xt`
+    are this rank's too, and the gradients are summed over the ranks (see
+    the module docstring). `step.gradients(...)`, with the step's arguments,
+    returns `(grads, metrics)` without updating: the reduced fp32
+    gradients by master name."""
+    dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0 for m in model.unet.modules())
+    rank, ranks = mesh.process_index(), mesh.process_count()
+
+    def gradients(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                  seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
+                  t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
         modules = {"": net} if encoder_apply is None else {UNET: net, ENCODER: encoder_net}
         device = batch["x0"].device
         s = step_seed(seed, state.step)
@@ -107,26 +155,40 @@ def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
         # output heads): TF32 there cost the LIDC gate its quality
         with fork, fp32_precision():
             if dropout_on:
-                torch.manual_seed(s)
+                torch.manual_seed(s if rank == 0 else step_seed(s, rank))
             fc = None
             if encoder_apply is not None:
                 fc = encoder_apply(encoder_net, batch["image"])
             elif feature_fn is not None:
                 with torch.no_grad():
                     fc = feature_fn(encoder_net, batch["image"])
-            loss, aux = train_loss(model, net, batch, generator, class_weights, fc, t=t, xt=xt)
+            b = batch["x0"].shape[0]
+            loss, aux = train_loss(model, net, batch, generator, class_weights, fc, t=t, xt=xt,
+                                   rows=slice(rank, None, ranks), global_batch=b * ranks)
             loss.backward()
         grads = {prefix + name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
                  for prefix, m in modules.items() for name, p in m.named_parameters()}
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
-        lr = state.apply_gradients(grads)
-        for prefix, m in modules.items():
-            state.write_to(m, prefix=prefix)
+        for m in modules.values():
             m.zero_grad(set_to_none=True)
-        metrics = {"loss": loss.detach(), "invalid": aux["invalid"], "kl_min": aux["kl_min"],
-                   "grad_norm": grad_norm, "num_items": int(batch["x0"].shape[0])}
+        loss = loss.detach()
+        if ranks > 1:
+            grads, loss, aux = _reduce_gradients(grads, loss, aux, ranks)
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        return grads, {"loss": loss, "invalid": aux["invalid"], "kl_min": aux["kl_min"],
+                       "grad_norm": grad_norm, "num_items": b * ranks}
+
+    def step(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+             seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
+             t: Optional[torch.Tensor] = None,
+             xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        grads, metrics = gradients(state, net, batch, seed, encoder_net, t=t, xt=xt)
+        lr = state.apply_gradients(grads)
+        state.write_to(net, prefix=UNET if encoder_apply is not None else "")
+        if encoder_apply is not None:
+            state.write_to(encoder_net, prefix=ENCODER)
         if lr_schedule is not None:
             metrics["lr"] = lr
         return metrics
 
+    step.gradients = gradients
     return step

@@ -1,5 +1,6 @@
 """The training runtime (port of `ccdm_tpu/train/trainer.py`): a plain
-step-indexed loop around `train.step.make_train_step`, on one device.
+step-indexed loop around `train.step.make_train_step`, on one device or
+data parallel over a process group, one process per card.
 
 - `run_train(params, max_steps=None, device=None)` is the entry point, with
   the reference's `params.yml` surface; it trains on the CUDA card unless
@@ -28,12 +29,25 @@ step-indexed loop around `train.step.make_train_step`, on one device.
 - Resume: the epoch and batch position follow from the restored step, and
   `max_epochs` is the total budget. `max_steps` ends with a final save;
   SIGTERM saves and returns. `profile_steps: N` writes a `torch.profiler`
-  trace of steps 10 .. 10 + N under `<output_path>/profile`.
+  trace of steps 10 .. 10 + N under `<output_path>/profile` (rank 0's
+  only: the other ranks run untraced).
 
-Not ported yet, and refused with `NotImplementedError`: meshes (multi-host,
-data parallel), with the JAX version's host slicing of validation. Not
-ported by decision: `steps_per_launch` (one step a launch; the trajectory
-is the same).
+Data parallel (`parallel/mesh.py`; `cli/train.py --multihost` under
+torchrun): every rank builds the same masters from the seed (or loads the
+same checkpoint, written at any world size), takes its rows of each global
+batch from the sharded `EpochLoader`, and the step sums the gradients over
+the ranks, so the ranks stay equal. Rank 0 does the I/O: the code archive,
+`metrics.jsonl`, the progress line, the grids, the profiler trace and the
+checkpoints, which the others wait for at a barrier. Validation is sliced by rank (each rank
+samples its strided share of the images) and combined with one float64
+allgather; the scores that choose a best checkpoint are rank 0's,
+broadcast. A SIGTERM on any rank stops every rank at the same step (a max
+over the ranks at each step boundary), and they save together.
+`mesh.data`, where given, must equal the world size.
+
+Not ported by decision: `mesh.model > 1` (tensor parallelism, refused
+with `NotImplementedError`) and `steps_per_launch` (one step a launch; the
+trajectory is the same).
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from ccdm_tpu_torch.eval.ged_eval import compute_ged, make_batched_sampler
 from ccdm_tpu_torch.eval.metrics import ConfusionMatrix
 from ccdm_tpu_torch.models.builder import DenoisingModel, build_model
 from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
+from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.train.checkpoint import CheckpointManagers, load_checkpoint
 from ccdm_tpu_torch.train.optimizer import build_optimizer
 from ccdm_tpu_torch.train.state import (
@@ -85,7 +100,10 @@ def _device(device) -> torch.device:
             raise RuntimeError("run_train: no CUDA device; training runs on the card unless "
                                "the caller passes device='cpu'")
         device = "cuda"
-    return torch.device(device)
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def _class_weights(dataset_module, num_classes: int, device) -> torch.Tensor:
@@ -130,9 +148,13 @@ def _build_datasets(params: Dict[str, Any]):
 
 
 def _refuse_unported(params: Dict[str, Any]) -> None:
-    mesh = params.get("mesh") or {}
-    if int(mesh.get("data", 1)) > 1 or int(mesh.get("model", 1)) > 1:
-        raise NotImplementedError("meshes (data or model parallel training) are not ported")
+    layout = params.get("mesh") or {}
+    if int(layout.get("model", 1)) > 1:
+        raise NotImplementedError("mesh.model > 1 (tensor parallel training) is not ported: "
+                                  "the port trains data parallel, one process per card")
+    if "data" in layout and int(layout["data"]) != mesh.process_count():
+        raise ValueError(f"mesh.data {layout['data']} != the {mesh.process_count()} ranks of "
+                         f"the process group (launch one process per card with torchrun)")
     if params.get("quantized_inference"):
         raise ValueError("quantized_inference is inference-only; remove it from the "
                          "training config (training always runs the float path)")
@@ -146,10 +168,14 @@ class TrainingRun:
         self.params = params
         self.device = _device(device)
         _refuse_unported(params)
+        self.is_main = mesh.process_index() == 0
         self._sigterm = False  # set by the SIGTERM handler, read by the loop
         self.output_path = expanduservars(params.get("output_path", "./logs/run"))
         os.makedirs(self.output_path, exist_ok=True)
-        archive_code(self.output_path)
+        if self.is_main:
+            archive_code(self.output_path)
+        LOGGER.info("rank %d of %d on %s", mesh.process_index(), mesh.process_count(),
+                    self.device)
         LOGGER.info("experiment dir: %s", self.output_path)
         LOGGER.info("Training params:\n%s", pprint.pformat(params))
 
@@ -190,7 +216,11 @@ class TrainingRun:
                         "trajectory is the same)")
 
         self.batch_size = int(params["batch_size"])
+        # each rank loads its rows p::P of every global batch; with P > 1 an
+        # epoch is trimmed to whole global batches, the same count on every rank
         self.loader = EpochLoader(self.train_ds, self.batch_size, seed=seed,
+                                  process_index=mesh.process_index(),
+                                  process_count=mesh.process_count(),
                                   num_workers=int(params.get("mp_loaders", 0)))
         self.steps_per_epoch = len(self.loader)
         if self.steps_per_epoch == 0:
@@ -200,7 +230,7 @@ class TrainingRun:
         self.state: TrainState = create_train_state(
             masters, tx, polyak_alpha=float(params["polyak_alpha"]))
         self.checkpoints = CheckpointManagers(self.output_path)
-        self.metrics = MetricsLogger(self.output_path, params)
+        self.metrics = MetricsLogger(self.output_path, params) if self.is_main else None
         load_from = params.get("load_from")
         if load_from:
             LOGGER.info("resuming from %s", load_from)
@@ -262,19 +292,23 @@ class TrainingRun:
                 max(1, self.batch_size // num_samples), step_seed(self.seed + 2, self.state.step),
                 max_batches=int(params.get("validation_max_batches", 0)) or None,
                 sampler=self._sampler(num_samples), feature_net=self._val_feature_net())
+            # every rank decides on the best checkpoints from rank 0's scores
+            ged, div, hmiou = mesh.broadcast_from_main(ged, div, hmiou)
             LOGGER.info("mean GED %.3f, mean diversity %.3f, HM-IoU %.3f", ged, div, hmiou)
             metrics = {"GED": ged, "diversity": div, "HMIoU": hmiou}
-            self.metrics.log(self.state.step, metrics, tag="val")
+            if self.is_main:
+                self.metrics.log(self.state.step, metrics, tag="val")
             self.checkpoints.save_best("ged", self.state, ged)
             self.checkpoints.save_best("hmiou", self.state, hmiou)
             return metrics
         # val mIoU picks the best checkpoints; a pass over 6 train images is
         # only logged (the reference's engine_train mIoU)
-        miou = self.validate_miou()
-        train_miou = self.validate_miou(max_images=6, dataset=self.train_ds)
+        miou, train_miou = mesh.broadcast_from_main(
+            self.validate_miou(), self.validate_miou(max_images=6, dataset=self.train_ds))
         LOGGER.info("val mIoU: %.4f (train-split mIoU: %.4f)", miou, train_miou)
         metrics = {"mIoU": miou, "mIoU_train": train_miou}
-        self.metrics.log(self.state.step, metrics, tag="val")
+        if self.is_main:
+            self.metrics.log(self.state.step, metrics, tag="val")
         self.checkpoints.save_best("miou", self.state, miou)
         return metrics
 
@@ -286,7 +320,11 @@ class TrainingRun:
         samples from the streams of its index. The truth is the first expert
         mask, else `label`, else `argmax x0`; the prediction's argmax
         spans every channel, the ignore class included, as the reference's
-        in-training matrix (only the reported IoUs drop that class)."""
+        in-training matrix (only the reported IoUs drop that class). In a
+        process group each rank samples its strided share of the images
+        (the tail padded to the batch, the padding left out of the matrix)
+        and one float64 allgather sums the matrices: the same mIoU for any
+        number of ranks."""
         ds = self.val_ds if dataset is None else dataset
         n = min(len(ds), max_images or len(ds))
         if n == 0:
@@ -295,8 +333,9 @@ class TrainingRun:
         cm = ConfusionMatrix(self.num_classes, self.ignore_class)
         bs = max(1, min(self.batch_size // 4, n))
         ema, key = self.ema_unet(), step_seed(self.seed + 2, self.state.step)
-        for start in range(0, n, bs):
-            idx = list(range(start, min(start + bs, n)))
+        mine = mesh.host_slice(n)
+        for start in range(0, len(mine), bs):
+            idx, real = mesh.pad_chunk(mine[start:start + bs], bs)
             samples = [ds.get(i, np.random.default_rng(1000 + i)) for i in idx]
             images = torch.from_numpy(np.stack([s["image"] for s in samples])).to(self.device)
             if "labels" in samples[0]:  # multi-annotator protocol
@@ -306,7 +345,10 @@ class TrainingRun:
             else:  # a training sample: one-hot x0
                 true = np.argmax(np.stack([s["x0"] for s in samples]), -1)
             preds = sampler(ema, images, key, idx, feature_net=self._val_feature_net())
-            cm.update(preds[:, 0], torch.from_numpy(true).to(preds.device))
+            cm.update(preds[:real, 0], torch.from_numpy(true[:real]).to(preds.device))
+        if mesh.process_count() > 1:
+            cm.matrix = mesh.allgather_f64(cm.matrix).sum(axis=0).reshape(
+                cm.matrix.shape).astype(cm.matrix.dtype)
         return cm.miou()
 
     def _sampler(self, num_samples: int, num_steps: Optional[int] = None):
@@ -358,7 +400,8 @@ class TrainingRun:
             if self._profiler is not None:
                 self._profiler.stop()
                 self._profiler = None
-            self.metrics.close()
+            if self.metrics is not None:
+                self.metrics.close()
 
     def _start_profile(self) -> None:
         from torch.profiler import ProfilerActivity, profile
@@ -390,7 +433,7 @@ class TrainingRun:
         pending = collections.deque()  # (step, metrics on the device)
         recent_batches = collections.deque(maxlen=4)  # for the debug dump
         window_items, window_t0 = 0, time.perf_counter()
-        progress = ProgressLine(enable=bool(p.get("progress_bar", True)))
+        progress = ProgressLine(enable=bool(p.get("progress_bar", True)) and self.is_main)
         last_loss: Optional[float] = None
 
         def drain(block_all: bool = False):
@@ -422,7 +465,7 @@ class TrainingRun:
             raw = self.loader.epoch(epoch, start_batch=skip0 if epoch == start_epoch else 0)
             batches = ({k: b[k] for k in STEP_KEYS} for b in raw)
             for batch in device_prefetch(batches, self.device):
-                if profile_steps and total == 10 and self._profiler is None:
+                if profile_steps and self.is_main and total == 10 and self._profiler is None:
                     self._start_profile()
                 metrics = self.step_fn(self.state, self.net, batch, self.seed + 1,
                                        self.encoder_net)
@@ -450,9 +493,11 @@ class TrainingRun:
                     LOGGER.info("epoch=%d, iter=%d, speed=%.2f img/s, loss=%.4g, lr=%.6g, "
                                 "mem=%.2fGB", epoch, step, speed, last_loss,
                                 metrics.get("lr", 0.0), mem_gb)
-                    self.metrics.log(step, {"loss": last_loss, "lr": metrics.get("lr", 0.0),
-                                            "imgs_per_sec": speed, "mem_gb": mem_gb},
-                                     tag="train")
+                    if self.is_main:
+                        self.metrics.log(step, {"loss": last_loss,
+                                                "lr": metrics.get("lr", 0.0),
+                                                "imgs_per_sec": speed, "mem_gb": mem_gb},
+                                         tag="train")
                     window_items, window_t0 = 0, time.perf_counter()
                 else:
                     drain()
@@ -464,12 +509,14 @@ class TrainingRun:
                     progress.close()
                     self.validate()
                     progress.reset_rate_window(total * self.batch_size)
-                    try:
-                        png = self.save_qualitative()
-                        self.metrics.log_image(step, png, f"iteration {step}")
-                    except Exception as e:  # a grid is not worth a run
-                        LOGGER.warning("qualitative grid failed: %s", e)
-                if self._sigterm:
+                    if self.is_main:
+                        try:
+                            png = self.save_qualitative()
+                            self.metrics.log_image(step, png, f"iteration {step}")
+                        except Exception as e:  # a grid is not worth a run
+                            LOGGER.warning("qualitative grid failed: %s", e)
+                # the ranks stop at the same step: the flag of any rank
+                if mesh.any_rank(self._sigterm):
                     drain(block_all=True)
                     progress.close()
                     self.checkpoints.save_periodic(self.state)

@@ -196,6 +196,31 @@ without printing its result:
    relative). Moved int8 codes compound (see the phase): maps agree on
    >= 97% of pixels, and the mean probability difference is at most twice
    the CPU int8 run's mean distance from the float run.
+24. data_parallel: two ranks as spawned processes on cuda:0 (this script
+   with `--data-parallel-rank R`) in a gloo group the phase initializes
+   (NCCL refuses two ranks on one card), each failure failing the phase.
+   The one-process references are computed first, then the ranks run:
+   one fp32 `make_train_step` step of `DEMO_TRAIN_PARAMS` at 128x128 from
+   phase 11's masters, global batch 16 (8 a rank): a rank's own gradients
+   within 1e-5 of each tensor's largest against one process's on its rows
+   and draws (as is one process's repeat on a model built anew: cuDNN's
+   default algorithms do not repeat their bits), and bit-equal to them
+   with cuDNN held to its deterministic algorithms in both; the reduced loss and gradients against the
+   one-process step at batch 16 within 1e-5 of each tensor's largest or
+   twice one process's own error from splitting the batch in two
+   (analytic zeros within 1e-6 of the tree's largest), the masters after 3 Adam
+   steps within 3 x 2 lr and all but 1e-4 of them within 1e-5, the ranks
+   bit-equal; a bf16 `TrainingRun` of 20 steps with a save and a
+   validation at step 20: launches per rank exactly 66 GroupNorm forward +
+   66 backward + 11 attention a step plus the rank's validation UNet calls,
+   the checkpoint written by rank 0 alone and reloaded by one process bit
+   for bit against rank 1's state; the LIDC harness (phase 13's tree,
+   phase 11's weights, T = 50) equal to one process within 1e-6 relative,
+   launches exact. Prints the all-reduce's ms and fp32 bytes a step and the
+   bf16 step's wall at one rank (phase 11) and at two, all labelled gloo
+   through the host. Then `python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m ccdm_tpu_torch.cli.train <json> --multihost
+   --max-steps 4` through nccl: exit 0 and its step-4 checkpoint.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -1097,7 +1122,7 @@ def phase_train(smi):
         f"{grid_s:.2f} s; {calls} UNet calls of validation and grid; launches {launches}, "
         f"backward by path {paths['group_norm_backward']}; checkpoint round trip exact "
         f"(params, EMA, Adam, step {TRAIN_STEPS})")
-    return {"launches": launches, "path_launches": paths}, masters
+    return {"launches": launches, "path_launches": paths, "warm_ms": warm * 1e3}, masters
 
 
 def grad_errors(ref, grads, zero=None, key_rows: bool = True):
@@ -2328,9 +2353,429 @@ def phase_quant_reference():
         + "; ".join(results) + f"; calibration tables (81 sites, 8 steps) within {table_err:.3g} "
         f"relative")
 
+DP_DIR = Path("build/chip_smoke_dp")
+DP_RANKS, DP_STEPS, DP_EVAL_STEPS, DP_SEED = 2, 20, 50, 5
+
+
+def dp_step(masters, rows=slice(None), draws=None):
+    """One process's part of the fp32 data-parallel step: `DEMO_TRAIN_PARAMS`
+    in fp32 on the card from `masters`, rows `rows` of a global batch of 16
+    synthetic lesions at 128x128: the loss and the (reduced) gradients of a
+    first step, with the step's own draws or `draws` `(t, x_t)` of the
+    global batch, then, without `draws`, the masters after 3 Adam steps
+    (CPU tensors)."""
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.train.optimizer import build_optimizer
+    from ccdm_tpu_torch.train.state import create_train_state, master_params
+    from ccdm_tpu_torch.train.step import make_train_step
+
+    params = dict(DEMO_TRAIN_PARAMS, compute_dtype="float32")
+    model = build_model(params, 2, 1, 128)
+    with torch.no_grad():
+        for name, prm in model.unet.named_parameters():
+            prm.copy_(masters[name])
+    batch, _, _ = lesion_batch(16, 128, seed=24)
+    batch = {k: v[rows].cuda() for k, v in batch.items()}
+    tx, schedule = build_optimizer(params, steps_per_epoch=100)
+    state = create_train_state(master_params(model.unet), tx,
+                               polyak_alpha=params["polyak_alpha"])
+    step = make_train_step(model, torch.ones(2, device="cuda"), schedule)
+    injected = {} if draws is None else {"t": draws[0][rows], "xt": draws[1][rows]}
+    grads, m = step.gradients(state, model.unet, batch, DP_SEED, **injected)
+    loss, grads = float(m["loss"]), {k: g.cpu() for k, g in grads.items()}
+    if draws is not None:
+        return loss, grads, None
+    for _ in range(3):
+        step(state, model.unet, batch, DP_SEED)
+    return loss, grads, {k: v.cpu() for k, v in state.params.items()}
+
+
+def dp_draws():
+    """`(t, x_t)` of `dp_step`'s global batch as its first step draws them
+    (`train/step.py`: from the generator of `(seed, step)`, t then the
+    Gumbel noise, for all 16 rows)."""
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.diffusion.categorical import (
+        gumbel_noise,
+        q_xt_given_x0_probs,
+        sample_onehot,
+    )
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.train.step import step_seed
+
+    diffusion = build_model(dict(DEMO_TRAIN_PARAMS, compute_dtype="float32"), 2, 1,
+                            128).diffusion
+    x0 = lesion_batch(16, 128, seed=24)[0]["x0"].cuda()
+    gen = torch.Generator(device="cuda").manual_seed(step_seed(DP_SEED, 0))
+    t = torch.randint(1, diffusion.time_steps + 1, (16,), generator=gen, device="cuda")
+    gumbel = gumbel_noise(x0.shape, gen, x0.device)
+    return t, sample_onehot(q_xt_given_x0_probs(diffusion, x0, t), gumbel=gumbel)
+
+
+def dp_child(rank: int) -> None:
+    """One rank of phase 24 (`chip_smoke.py --data-parallel-rank R`): joins
+    the phase's gloo group on cuda:0 and runs the fp32 step, the bf16
+    `TrainingRun` and the LIDC harness; its results go to
+    `build/chip_smoke_dp/rank<R>.pt`."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.train import checkpoint
+    from ccdm_tpu_torch.train import step as train_step
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=DP_RANKS,
+                            init_method=f"tcp://127.0.0.1:{os.environ['DP_PORT']}")
+    out = {}
+    masters = torch.load(DP_DIR / "masters.pt")
+    # this rank's own gradients, as they enter the all-reduce
+    local = []
+    reduce = train_step._reduce_gradients
+
+    def spy(grads, *args):
+        local.append({k: g.detach().cpu().clone() for k, g in grads.items()})
+        return reduce(grads, *args)
+
+    train_step._reduce_gradients = spy
+    rows = slice(rank, None, DP_RANKS)
+    out["step"] = dp_step(masters, rows)
+    out["local"] = local[0]  # the first step's
+    # the same rows and draws with cuDNN held to its deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    local.clear()
+    dp_step(masters, rows, dp_draws())
+    out["local_pinned"] = local[0]
+    torch.backends.cudnn.deterministic = False
+    train_step._reduce_gradients = reduce
+
+    # the bf16 trainer over two ranks: a save and a validation at step 20
+    writes = []
+    write = checkpoint._write
+    checkpoint._write = lambda *a: writes.append(a[0]) or write(*a)
+    run = TrainingRun(dict(_dp_train_params(), output_path=str(DP_DIR / "run")))
+    sites = (sum(isinstance(m, GroupNorm32) for m in run.net.modules()),
+             sum(isinstance(m, AttentionBlock) for m in run.net.modules()))
+    metrics, marks, pauses, _, calls, launches, paths = run_training(
+        run, DP_STEPS, (1, 10, DP_STEPS))
+    check_train_launches(f"data_parallel rank {rank}", launches, DP_STEPS, calls, *sites)
+    inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[DP_STEPS])
+    out["train"] = {"launches": launches, "path_launches": paths, "calls": calls,
+                    "writes": writes, "steps_per_epoch": run.steps_per_epoch,
+                    "warm_ms": (marks[DP_STEPS] - marks[10] - inside) / (DP_STEPS - 10) * 1e3,
+                    "losses": [float(m["loss"]) for m in metrics]}
+    torch.save(run.state.tree(), DP_DIR / f"state_rank{rank}.pt")
+
+    # the step's all-reduce alone: the fp32 gradients and the loss, one buffer
+    flat = torch.zeros(sum(v.numel() for v in run.state.params.values()) + 1, device="cuda")
+    for _ in range(3):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(10):
+        dist.all_reduce(flat)
+    torch.cuda.synchronize()
+    out["allreduce"] = {"ms": (time.perf_counter() - start) / 10 * 1e3,
+                        "bytes": flat.numel() * 4}
+
+    # the LIDC harness on phase 13's tree and phase 11's weights
+    reset_counts()
+    out["lidc"] = eval_lidc_uncertainty(
+        lidc_eval_params(evaluation_path=str(DP_DIR / "lidc2")), num_steps=DP_EVAL_STEPS)
+    out["lidc_launches"], out["lidc_paths"] = read_counts()
+    torch.save(out, DP_DIR / f"rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def trees_equal(a, b) -> bool:
+    """Two checkpoint trees hold the same keys and the same bits."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            trees_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def spawn_ranks(n: int, argv):
+    """Start `n` copies of `argv` (the rank as the last argument), each
+    with its output in `build/chip_smoke_dp/rank<r>.log`; wait for all and
+    raise, with their logs, if any exits non-zero."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for rank in range(n):
+            log = open(DP_DIR / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen([*argv, str(rank)], stdout=log,
+                                           stderr=subprocess.STDOUT,
+                                           env=dict(os.environ, DP_PORT=str(port))),
+                          log))
+        # a rank that fails leaves the others waiting in a collective: stop
+        # at the first failure
+        deadline = time.monotonic() + 600
+        while any(proc.poll() is None for proc, _ in procs) and time.monotonic() < deadline \
+                and not any(proc.poll() for proc, _ in procs):
+            time.sleep(0.5)
+        rcs = [proc.poll() for proc, _ in procs]
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if rcs != [0] * n:
+        logs = "\n".join(f"--- rank {r} (exit {rc}):\n"
+                         + (DP_DIR / f"rank{r}.log").read_text()[-4000:]
+                         for r, rc in enumerate(rcs))
+        raise AssertionError(f"data_parallel: a rank failed: {rcs}\n{logs}")
+
+
+def phase_data_parallel(smi, masters, one_rank_warm_ms: float):
+    """Phase 24: two ranks in a gloo group on cuda:0 against one process
+    (see the docstring); then the CLI under torchrun through nccl."""
+    import os
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    torch.save(masters, DP_DIR / "masters.pt")
+    # the one-process references first, so the ranks later have the card
+    ref_loss, ref_grads, ref_masters = dp_step(masters)
+    # each rank's rows as one process computes them, from the global draws;
+    # rank 0's again (a repeat, the model built anew), and with cuDNN's
+    # deterministic algorithms
+    draws = dp_draws()
+    halves = [dp_step(masters, slice(p, None, DP_RANKS), draws) for p in range(DP_RANKS)]
+    repeat = dp_step(masters, slice(0, None, DP_RANKS), draws)[1]
+    torch.backends.cudnn.deterministic = True
+    pinned = [dp_step(masters, slice(p, None, DP_RANKS), draws)[1] for p in range(DP_RANKS)]
+    torch.backends.cudnn.deterministic = False
+    ref_lidc = eval_lidc_uncertainty(lidc_eval_params(evaluation_path=str(DP_DIR / "lidc1")),
+                                     num_steps=DP_EVAL_STEPS)
+    start = time.perf_counter()
+    spawn_ranks(DP_RANKS, [sys.executable, str(Path(__file__).resolve()),
+                           "--data-parallel-rank"])
+    ranks_s = time.perf_counter() - start
+    r = [torch.load(DP_DIR / f"rank{i}.pt", weights_only=False) for i in range(DP_RANKS)]
+
+    # 1. the fp32 step. (a) The ranks hold the same bits, and the reduced
+    # gradients are the mean of the ranks' own, bit for bit: the all-reduce
+    # adds what one process would. (b) A rank's own gradients against one
+    # process's on the same rows under the global batch's draws (the rank
+    # drew its rows of them): within 1e-5 of each tensor's largest, as is
+    # one process's repeat of its own rows on a model built anew: cuDNN's
+    # default algorithms do not give the same bits from one build to the
+    # next even in one process alone. With cuDNN held to its deterministic
+    # algorithms in both, a rank's own equal one process's bit for bit. (c)
+    # Against the one-process step at batch 16 the sums run in another
+    # order (8 rows twice, cuDNN's algorithms for batch 8): every gradient
+    # within 1e-4 of its tensor's largest, the analytically zero ones within
+    # 1e-6 of the tree's largest (grad_agreement, the fp32 rule of phase
+    # 12), and each tensor within 1e-5 of its largest or within twice the
+    # control's error there: one process's mean of the two halves against
+    # its batch-16 step, the same split with no rank in it. (d) The
+    # masters after 3 Adam steps as tests/test_torch_parallel.py holds
+    # them: every weight within 3 steps x 2 lr (Adam moves a weight by up
+    # to lr whatever its gradient's size, so gradients at their rounding
+    # floor move by a share of lr that the order of the sums decides), all
+    # but 1e-4 of the weights (the zero gradients' left out) within 1e-5 of
+    # their tensor's largest
+    losses = [ri["step"][0] for ri in r]
+    reduced = r[0]["step"][1]
+    for name in ref_grads:
+        if not all(torch.equal(reduced[name], ri["step"][1][name])
+                   and torch.equal(r[0]["step"][2][name], ri["step"][2][name]) for ri in r[1:]):
+            raise AssertionError(f"data_parallel: the ranks' {name} differ")
+    unequal = [k for k in ref_grads
+               if not torch.equal(sum(ri["local"][k] for ri in r) / DP_RANKS, reduced[k])]
+    if unequal or losses[0] != losses[1]:
+        raise AssertionError(f"data_parallel: the reduced gradients are not the mean of the "
+                             f"ranks' own: {unequal[:5]} ({len(unequal)} tensors)")
+    own = [grad_errors(h[1], ri["local"]) for h, ri in zip(halves, r)]
+    again = grad_errors(halves[0][1], repeat)
+    if not all(e[0][0] <= 1e-5 and e[1] <= 1e-6 for e in own + [again]):
+        raise AssertionError(f"data_parallel: a rank's own gradients against one process's "
+                             f"on its rows: {[(e[0], e[1]) for e in own]}; one process's "
+                             f"repeat: {again[:2]}")
+    diverged = {i: [k for k in g if not torch.equal(g[k], ri["local_pinned"][k])]
+                for i, (g, ri) in enumerate(zip(pinned, r))}
+    if any(diverged.values()):
+        raise AssertionError(f"data_parallel: with cuDNN's deterministic algorithms, a rank's "
+                             f"own gradients differ from one process's: "
+                             + "; ".join(f"rank {i}: {len(v)} tensors, {v[:3]}, worst err/max "
+                                         f"{grad_errors(pinned[i], r[i]['local_pinned'])[0]}"
+                                         for i, v in diverged.items() if v))
+
+    def differ(a, b):
+        return sum(not torch.equal(a[k], b[k]) for k in a)
+
+    def tensor_errors(ref, grads, zero):
+        """err/max of each tensor that is not an analytic zero."""
+        return {k: grad_errors({k: v}, {k: grads[k]}, zero=set())[0][0]
+                for k, v in ref.items() if k not in zero}
+
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    worst, worst_zero, zero = grad_agreement(ref_grads, reduced, "data_parallel")
+    mean = {k: sum(h[1][k] for h in halves) / DP_RANKS for k in ref_grads}
+    errs, control = tensor_errors(ref_grads, reduced, zero), tensor_errors(ref_grads, mean, zero)
+    past = sorted((round(e, 8), k, round(control[k], 8)) for k, e in errs.items() if e > 1e-5)
+    wide = [p for p in past if p[0] > 2 * p[2]]
+    if not rel <= 1e-5 or wide:
+        raise AssertionError(f"data_parallel: 2-rank loss {losses[0]} vs one process's "
+                             f"{ref_loss} ({rel:.3g}); tensors past 1e-5 of their largest and "
+                             f"twice the control's error (err, name, control): {wide}")
+    lr = 1e-4  # DEMO_TRAIN_PARAMS' learning rate
+    beyond, total, moved = 0, 0, 0.0
+    for name, v in ref_masters.items():
+        diff = (r[0]["step"][2][name] - v).abs()
+        moved = max(moved, float(diff.max()))
+        if name in zero:
+            continue
+        if name.endswith("qkv.bias"):
+            diff = diff[(torch.arange(v.numel()) // 32) % 3 != 1]
+        beyond += int((diff > 1e-5 * float(v.abs().max())).sum())
+        total += diff.numel()
+    if not (moved <= 3 * 2 * lr and beyond <= 1e-4 * total):
+        raise AssertionError(f"data_parallel: masters after 3 Adam steps: largest move apart "
+                             f"{moved:.3g}, {beyond} of {total} weights past 1e-5 of their "
+                             f"tensor's largest")
+    log("data_parallel", f"fp32 step, DEMO_TRAIN_PARAMS at 128x128, global batch 16 (8 a rank), "
+        f"{DP_RANKS} ranks in a gloo group on cuda:0: bit-equal to each other, the reduced "
+        f"gradients bit-equal to the mean of the ranks' own; a rank's own against one "
+        f"process's on its rows and draws: worst err/max "
+        + ", ".join(f"{e[0][0]:.3g} ({e[0][1]})" for e in own)
+        + f" ({differ(halves[0][1], r[0]['local'])} of {len(repeat)} tensors differ), "
+        f"one process's repeat on a model built anew {again[0][0]:.3g} ({again[0][1]}; "
+        f"{differ(halves[0][1], repeat)} differ), deterministic against default algorithms "
+        f"in one process {differ(pinned[0], halves[0][1])} differ; with cuDNN's deterministic "
+        f"algorithms in both, each rank's own bit-equal to one process's; against the "
+        f"one-process step at batch 16: loss "
+        f"{losses[0]:.7g} vs {ref_loss:.7g} ({rel:.2g} relative), worst gradient err/max "
+        f"{worst[0]:.3g} ({worst[1]}), analytically zero gradients within {worst_zero:.2g} "
+        f"of the largest ({len(zero)} tensors and the key rows), tensors past 1e-5 (err, "
+        f"name, the control's err: one process's mean of the halves against its batch-16 "
+        f"step): {past}; masters after 3 Adam steps: largest difference {moved:.3g}, "
+        f"{beyond} of {total} weights past 1e-5 of their tensor's largest")
+
+    # 2. the bf16 TrainingRun: launches a step as phase 11's, one writer
+    writes = [ri["train"]["writes"] for ri in r]
+    if writes[1] or not writes[0] or sorted(os.listdir(DP_DIR / "run" / "model")) != [
+            str(DP_STEPS)]:
+        raise AssertionError(f"data_parallel: checkpoint writes by rank {writes}, model/ "
+                             f"{sorted(os.listdir(DP_DIR / 'run' / 'model'))}")
+    # one process resumes from it (load_from: load_checkpoint) and holds
+    # what rank 1 held, bit for bit
+    restored = TrainingRun(dict(_dp_train_params(), load_from=str(DP_DIR / "run"),
+                                output_path=str(DP_DIR / "restored"))).state.tree()
+    if not trees_equal(restored, torch.load(DP_DIR / "state_rank1.pt")):
+        raise AssertionError("data_parallel: the checkpoint reloaded in one process differs "
+                             "from rank 1's state")
+    if r[0]["train"]["losses"] != r[1]["train"]["losses"]:
+        raise AssertionError("data_parallel: the ranks logged different losses")
+    log("data_parallel", f"bf16 TrainingRun(DEMO_TRAIN_PARAMS), {DP_STEPS} steps at global "
+        f"batch 16 over {DP_RANKS} ranks ({r[0]['train']['steps_per_epoch']} steps an epoch on "
+        f"each), a save and a validation at step {DP_STEPS}: launches per rank "
+        + ", ".join(f"{i}: {ri['train']['launches']} ({ri['train']['calls']} validation UNet "
+                    f"calls)" for i, ri in enumerate(r))
+        + f", each 66 GroupNorm forward + 66 backward + 11 attention a step as phase 11; "
+        f"checkpoint written by rank 0 only ({len(writes[0])} writes), reloaded by one process "
+        f"bit-exact against rank 1's state; loss {r[0]['train']['losses'][0]:.4g} -> "
+        f"{r[0]['train']['losses'][-1]:.4g} on both ranks")
+    ar = r[0]["allreduce"]
+    log("data_parallel", f"gloo through the host on one card, not NCCL ({smi}): the step's "
+        f"all-reduce of {ar['bytes']} fp32 bytes takes {ar['ms']:.2f} ms (rank 0; rank 1 "
+        f"{r[1]['allreduce']['ms']:.2f} ms)")
+    log("data_parallel", f"gloo through the host on one card, not NCCL ({smi}): bf16 step wall "
+        f"{one_rank_warm_ms:.2f} ms at one rank (phase 11, batch 16) and "
+        + "/".join(f"{ri['train']['warm_ms']:.2f}" for ri in r)
+        + f" ms at {DP_RANKS} ranks (8 rows each, steps 11-{DP_STEPS}); the ranks' processes "
+        f"took {ranks_s:.1f} s in all")
+
+    # 3. the harness over two ranks against one
+    for i, ri in enumerate(r):
+        res = ri["lidc"]
+        bad = [k for k in ref_lidc if k.startswith(("GED_", "HMIoU_", "diversity_"))
+               or k in ("mIoU", "nonzero_fraction")
+               if not math.isclose(res[k], ref_lidc[k], rel_tol=1e-6, abs_tol=1e-12)]
+        bad += [k for k in ("IoU", "Dice")
+                if not np.allclose(res[k], ref_lidc[k], rtol=1e-6, atol=0)]
+        if bad or res["count"] != ref_lidc["count"]:
+            raise AssertionError(f"data_parallel: rank {i}'s harness differs from one "
+                                 f"process's in {bad}: {res} vs {ref_lidc}")
+        batches = 2  # 4 of the 8 images a rank, at batch 2
+        want = {"group_norm": 66 * DP_EVAL_STEPS * batches,
+                "flash_attention": 11 * DP_EVAL_STEPS * batches,
+                "group_norm_backward": 0, "quant_conv": 0}
+        if ri["lidc_launches"] != want:
+            raise AssertionError(f"data_parallel: rank {i}'s harness launches "
+                                 f"{ri['lidc_launches']} != {want}")
+    log("data_parallel", f"LIDC harness, phase 13's 8 PNG images and phase 11's weights, T = "
+        f"{DP_EVAL_STEPS}, batch 2 x 16: {DP_RANKS} ranks (4 images each) equal one process "
+        f"within 1e-6 relative on every rank: GED 1/4/8/16 "
+        + "/".join(f"{r[0]['lidc'][f'GED_{s}']:.6f}" for s in (1, 4, 8, 16))
+        + f", Dice {[round(v, 6) for v in r[0]['lidc']['Dice']]}; launches per rank "
+        f"{r[0]['lidc_launches']}")
+
+    # 4. the CLI under torchrun, through nccl
+    params = DP_DIR / "cli.json"
+    params.write_text(json.dumps(dict(_dp_train_params(), output_path=str(DP_DIR / "cli"))))
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "ccdm_tpu_torch.cli.train",
+                           str(params), "--multihost", "--max-steps", "4"],
+                          capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - start
+    if proc.returncode != 0 or "trained to step 4" not in proc.stdout or \
+            "nccl" not in proc.stdout:
+        raise AssertionError(f"data_parallel: the CLI under torchrun exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    if sorted(os.listdir(DP_DIR / "cli" / "model")) != ["4"]:
+        raise AssertionError("data_parallel: the CLI run saved no step-4 checkpoint")
+    log("data_parallel", f"python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
+        f"ccdm_tpu_torch.cli.train cli.json --multihost --max-steps 4: exit 0 in {cli_s:.1f} s, "
+        f"{[l for l in proc.stdout.splitlines() if 'nccl' in l][0].strip()}")
+    return {f"data_parallel_train_r{i}": {"launches": ri["train"]["launches"],
+                                          "path_launches": ri["train"]["path_launches"]}
+            for i, ri in enumerate(r)} | {
+        f"data_parallel_eval_lidc_r{i}": {"launches": ri["lidc_launches"],
+                                          "path_launches": ri["lidc_paths"]}
+        for i, ri in enumerate(r)}
+
+
+def _dp_train_params():
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+
+    return dict(DEMO_TRAIN_PARAMS, save_freq=DP_STEPS, validation_freq=DP_STEPS,
+                display_freq=10, progress_bar=False)
+
 
 def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if sys.argv[1:2] == ["--data-parallel-rank"]:  # one of phase 24's ranks
+        dp_child(int(sys.argv[2]))
+        return
     import torch
 
     smi = phase_device()
@@ -2360,6 +2805,7 @@ def main() -> None:
     quant_runs, _ = phase_quant_eval(smi, harness_rate)
     runs.update(quant_runs)
     phase_quant_reference()
+    runs.update(phase_data_parallel(smi, trained, runs["train"]["warm_ms"]))
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],

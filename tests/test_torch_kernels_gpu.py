@@ -473,3 +473,40 @@ def test_an_fp32_train_step_on_the_card_stays_fp32_under_pytorchs_tf32_default(c
             assert err <= 1e-6 * top, name
         else:
             assert err <= 1e-4 * peak, (name, err / peak)
+
+
+def test_wrappers_launch_on_their_tensors_card(cuda):
+    """Tensors on cuda:1 while the current device is 0: each wrapper (K1,
+    K2's forward and backward, K3) launches on cuda:1, reads that card's
+    attributes and streams, and agrees with its plain version there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.set_device(0)
+    x = torch.randn(4, 64, 32, 32, generator=gen, device=dev).to(BF16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(BF16)
+    w = torch.randn(64, generator=gen, device=dev) + 1
+    b = torch.randn(64, generator=gen, device=dev)
+    e = torch.randn(4, 64, generator=gen, device=dev).to(BF16)
+    assert bf16_within(gn.group_norm(x, w, b, 32, silu=True, add=e).float(),
+                       gn.torch_group_norm(x, w, b, 32, silu=True, add=e).float())
+    out = gn.group_norm_backward(dy, x, w, b, 32, silu=True, add=e)
+    ref = gn.torch_group_norm_backward(dy, x, w, b, 32, silu=True, add=e)
+    for got, want, rel in zip(out[:3], ref[:3], (1e-2, 1e-4, 1e-4)):
+        assert got.device == dev
+        _close_to_max(got, want, rel)
+    qkv = torch.randn(8, 96, 256, generator=gen, device=dev).to(BF16)
+    q, k, v = qkv[:, :32], qkv[:, 32:64], qkv[:, 64:]
+    attn = fa.flash_attention(q, k, v)
+    assert attn.device == dev
+    _check_attention(attn, q, k, v)
+    xq = torch.randn(2, 64, 32, 32, generator=gen, device=dev).to(BF16)
+    w_q, s_w = quant.weight_codes(torch.randn(96, 64, 3, 3, generator=gen, device=dev) * 0.1)
+    bias = torch.randn(96, generator=gen, device=dev) * 0.1
+    s_x = quant.dynamic_act_scale(xq)
+    conv = quant.quant_conv(xq, w_q, s_w, bias, s_x, 3, 1, 1)
+    assert conv.device == dev
+    assert torch.equal(conv, quant.quant_conv_plain(xq, w_q, s_w, bias, s_x, 3, 1, 1))
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
