@@ -56,22 +56,39 @@ def threefry2x32(key, x0: torch.Tensor, x1):
     return x0, x1
 
 
-def element_keys(seed: int, ids: torch.Tensor, stream: int) -> torch.Tensor:
-    """One key per element, `[N, 2]` int64: the seed's two words as the key,
-    `(id, stream)` as the counter."""
+def seed_words(seed: int) -> torch.Tensor:
+    """The seed's low and high 32-bit words, an int64 tensor `[2]`: the form
+    a served sampler takes its seed in (`utils/serving.py`)."""
     seed = int(seed)
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2^64), got {seed}")
+    return torch.tensor([seed & _MASK, seed >> 32], dtype=torch.int64)
+
+
+def element_keys(seed, ids: torch.Tensor, stream: int) -> torch.Tensor:
+    """One key per element, `[N, 2]` int64: the seed's two words as the key,
+    `(id, stream)` as the counter. `seed` is an int in [0, 2^64) or its
+    `seed_words`, an int64 tensor `[2]` on the ids' device."""
+    if isinstance(seed, torch.Tensor):
+        if seed.shape != (2,) or seed.dtype != torch.int64:
+            raise ValueError(f"seed words must be int64 [2], got {seed.dtype} "
+                             f"{tuple(seed.shape)}")
+        key = (seed[0], seed[1])
+    else:
+        key = tuple(seed_words(seed).tolist())
     ids = ids.to(torch.int64).reshape(-1)
-    y0, y1 = threefry2x32((seed & _MASK, seed >> 32), ids & _MASK, stream)
+    y0, y1 = threefry2x32(key, ids & _MASK, stream)
     return torch.stack([y0, y1], dim=-1)
 
 
-def bits(keys: torch.Tensor, step: int, n: int) -> torch.Tensor:
-    """`[N, n]` random 32-bit words (in int64) of step `step` of each
-    element's stream."""
+def bits(keys: torch.Tensor, step, n: int) -> torch.Tensor:
+    """`[N, n]` random 32-bit words (in int64) of step `step` (an int, or a
+    0-d int64 tensor on the keys' device, as a served program is given it)
+    of each element's stream."""
     pairs = torch.arange((n + 1) // 2, dtype=torch.int64, device=keys.device)
-    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]), pairs, int(step))
+    if not isinstance(step, torch.Tensor):
+        step = int(step)
+    y0, y1 = threefry2x32((keys[:, :1], keys[:, 1:]), pairs, step)
     return torch.stack([y0, y1], dim=-1).reshape(keys.shape[0], -1)[:, :n]
 
 

@@ -40,7 +40,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post_prob,
     theta_post_prob_from_idx,
 )
-from ccdm_tpu_torch.utils.precision import fp32_precision
+from ccdm_tpu_torch.ops.precision import fp32_precision
 
 # DenoiseFn: (xt [B,H,W,C] one-hot, t [B] int 1-based) -> p0 probs [B,H,W,C].
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -129,11 +129,62 @@ def ancestral_sampler(
     state, `uniforms[k]` `[K,B,H,W]` in the index state. With
     `config.encoder_reuse > 1`, `denoise_pair` is
     `DenoisingModel.denoise_fns_cached`'s `(full, reuse)`. The UNet calls
-    run their fp32 convolutions in fp32 (`utils.precision.fp32_precision`).
+    run their fp32 convolutions in fp32 (`ops.precision.fp32_precision`).
     """
     with fp32_precision():
         return _ancestral_sampler(d, denoise_fn, xt, config, element_keys=element_keys,
                                   gumbel=gumbel, uniforms=uniforms, denoise_pair=denoise_pair)
+
+
+class ReverseStep:
+    """The parts of one reverse step in a sampler state ("index" or
+    "onehot"), shared by `ancestral_sampler`'s loop and the served
+    sampler's programs (`eval/lidc_uncertainty.sampler_programs`):
+
+    - `initial(xt)`: the state of a one-hot prior draw;
+    - `unet_input(x)`: the one-hot UNet input of a state;
+    - `posterior(x, p0, t)`: the posterior probabilities `[B,H,W,C]`;
+    - `draw(step, probs)`: the next state, from element b's stream
+      `element_keys[b]` at `step` (an int or a 0-d tensor) or from the
+      injected `gumbel[step]` / `uniforms[step]`;
+    - `finish(x, probs, drew)`: the sampler's output after the last step,
+      the drawn state as one-hot where the last step drew (`t > 1`, only for
+      K == 1 < T), else the probabilities resolved by `step_T_sample`.
+    """
+
+    def __init__(self, d: CategoricalDiffusion, state: str, step_T_sample: str, *,
+                 element_keys: Optional[torch.Tensor] = None,
+                 gumbel: Optional[torch.Tensor] = None,
+                 uniforms: Optional[torch.Tensor] = None):
+        self.d, self.state, self.step_T_sample = d, state, step_T_sample
+        self.keys, self.gumbel, self.uniforms = element_keys, gumbel, uniforms
+
+    def initial(self, xt: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(xt, dim=-1) if self.state == "index" else xt
+
+    def unet_input(self, x: torch.Tensor) -> torch.Tensor:
+        return F.one_hot(x, self.d.num_classes).float() if self.state == "index" else x
+
+    def posterior(self, x: torch.Tensor, p0: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        if self.state == "index":
+            return theta_post_prob_from_idx(self.d, x, p0.float(), t).clamp_min(1e-12)
+        return theta_post_prob(self.d, x, p0.float(), t).clamp_min(1e-12)
+
+    def draw(self, step, probs: torch.Tensor) -> torch.Tensor:
+        if self.state == "index":
+            u = (self.uniforms[step] if self.uniforms is not None
+                 else random.uniform(self.keys, step, probs.shape[1:-1]))
+            return sample_categorical_icdf(probs, u)
+        g = (self.gumbel[step] if self.gumbel is not None
+             else random.gumbel(self.keys, step, probs.shape[1:]))
+        return sample_onehot(probs, gumbel=g)
+
+    def finish(self, x: torch.Tensor, probs: torch.Tensor, drew: bool) -> torch.Tensor:
+        if drew:
+            return self.unet_input(x)
+        if self.step_T_sample == "confidence":
+            return probs
+        return max_prob_onehot(probs)  # "majority" (also the reference's default)
 
 
 def _ancestral_sampler(d: CategoricalDiffusion, denoise_fn: DenoiseFn, xt: torch.Tensor,
@@ -154,51 +205,18 @@ def _ancestral_sampler(d: CategoricalDiffusion, denoise_fn: DenoiseFn, xt: torch
     if element_keys is None and (uniforms if state == "index" else gumbel) is None:
         raise ValueError(f"the {state} state draws its noise from element_keys or from "
                          f"injected {'uniforms' if state == 'index' else 'gumbel'} noise")
+    rs = ReverseStep(d, state, config.step_T_sample, element_keys=element_keys,
+                     gumbel=gumbel, uniforms=uniforms)
     batch = xt.shape[0]
-
-    def t_vec(t_scalar):
-        return torch.full((batch,), t_scalar, dtype=torch.int32, device=xt.device)
-
-    def resolve_final(probs):
-        if config.step_T_sample == "confidence":
-            return probs
-        return max_prob_onehot(probs)  # "majority" (also the reference's default)
-
-    if state == "index":
-        num_classes = xt.shape[-1]
-
-        def posterior(idx, p0, t):
-            return theta_post_prob_from_idx(d, idx, p0.float(), t).clamp_min(1e-12)
-
-        def draw(step, probs):
-            u = (uniforms[step] if uniforms is not None
-                 else random.uniform(element_keys, step, probs.shape[1:-1]))
-            return sample_categorical_icdf(probs, u)
-
-        idx = torch.argmax(xt, dim=-1)
-        for step, t_scalar in enumerate(t_grid[:-1].tolist()):
-            t = t_vec(t_scalar)
-            p0 = denoise(step, F.one_hot(idx, num_classes).float(), t)
-            idx = draw(step, posterior(idx, p0, t))
-        t_final = int(t_grid[-1])
-        t = t_vec(t_final)
-        probs = posterior(idx, denoise(k - 1, F.one_hot(idx, num_classes).float(), t), t)
-        if t_final > 1:
-            # only for K == 1 < T: the single step ends in an ordinary draw
-            return F.one_hot(draw(k - 1, probs), num_classes).float()
-        return resolve_final(probs)
-
-    x = xt
+    x = rs.initial(xt)
+    # t descends to 1 (to T only when K == 1 < T): every step but a last one
+    # at t == 1 draws the next state
     for step, t_scalar in enumerate(t_grid.tolist()):
-        t = t_vec(t_scalar)
-        probs = theta_post_prob(d, x, denoise(step, x, t).float(), t).clamp_min(1e-12)
+        t = torch.full((batch,), t_scalar, dtype=torch.int32, device=xt.device)
+        probs = rs.posterior(x, denoise(step, rs.unet_input(x), t), t)
         if t_scalar > 1:
-            g = (gumbel[step] if gumbel is not None
-                 else random.gumbel(element_keys, step, probs.shape[1:]))
-            x = sample_onehot(probs, gumbel=g)
-        else:
-            x = resolve_final(probs)
-    return x
+            x = rs.draw(step, probs)
+    return rs.finish(x, probs, drew=int(t_grid[-1]) > 1)
 
 
 def sample_prior_per_key(keys: torch.Tensor, height: int, width: int,

@@ -37,11 +37,15 @@ import torch
 from ccdm_tpu_torch.config import expanduservars, with_defaults
 from ccdm_tpu_torch.diffusion import random
 from ccdm_tpu_torch.diffusion.sampling import (
+    ReverseStep,
     SamplerConfig,
+    _resolve_state,
     ancestral_sampler,
     sample_prior_per_key,
+    subsampled_t_values,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.ops.precision import fp32_precision
 from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.parallel.mesh import pad_chunk  # noqa: F401  (re-exported)
 
@@ -68,8 +72,10 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     noise the JAX sampler drew instead.
 
     `feature_fn(feature_net, images)` gives the DINO map of the B images,
-    once, which is then repeated S times; `feature_net` (the encoder's
-    weights, the JAX version's `feature_params`) is passed to each call.
+    once, in fp32 whatever the process's TF32 settings (as the train step
+    and the calibration compute it), which is then repeated S times;
+    `feature_net` (the encoder's weights, the JAX version's
+    `feature_params`) is passed to each call.
     `encoder_reuse` R > 1 replays the UNet encoder's activations on the
     steps between every R-th.
     """
@@ -86,13 +92,9 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
         if indices is None:
             indices = torch.arange(b)
         indices = torch.as_tensor(indices, dtype=torch.int64).to(images.device)
-        ids = (indices[:, None] * num_samples
-               + torch.arange(num_samples, device=images.device)).reshape(-1)
+        ids = _element_ids(indices, num_samples)
         with torch.inference_mode():
-            cond = images.repeat_interleave(num_samples, dim=0)
-            fc = None
-            if feature_fn is not None:
-                fc = feature_fn(feature_net, images).repeat_interleave(num_samples, dim=0)
+            cond, fc = _conditioning(images, num_samples, feature_fn, feature_net)
             xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
                   if prior is None else prior)
             pair = (model.denoise_fns_cached(net, cond, fc)
@@ -103,6 +105,106 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
         return out.reshape(b, num_samples, h, w, c)
 
     return run
+
+
+def _element_ids(indices: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """The global element ids `index * S + sample`, image-major, `[B*S]`."""
+    return (indices[:, None] * num_samples
+            + torch.arange(num_samples, device=indices.device)).reshape(-1)
+
+
+def _conditioning(images: torch.Tensor, num_samples: int, feature_fn, feature_net):
+    """The UNet's conditioning of B images repeated S times, image-major:
+    `(images [B*S,H,W,Ci], DINO map [B*S,h,w,D] or None)`. DINO's patch
+    embedding is an fp32 convolution, which cuDNN runs in TF32 by default:
+    it runs in fp32 here, as in the train step and the calibration."""
+    cond = images.repeat_interleave(num_samples, dim=0)
+    if feature_fn is None:
+        return cond, None
+    with fp32_precision():
+        fc = feature_fn(feature_net, images)
+    return cond, fc.repeat_interleave(num_samples, dim=0)
+
+
+class _StartProgram(torch.nn.Module):
+    """`(images [B,H,W,Ci], seed words [2]) -> (state, cond[, fc])`: the
+    prior draw in the sampler's state, the images repeated S times and the
+    DINO map, once (the encoder's weights are this module's)."""
+
+    def __init__(self, model: DenoisingModel, num_samples: int, state: str, feature_fn,
+                 feature_net):
+        super().__init__()
+        self.model, self.num_samples, self.state = model, num_samples, state
+        self.feature_fn, self.feature_net = feature_fn, feature_net
+
+    def forward(self, images: torch.Tensor, seed: torch.Tensor):
+        b, h, w, _ = images.shape
+        ids = _element_ids(torch.arange(b, device=images.device), self.num_samples)
+        cond, fc = _conditioning(images, self.num_samples, self.feature_fn, self.feature_net)
+        xt = sample_prior_per_key(random.element_keys(seed, ids, random.PRIOR), h, w,
+                                  self.model.diffusion.num_classes)
+        x = ReverseStep(self.model.diffusion, self.state, self.model.step_T_sample).initial(xt)
+        return (x, cond) if fc is None else (x, cond, fc)
+
+
+class _StepProgram(torch.nn.Module):
+    """`(state, seed words, k, t, cond[, fc]) -> (next state, probs)`: one
+    UNet call at the 0-d timestep `t`, its posterior and the draw of step
+    `k` (a 0-d int64 tensor) from each element's chain stream. The UNet's
+    weights (and the int8 sites' codes and static scales, its buffers) are
+    this module's."""
+
+    def __init__(self, model: DenoisingModel, num_samples: int, state: str, net):
+        super().__init__()
+        self.model, self.num_samples, self.state, self.net = model, num_samples, state, net
+
+    def forward(self, x: torch.Tensor, seed: torch.Tensor, k: torch.Tensor, t: torch.Tensor,
+                cond: torch.Tensor, fc: Optional[torch.Tensor] = None):
+        batch = cond.shape[0]
+        ids = _element_ids(torch.arange(batch // self.num_samples, device=cond.device),
+                           self.num_samples)
+        rs = ReverseStep(self.model.diffusion, self.state, self.model.step_T_sample,
+                         element_keys=random.element_keys(seed, ids, random.CHAIN))
+        t_vec = t.reshape(1).repeat(batch).to(torch.int32)
+        p0 = self.net(rs.unet_input(x), cond, t_vec, fc)["diffusion_out"]
+        probs = rs.posterior(x, p0, t_vec)
+        return rs.draw(k, probs), probs
+
+
+class _FinalProgram(torch.nn.Module):
+    """`(state, probs) -> maps [B*S,H,W,C]` after the last step:
+    `ReverseStep.finish`, with the last step's draw fixed by the t-grid."""
+
+    def __init__(self, model: DenoisingModel, state: str, drew: bool):
+        super().__init__()
+        self.rs = ReverseStep(model.diffusion, state, model.step_T_sample)
+        self.drew = drew
+
+    def forward(self, x: torch.Tensor, probs: torch.Tensor):
+        return self.rs.finish(x, probs, self.drew)
+
+
+def sampler_programs(model: DenoisingModel, net: torch.nn.Module, num_samples: int,
+                     num_steps: Optional[int] = None, feature_fn=None, feature_net=None):
+    """`make_prob_sampler(model, S, K, feature_fn)` with the default indices
+    and no encoder reuse, cut into three modules for `torch.export`
+    (`utils/serving.py`), so that one UNet call is traced, not K:
+
+        x, *cond = start(images, seed)
+        for k, t in enumerate(t_grid):
+            x, probs = step(x, seed, k, t, *cond)
+        maps = final(x, probs)          # [B*S,H,W,C], image-major
+
+    `seed` is `random.seed_words` of the run's seed, `k` and `t` 0-d int64
+    tensors. Returns `(start, step, final, t_grid, state)`; every step is
+    `ReverseStep`'s, as in `ancestral_sampler`, so the maps equal
+    `make_prob_sampler`'s bit for bit where the device repeats its sums."""
+    t_grid = subsampled_t_values(model.time_steps, num_steps or model.time_steps)
+    state = _resolve_state(SamplerConfig(len(t_grid)), model.diffusion.num_classes)
+    return (_StartProgram(model, num_samples, state, feature_fn, feature_net),
+            _StepProgram(model, num_samples, state, net),
+            _FinalProgram(model, state, drew=int(t_grid[-1]) > 1),
+            t_grid, state)
 
 
 def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.Module:

@@ -11,5 +11,12 @@
   `QuantConv2d` module and the static scales' calibration.
 
 Each wrapper runs its plain version on CPU tensors and its kernel on CUDA
-tensors (or raises); `_build` compiles the kernels on first use.
+tensors (or raises); `_build` compiles the kernels on first use. Importing
+the package registers the three as PyTorch ops (`ccdm::group_norm`,
+`ccdm::flash_attention`, `ccdm::quant_conv`), which the wrappers call only
+while `torch.export` traces and which a served sampler's graphs hold
+(`utils/serving.py`); `precision.fp32_precision` keeps fp32 arithmetic in
+fp32 on the card.
 """
+
+from ccdm_tpu_torch.ops import flash_attention, group_norm, precision, quant  # noqa: F401

@@ -127,7 +127,11 @@ def _path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(qᵀk / sqrt(dh)) applied to v, `[BH, dh, T]` in and out;
-    differentiable through `FlashAttentionFunction` where autograd records."""
+    differentiable through `FlashAttentionFunction` where autograd records.
+    While `torch.export` traces, the registered op `ccdm::flash_attention`
+    stands in its place."""
+    if torch.compiler.is_exporting():
+        return torch.ops.ccdm.flash_attention(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v)
     return _flash_attention_forward(q, k, v)
@@ -170,3 +174,22 @@ def _flash_attention_forward(q: torch.Tensor, k: torch.Tensor,
     launches += 1
     path_launches[path] += 1
     return out
+
+
+# The forward as a registered op for `torch.export` (see `ops/group_norm.py`):
+# the plain version on CPU tensors, the kernel on CUDA tensors, both
+# writing a contiguous `[BH, dh, T]`; the path, which reads the views'
+# addresses, is chosen in the real implementation.
+@torch.library.custom_op("ccdm::flash_attention", mutates_args=(), device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return dense_attention(q, k, v)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _flash_attention_op_cuda(q, k, v):
+    return _flash_attention_forward(q, k, v)
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_op_fake(q, k, v):
+    return q.new_empty(q.shape)

@@ -374,7 +374,10 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm over `[B, C, *spatial]` with an optional fused SiLU and an
     optional `[B, C]` add in front of it; differentiable through
-    `GroupNormFunction` where autograd records."""
+    `GroupNormFunction` where autograd records. While `torch.export` traces,
+    the registered op `ccdm::group_norm` stands in its place."""
+    if torch.compiler.is_exporting():
+        return torch.ops.ccdm.group_norm(x, weight, bias, add, groups, eps, silu)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, weight, bias, add)):
         return GroupNormFunction.apply(x, weight, bias, add, groups, eps, silu)
@@ -408,3 +411,25 @@ def _group_norm_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     launches += 1
     path_launches[plan.path] += 1
     return y
+
+
+# The forward as a registered op, so that `torch.export` (utils/serving.py)
+# records one node a call: the dispatcher takes the plain version for CPU
+# tensors and the kernel for CUDA tensors; the fake gives the output's
+# metadata while an export traces (the launch plan reads pointers and stays
+# in the real implementation).
+@torch.library.custom_op("ccdm::group_norm", mutates_args=(), device_types="cpu")
+def _group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   add: Optional[torch.Tensor], groups: int, eps: float,
+                   silu: bool) -> torch.Tensor:
+    return torch_group_norm(x, weight, bias, groups, eps, silu, add)
+
+
+@_group_norm_op.register_kernel("cuda")
+def _group_norm_op_cuda(x, weight, bias, add, groups, eps, silu):
+    return _group_norm_forward(x, weight, bias, groups, eps, silu, add)
+
+
+@_group_norm_op.register_fake
+def _group_norm_op_fake(x, weight, bias, add, groups, eps, silu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

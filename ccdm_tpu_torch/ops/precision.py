@@ -9,8 +9,12 @@ Trained in TF32, the LIDC gate's model read GED_16 0.2308 and HM-IoU_16
 `tools/demo_gate.py`, seed 0, 5000 steps; PERF.md §6), which still missed
 the gate's HM-IoU_16 >= 0.69: it passed only once the init also drew
 flax's truncated normal (`models/builder.init_weights_`). So the train
-step and the samplers compute in fp32 whatever the process's TF32
-settings, as the JAX package's fp32 reference does.
+step, the samplers (DINO's fp32 patch conv included) and the served
+sampler compute in fp32 whatever the process's TF32 settings, as the JAX
+package's fp32 reference does. The settings are not part of an exported
+graph, so `utils/serving.load_sampler` sets them around every program call;
+this module sits in `ops` because a serving process imports nothing else
+of the port.
 """
 
 from __future__ import annotations

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ccdm_tpu_torch.ops import _build
-from ccdm_tpu_torch.utils.precision import fp32_precision
+from ccdm_tpu_torch.ops.precision import fp32_precision
 
 LOGGER = logging.getLogger(__name__)
 
@@ -199,6 +199,8 @@ def _over_127(x: torch.Tensor) -> torch.Tensor:
     number (or a CPU scalar) multiplies by its reciprocal instead, which
     moves a scale by an ulp from the JAX package's, so the divisor is an
     fp32 tensor on x's device, made once per device."""
+    if torch.compiler.is_exporting():  # a node of the traced graph, not a cached tensor
+        return x.float() / torch.full((), 127.0, device=x.device)
     divisor = _DIVISORS.get(x.device)
     if divisor is None:
         with torch.inference_mode(False):  # a plain tensor, usable in any mode
@@ -251,13 +253,14 @@ def quant_conv_plain(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
                      bias: torch.Tensor, s_x: torch.Tensor, kernel_size: int,
                      stride: int = 1, padding: int = 0) -> torch.Tensor:
     """The plain version: the same codes, an exact integer convolution (a
-    float64 `F.conv2d` of the codes), the same fp32 epilogue."""
+    float64 `F.conv2d` of the codes), the same fp32 epilogue; the output
+    contiguous NCHW, as the kernel writes it."""
     x_q = quantize_symmetric(x, s_x)
     w = unpack_codes(w_q, x.shape[1], kernel_size)
     acc = F.conv2d(x_q.double(), w.double(), stride=stride, padding=padding)
     scale = (s_x * s_w)[:, None, None]  # rounded to fp32 first, as the JAX package does
     out = acc.float() * scale + bias[:, None, None]
-    return out.to(x.dtype)
+    return out.to(x.dtype).contiguous()
 
 
 def quant_conv(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, bias: torch.Tensor,
@@ -267,8 +270,11 @@ def quant_conv(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, bias: torc
     an fp32 `bias` `[Cout]` and the activation scale `s_x` (an fp32 device
     scalar): 3x3 with stride 1 or 2 and padding 1, or 1x1 with padding 0.
     Output NCHW in x's dtype. The plain version on CPU tensors, the kernel on
-    CUDA tensors."""
+    CUDA tensors; while `torch.export` traces, the registered op
+    `ccdm::quant_conv`."""
     global launches
+    if torch.compiler.is_exporting():
+        return torch.ops.ccdm.quant_conv(x, w_q, s_w, bias, s_x, kernel_size, stride, padding)
     if x.device.type == "cpu":
         return quant_conv_plain(x, w_q, s_w, bias, s_x, kernel_size, stride, padding)
     if x.device.type != "cuda":
@@ -313,33 +319,65 @@ def quant_conv(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, bias: torc
     return out
 
 
+# The int8 conv as a registered op for `torch.export` (see `ops/group_norm.py`):
+# the plain version on CPU tensors, the kernel on CUDA tensors; the plan,
+# which reads the addresses, is chosen in the real implementation.
+@torch.library.custom_op("ccdm::quant_conv", mutates_args=(), device_types="cpu")
+def _quant_conv_op(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
+                   bias: torch.Tensor, s_x: torch.Tensor, kernel_size: int, stride: int,
+                   padding: int) -> torch.Tensor:
+    return quant_conv_plain(x, w_q, s_w, bias, s_x, kernel_size, stride, padding)
+
+
+@_quant_conv_op.register_kernel("cuda")
+def _quant_conv_op_cuda(x, w_q, s_w, bias, s_x, kernel_size, stride, padding):
+    return quant_conv(x, w_q, s_w, bias, s_x, kernel_size, stride, padding)
+
+
+@_quant_conv_op.register_fake
+def _quant_conv_op_fake(x, w_q, s_w, bias, s_x, kernel_size, stride, padding):
+    b, _, h, w = x.shape
+    return x.new_empty(b, w_q.shape[0], (h + 2 * padding - kernel_size) // stride + 1,
+                       (w + 2 * padding - kernel_size) // stride + 1)
+
+
 class QuantConv2d(nn.Conv2d):
     """`nn.Conv2d` running the int8 path; fp32 `weight` and `bias`.
 
     `act_scale` is the static scale of the current UNet call (set by
     `static_scales`; None: dynamic). Under `recording_absmax` the module
     records its input's absmax and runs the float conv in fp32 with the
-    fp32 weights instead, so later sites see exact statistics."""
+    fp32 weights instead, so later sites see exact statistics.
+
+    The scale and the codes (`w_q`, `s_w`) are buffers, outside the state
+    dict, so that an exported program (`utils/serving.py`) holds them as
+    its constants; while an export traces, the codes derived before it
+    are used as they are (the traced weight is fake)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, device=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, device=device, dtype=torch.float32)
-        self.act_scale: Optional[torch.Tensor] = None
+        self.register_buffer("act_scale", None, persistent=False)
+        self.register_buffer("w_q", None, persistent=False)
+        self.register_buffer("s_w", None, persistent=False)
         self.recording = False
         self.absmax: Optional[torch.Tensor] = None
-        self._codes = None
         self._codes_key = None
 
     def codes(self):
         """`weight_codes(self.weight)`, derived again only when the weight's
         storage or version counter moved."""
+        if torch.compiler.is_exporting():
+            if self.w_q is None:
+                raise RuntimeError("QuantConv2d: derive the codes (codes()) before an export")
+            return self.w_q, self.s_w
         key = (self.weight.data_ptr(), self.weight._version)
         if key != self._codes_key:
             with torch.inference_mode(False), torch.no_grad():
-                self._codes = weight_codes(self.weight)
+                self.w_q, self.s_w = weight_codes(self.weight)
             self._codes_key = key
-        return self._codes
+        return self.w_q, self.s_w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.recording:

@@ -15,7 +15,7 @@ into its key). `train_loss` also takes injected `t` and `x_t`. The metrics
 stay on the device; the trainer reads them two steps later. Not ported, by
 decision: `make_multi_step` (several steps a launch).
 
-The forward and the backward run under `utils.precision.fp32_precision`:
+The forward and the backward run under `ops.precision.fp32_precision`:
 fp32 convolutions (the output heads) in fp32, not in PyTorch's default TF32.
 
 DINO conditioning, as the JAX step: a frozen encoder (`feature_fn`) maps
@@ -57,7 +57,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
 from ccdm_tpu_torch.models.builder import DenoisingModel
 from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
-from ccdm_tpu_torch.utils.precision import fp32_precision
+from ccdm_tpu_torch.ops.precision import fp32_precision
 
 
 def step_seed(seed: int, step: int) -> int:

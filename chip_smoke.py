@@ -222,6 +222,25 @@ without printing its result:
    --nproc_per_node 1 -m ccdm_tpu_torch.cli.train <json> --multihost
    --max-steps 4` through nccl: exit 0 and its step-4 checkpoint.
 
+25. serving: the sampler exported as a serving artifact
+   (`ccdm_tpu_torch/utils/serving.py`: start, step and final programs, the
+   three kernels as the registered ops `ccdm::*`) into
+   `build/chip_smoke_serving/`, then loaded and served in one fresh process
+   (`serving_child`) that imports only `torch` and the
+   loader (no other port module, no jax), cuDNN deterministic in both
+   processes, TF32 at PyTorch's default: (a) the flagship 8 x 16 x 250 bf16,
+   (b) the same weights on calibrated static int8 scales, (c)
+   `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 250 with DINO ViT-S/8 (index state), (d)
+   the flagship in fp32, 1 x 2 x 3. Each served run's maps bit-equal to the
+   eager `make_prob_sampler` on the same seed, and its launches by kernel and
+   path equal the eager run's and (a-c) the sites x 250; (d) served without
+   the loader's `fp32_precision` must differ; a batch of 9 raises. First,
+   the repair's check: the Cityscapes-DINO evaluator under PyTorch's default
+   settings computes the DINO map `fp32_precision` gives. Prints per case
+   the export seconds, artifact MB, load seconds and served against eager
+   rates (beside phases 5, 7 and 22's), and the host µs a call of each
+   kernel's registered op against its eager wrapper.
+
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
 """
@@ -726,7 +745,7 @@ def phase_cityscapes(smi, reuse: int):
         f"DINO {dino_ms:.2f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"({smi}); launches {launches}, by path {paths}; sum err {sum_err:.2g}; labels at "
         f"{CS_LABEL_HW[0]}x{CS_LABEL_HW[1]} in [{int(labels.min())}, {int(labels.max())}]")
-    return {"launches": launches, "path_launches": paths}
+    return {"launches": launches, "path_launches": paths, "images_per_s": CS_IMAGES / wall}
 
 
 def phase_cityscapes_reference():
@@ -2764,6 +2783,333 @@ def phase_data_parallel(smi, masters, one_rank_warm_ms: float):
         for i, ri in enumerate(r)}
 
 
+SERVE_DIR = Path("build/chip_smoke_serving")
+SERVE_SEED = 2 ** 40 + 25  # both seed words non-zero
+# what a serving process may import of the port: the kernels' package and
+# the loader
+SERVE_MODULES = {"ccdm_tpu_torch", "ccdm_tpu_torch.ops", "ccdm_tpu_torch.utils",
+                 "ccdm_tpu_torch.utils.serving"}
+
+
+def serving_child(jobs_file: Path) -> None:
+    """Phase 25's serving process: imports `torch` and the loader only, then
+    per job loads an artifact, serves it `serves` times (the first call's
+    maps and launches are the job's; a second is timed warm) and writes the
+    maps.
+    cuDNN is held to its deterministic algorithms, as in the parent; the
+    TF32 settings are PyTorch's defaults. A job with `no_fp32` serves with
+    the loader's `fp32_precision` taken out (the control of case d)."""
+    import contextlib
+
+    import torch
+
+    import ccdm_tpu_torch.ops.precision
+    from ccdm_tpu_torch.ops import flash_attention as fa
+    from ccdm_tpu_torch.ops import group_norm as gn
+    from ccdm_tpu_torch.ops import quant
+    from ccdm_tpu_torch.utils.serving import load_sampler
+
+    torch.backends.cudnn.deterministic = True
+    fp32 = ccdm_tpu_torch.ops.precision.fp32_precision
+    results = []
+    for job in json.loads(jobs_file.read_text()):
+        ccdm_tpu_torch.ops.precision.fp32_precision = (
+            contextlib.nullcontext if job.get("no_fp32") else fp32)
+        start = time.perf_counter()
+        serve = load_sampler(job["artifact"])
+        load_s = time.perf_counter() - start
+        images = torch.from_numpy(np.load(job["images"])).cuda()
+        seed = torch.tensor(job["seed"], dtype=torch.int64, device="cuda")
+        walls, counts = [], None
+        for _ in range(job.get("serves", 1)):
+            torch.cuda.synchronize()
+            gn.launches = fa.launches = quant.launches = 0
+            for c in (gn.path_launches, fa.path_launches, quant.path_launches):
+                c.update(dict.fromkeys(c, 0))
+            start = time.perf_counter()
+            maps = serve(images, seed)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            if counts is None:
+                counts = ({"group_norm": gn.launches, "flash_attention": fa.launches,
+                           "group_norm_backward": 0, "quant_conv": quant.launches},
+                          {"group_norm": dict(gn.path_launches),
+                           "flash_attention": dict(fa.path_launches),
+                           "quant_conv": dict(quant.path_launches)})
+                np.save(job["out"], maps.cpu().numpy())
+        del maps
+        wrong = None
+        if job.get("wrong_batch"):
+            try:
+                serve(torch.zeros(images.shape[0] + 1, *images.shape[1:], device="cuda"), seed)
+                wrong = "served"
+            except ValueError as e:
+                wrong = str(e)
+        results.append({"load_s": load_s, "serve_s": walls, "launches": counts[0],
+                        "path_launches": counts[1], "wrong_batch": wrong})
+        del serve
+        torch.cuda.empty_cache()
+    modules = sorted(m for m in sys.modules if m.startswith(("ccdm", "jax", "flax")))
+    print(json.dumps({"modules": modules, "jobs": results}), flush=True)
+
+
+def host_us_per_call(fn, calls: int = 2000) -> float:
+    """Host microseconds a call: `calls` calls enqueued back to back at a
+    site small enough that the card keeps up, then one synchronise."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
+def serving_host_costs():
+    """Per kernel, the host µs a call of its eager wrapper and of its
+    registered op (`torch.ops.ccdm.*`, the node a served graph calls), at a
+    small bf16 site, in turns wrapper, op, op, wrapper."""
+    import torch
+
+    from ccdm_tpu_torch.ops import flash_attention as fa
+    from ccdm_tpu_torch.ops import group_norm as gn
+    from ccdm_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    x = torch.randn(2, 32, 8, 8, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.rand(32, generator=gen, device="cuda")
+    b = torch.randn(32, generator=gen, device="cuda")
+    qkv = torch.randn(2, 96, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :32], qkv[:, 32:64], qkv[:, 64:]
+    w_q, s_w = quant.weight_codes(torch.randn(32, 32, 3, 3, generator=gen, device="cuda"))
+    s_x = quant.static_act_scale(torch.tensor(3.0, device="cuda"))
+    pairs = {
+        "group_norm": (lambda: gn.group_norm(x, w, b, 32, 1e-5, True),
+                       lambda: torch.ops.ccdm.group_norm(x, w, b, None, 32, 1e-5, True)),
+        "flash_attention": (lambda: fa.flash_attention(q, k, v),
+                            lambda: torch.ops.ccdm.flash_attention(q, k, v)),
+        "quant_conv": (lambda: quant.quant_conv(x, w_q, s_w, b, s_x, 3, 1, 1),
+                       lambda: torch.ops.ccdm.quant_conv(x, w_q, s_w, b, s_x, 3, 1, 1)),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (wrapper, op) in pairs.items():
+            if not torch.equal(wrapper(), op()):
+                raise AssertionError(f"{name}: the registered op and the wrapper disagree")
+            times = [host_us_per_call(f) for f in (wrapper, op, op, wrapper)]
+            out[name] = {"wrapper_us": (times[0] + times[3]) / 2, "op_us": (times[1] + times[2]) / 2}
+    return out
+
+
+def phase_serving(smi, eager_rates):
+    """Phase 25: the sampler exported as a serving artifact (`utils/serving.py`)
+    on the card, loaded and served in a fresh process that imports only
+    `torch` and the loader, against the eager `make_prob_sampler` on the same
+    seed, cuDNN deterministic in both processes, TF32 at PyTorch's default:
+    (a) the flagship 8 x 16 x 250 bf16, (b) the same model with calibrated
+    static int8 scales, (c) `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 250 with DINO
+    ViT-S/8 (the evaluator's own sampler; its DINO map must equal the one
+    computed under `fp32_precision`), (d) the flagship in fp32, 1 x 2 x 3 at
+    128x128, and its control served without the loader's `fp32_precision`."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.diffusion import random
+    from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.ops import quant
+    from ccdm_tpu_torch.ops.precision import fp32_precision
+    from ccdm_tpu_torch.utils.serving import save_sampler
+
+    phase_start = time.perf_counter()
+    SERVE_DIR.mkdir(parents=True, exist_ok=True)
+    host_us = serving_host_costs()
+    saved_flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32)
+    # PyTorch's defaults (phase 1 turned TF32 off)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the repair's check: the Cityscapes-DINO evaluator under PyTorch's
+    # default settings (cuDNN's own algorithms too) computes the DINO map
+    # that fp32_precision gives
+    ev = CityscapesEvaluator(dict(CITYSCAPES_EVAL_PARAMS))
+    ev.build((*CS_HW, 3), CS_IMAGES)
+    unzero_(ev.model.unet, seed=5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cs_images = torch.randn(CS_IMAGES, *CS_HW, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        with fp32_precision():
+            dino_fp32 = ev.feature_fn(ev.feature_net, cs_images)
+        dino_tf32 = ev.feature_fn(ev.feature_net, cs_images)  # the control: TF32 on
+    seen = []
+    hook = ev.feature_net.register_forward_hook(lambda m, i, out: seen.append(out))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ev.predict_batch(cs_images, SERVE_SEED)
+    torch.cuda.synchronize()
+    ev_rate = CS_IMAGES / (time.perf_counter() - start)
+    hook.remove()
+    if len(seen) != 1 or not torch.equal(seen[0], dino_fp32):
+        raise AssertionError("the Cityscapes evaluator's DINO map under the TF32 default is "
+                             "not the one computed under fp32_precision")
+    tf32_err = float((dino_tf32 - dino_fp32).abs().max())
+    del seen, dino_tf32, dino_fp32
+
+    torch.backends.cudnn.deterministic = True  # for the rest: served against eager, bit for bit
+    seed_words = random.seed_words(SERVE_SEED).tolist()
+    cases, jobs = {}, []
+
+    def add_case(name, model, net, images, samples, steps, feature_fn=None, feature_net=None,
+                 **job):
+        """The eager maps, the export, and the serving process's job."""
+        torch.cuda.synchronize()
+        reset_counts()
+        start = time.perf_counter()
+        eager = make_prob_sampler(model, samples, steps, feature_fn=feature_fn)(
+            net, images, key=SERVE_SEED, feature_net=feature_net)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - start
+        launches = read_counts()
+        start = time.perf_counter()
+        path = save_sampler(str(SERVE_DIR / f"{name}.ccdm"), model, net,
+                            tuple(images.shape[1:]), num_samples=samples, num_steps=steps,
+                            batch_size=images.shape[0], feature_fn=feature_fn,
+                            feature_net=feature_net)
+        export_s = time.perf_counter() - start
+        np.save(SERVE_DIR / f"{name}_images.npy", images.cpu().numpy())
+        cases[name] = {"eager": eager.cpu(), "eager_s": eager_s, "launches": launches,
+                       "export_s": export_s, "mb": Path(path).stat().st_size / 1e6,
+                       "images": images.shape[0], "samples": samples}
+        jobs.append(dict(name=name, artifact=path, images=str(SERVE_DIR / f"{name}_images.npy"),
+                         seed=seed_words, out=str(SERVE_DIR / f"{name}_maps.npy"), **job))
+
+    # (a) and (b): the flagship, float then int8 on calibrated static scales
+    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence")
+    model = build_model(params, 2, 1, 128, generator=torch.Generator().manual_seed(0))
+    unzero_(model.unet, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    images = torch.randn(IMAGES, 128, 128, 1, generator=gen, device="cuda")
+    add_case("flagship", model, model.unet, images, SAMPLES, STEPS, serves=2, wrong_batch=True)
+    int8 = build_model(dict(params, quantized_inference="static"), 2, 1, 128)
+    int8.unet.load_state_dict(model.unet.state_dict())
+    int8 = quant.calibrate_static_scales(int8, int8.unet, images[:2])
+    add_case("flagship_int8", int8, int8.unet, images, SAMPLES, STEPS)
+    del model, int8
+
+    # (c) Cityscapes with DINO, the evaluator's model, encoder and sampler
+    add_case("cityscapes", ev.model, ev.model.unet, cs_images, 1, STEPS, ev.feature_fn,
+             ev.feature_net, serves=2)
+    del ev
+
+    # (d) fp32 at a small size, served under the TF32 default, and its control
+    params32 = dict(params, compute_dtype="float32")
+    model32 = build_model(params32, 2, 1, 128, generator=torch.Generator().manual_seed(3))
+    unzero_(model32.unet, seed=3)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    add_case("flagship_fp32", model32, model32.unet,
+             torch.randn(1, 128, 128, 1, generator=gen, device="cuda"), 2, 3)
+    jobs.append(dict(jobs[-1], name="flagship_fp32_no_fp32", no_fp32=True,
+                     out=str(SERVE_DIR / "flagship_fp32_no_fp32_maps.npy")))
+    del model32
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32 = saved_flags
+    torch.cuda.empty_cache()
+
+    # one fresh process serves every artifact
+    jobs_file = SERVE_DIR / "jobs.json"
+    jobs_file.write_text(json.dumps(jobs))
+    start = time.perf_counter()
+    # started from a two-line entry, not as `python3 chip_smoke.py <flag>`: run
+    # as this script's `__main__` the same function served several times slower, its
+    # host busy for the whole wall (PERF.md §6)
+    entry = ("import sys; from pathlib import Path; sys.path.insert(0, '.'); import chip_smoke; "
+             "chip_smoke.serving_child(Path(sys.argv[1]))")
+    proc = subprocess.run([sys.executable, "-c", entry, str(jobs_file)],
+                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                          timeout=600)
+    child_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"serving process exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    port = {m for m in child["modules"] if not m.startswith("ccdm_tpu_torch.ops.")}
+    if not port <= SERVE_MODULES or any(m.split(".")[0] in ("jax", "flax", "ccdm_tpu")
+                                        for m in child["modules"]):
+        raise AssertionError(f"the serving process imported {child['modules']}")
+
+    runs, rows = {}, {}
+    for job, res in zip(jobs, child["jobs"]):
+        name = job["name"]
+        case = cases["flagship_fp32" if job.get("no_fp32") else name]
+        maps = torch.from_numpy(np.load(job["out"]))
+        if job.get("no_fp32"):
+            if torch.equal(maps, case["eager"]):
+                raise AssertionError("control: served without fp32_precision under the TF32 "
+                                     "default, the fp32 maps equal eager's, so case d cannot "
+                                     "see TF32")
+            rows[name] = {"max_abs_diff": float((maps - case["eager"]).abs().max())}
+            continue
+        if maps.shape != case["eager"].shape or not torch.equal(maps, case["eager"]):
+            diff = (float((maps - case["eager"]).abs().max())
+                    if maps.shape == case["eager"].shape else None)
+            raise AssertionError(f"serving {name}: served maps {tuple(maps.shape)} not bit-equal "
+                                 f"to eager {tuple(case['eager'].shape)} (max diff {diff})")
+        want, want_paths = case["launches"]
+        if res["launches"] != want or any(res["path_launches"][k] != want_paths[k]
+                                          for k in res["path_launches"]):
+            raise AssertionError(f"serving {name}: launches {res['launches']} by path "
+                                 f"{res['path_launches']} != eager's {want} {want_paths}")
+        if job.get("wrong_batch") and "this artifact serves" not in (res["wrong_batch"] or ""):
+            raise AssertionError(f"serving {name}: a batch of the wrong size gave "
+                                 f"{res['wrong_batch']!r}")
+        n = case["images"] * case["samples"]  # Cityscapes: 1 vote, so images
+        rows[name] = {"export_s": case["export_s"], "mb": case["mb"], "load_s": res["load_s"],
+                      "served_per_s": [n / s for s in res["serve_s"]],
+                      "eager_per_s": n / case["eager_s"]}
+        runs[f"serving_{name}"] = {"launches": res["launches"],
+                                   "path_launches": res["path_launches"]}
+
+    # the expected counts: sites x 250 UNet calls, as phases 5, 7 and 22 count them
+    sites = {"flagship": (66, 11, 0), "flagship_int8": (66, 11, 81), "cityscapes": (81, 16, 0)}
+    for name, (g, a, q) in sites.items():
+        got = runs[f"serving_{name}"]["launches"]
+        want = {"group_norm": g * STEPS, "flash_attention": a * STEPS,
+                "group_norm_backward": 0, "quant_conv": q * STEPS}
+        if got != want:
+            raise AssertionError(f"serving {name}: launches {got} != sites x {STEPS} {want}")
+    units = {"flagship": "samples/s", "flagship_int8": "samples/s", "cityscapes": "images/s"}
+    earlier = {"flagship": f"phase 5 {eager_rates['flagship']:.2f}",
+               "flagship_int8": f"phase 22's harness (2 x 16, reuse 2) "
+                                f"{eager_rates['int8_harness']:.2f}",
+               "cityscapes": f"phase 7 {eager_rates['cityscapes']:.3f}"}
+    for name, unit in units.items():
+        r = rows[name]
+        served = " then ".join(f"{v:.3f}" for v in r["served_per_s"])
+        log("serving", f"{name}: export {r['export_s']:.1f} s, artifact {r['mb']:.1f} MB, load "
+            f"{r['load_s']:.2f} s, served {served} {unit} (first call, then warm) against eager "
+            f"{r['eager_per_s']:.3f} "
+            f"(deterministic cuDNN; {earlier[name]}) ({smi}); launches "
+            f"{runs[f'serving_{name}']['launches']}, by path "
+            f"{runs[f'serving_{name}']['path_launches']}, bit-equal to eager")
+    log("serving", f"fp32 1 x 2 x 3 at 128x128 under the TF32 default: served bit-equal to "
+        f"eager; without the loader's fp32_precision it differs by "
+        f"{rows['flagship_fp32_no_fp32']['max_abs_diff']:.3g}; the Cityscapes evaluator's DINO "
+        f"map under PyTorch's defaults equals the fp32 one (the evaluator at "
+        f"{ev_rate:.3f} images/s; TF32 on moves the map by {tf32_err:.3g}); a "
+        f"batch of {IMAGES + 1} raised; the serving process imported {sorted(port)} and the "
+        f"ops modules, no jax")
+    log("serving", "host µs a call, eager wrapper / registered op: " + ", ".join(
+        f"{k} {v['wrapper_us']:.1f} / {v['op_us']:.1f}" for k, v in host_us.items())
+        + f"; serving process {child_s:.1f} s; phase {time.perf_counter() - phase_start:.1f} s")
+    return runs, host_us
+
+
 def _dp_train_params():
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
 
@@ -2802,10 +3148,14 @@ def main() -> None:
     runs.update(phase_cityscapes_train_dino(smi))
     phase_cityscapes_train_reference()
     q_err, q_row, q_cs_row, q_per_call, q_host = phase_quant_conv(gen)
-    quant_runs, _ = phase_quant_eval(smi, harness_rate)
+    quant_runs, quant_rates = phase_quant_eval(smi, harness_rate)
     runs.update(quant_runs)
     phase_quant_reference()
     runs.update(phase_data_parallel(smi, trained, runs["train"]["warm_ms"]))
+    serving_runs, host_us = phase_serving(smi, {
+        "flagship": bare_rate, "cityscapes": runs["cityscapes_r1"]["images_per_s"],
+        "int8_harness": quant_rates["eval_lidc_fast"]})
+    runs.update(serving_runs)
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],
@@ -2817,13 +3167,13 @@ def main() -> None:
          "replaces": "ccdm_tpu/ops/group_norm.py:40",
          "launches": sum(r["launches"]["group_norm"] for r in runs.values()),
          "max_abs_err": gn_err, **gn_row, "cityscapes_case": gn_cs_row,
-         "cityscapes_train_case": gn_train_row, "runs": by_run("group_norm")},
+         "cityscapes_train_case": gn_train_row, "serving_host_us": host_us["group_norm"], "runs": by_run("group_norm")},
         {"name": "flash_attention", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "ccdm_tpu/ops/flash_attention.py:34",
          "launches": sum(r["launches"]["flash_attention"] for r in runs.values()),
          "max_abs_err": attn_err, **attn_row, "cityscapes_case": attn_cs_row,
-         "cityscapes_train_case": attn_train_row, "runs": by_run("flash_attention")},
+         "cityscapes_train_case": attn_train_row, "serving_host_us": host_us["flash_attention"], "runs": by_run("flash_attention")},
         {"name": "group_norm_backward", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/group_norm_backward.cu",
          # K2's backward: the JAX package trains through flax's GroupNorm
@@ -2840,7 +3190,7 @@ def main() -> None:
          "launches": sum(r["launches"]["quant_conv"] for r in runs.values()),
          "max_abs_err": q_err, **q_row, "cityscapes_case": q_cs_row,
          "per_unet_call": q_per_call, "host_per_unet_call": q_host,
-         "runs": by_run("quant_conv")},
+         "serving_host_us": host_us["quant_conv"], "runs": by_run("quant_conv")},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

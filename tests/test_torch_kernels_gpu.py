@@ -510,3 +510,33 @@ def test_wrappers_launch_on_their_tensors_card(cuda):
     assert torch.equal(conv, quant.quant_conv_plain(xq, w_q, s_w, bias, s_x, 3, 1, 1))
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
+
+
+def test_registered_ops_launch_the_kernels_and_pass_opcheck(cuda):
+    """The ops a served graph calls (`ccdm::*`): on CUDA tensors each
+    launches its kernel (counted), bit for bit the eager wrapper's output,
+    and its fake implementation matches the kernel's output metadata."""
+    x = torch.randn(4, 64, 32, 32, generator=cuda, device="cuda").to(BF16)
+    w = torch.rand(64, generator=cuda, device="cuda")
+    b = torch.randn(64, generator=cuda, device="cuda")
+    add = torch.randn(4, 64, generator=cuda, device="cuda").to(BF16)
+    qkv = torch.randn(8, 96, 256, generator=cuda, device="cuda").to(BF16)
+    q, k, v = qkv[:, :32], qkv[:, 32:64], qkv[:, 64:]
+    w_q, s_w = quant.weight_codes(torch.randn(32, 64, 3, 3, generator=cuda, device="cuda"))
+    s_x = quant.dynamic_act_scale(x)
+    cases = [
+        (gn, torch.ops.ccdm.group_norm.default, (x, w, b, add, 32, 1e-5, True),
+         lambda: gn.group_norm(x, w, b, 32, 1e-5, True, add)),
+        (fa, torch.ops.ccdm.flash_attention.default, (q, k, v),
+         lambda: fa.flash_attention(q, k, v)),
+        (quant, torch.ops.ccdm.quant_conv.default, (x, w_q, s_w, b[:32], s_x, 3, 2, 1),
+         lambda: quant.quant_conv(x, w_q, s_w, b[:32], s_x, 3, 2, 1)),
+    ]
+    with torch.inference_mode():
+        for module, op, args, wrapper in cases:
+            before = module.launches
+            out = op(*args)
+            assert module.launches == before + 1
+            assert torch.equal(out, wrapper()) and out.is_contiguous()
+    for _, op, args, _ in cases:
+        torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
