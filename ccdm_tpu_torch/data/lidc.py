@@ -1,9 +1,17 @@
-"""LIDC-IDRI v1: HDF5-backed multi-annotator lung-nodule dataset (a copy of
-`ccdm_tpu/data/lidc.py`, held equal to it by `tests/test_torch_trainer.py`).
+"""LIDC-IDRI v1: multi-annotator lung-nodule dataset in one HDF5 file or a
+directory of `.npy` files (a copy of `ccdm_tpu/data/lidc.py`, held equal to
+it by `tests/test_torch_trainer.py`, that also reads the directory).
 
-Schema parity with the reference (`datasets/lidc.py:86-90`): one HDF5 file
-with `train`/`val`/`test` groups, each holding `images [N,128,128]` float in
-[-0.5, 0.5], `labels [N,4,128,128]` uint8 (4 expert masks), `uids [N]`.
+Schema parity with the reference (`datasets/lidc.py:86-90`): `train`/`val`/
+`test` groups, each holding `images [N,128,128]` float in [-0.5, 0.5],
+`labels [N,4,128,128]` uint8 (4 expert masks), `uids [N]` int64. An HDF5
+file (read with h5py) holds them as groups; a directory (the card's machine
+has no h5py; `tools/lidc_pickle_to_npz.py` writes one) holds them as
+`{split}/images.npy`, `{split}/labels.npy` and `{split}/uids.npy`, the
+members of an `.npz` of that schema unzipped. A directory path picks the
+`.npy` reader. Each array is memory-mapped, so an item is read from disk
+when it is indexed, as from an HDF5 dataset: the host holds no split whole
+(LIDC v1's ~15k crops are about 3 GB of float64 images and uint8 masks).
 
 Sample protocol parity:
 - training (`lidc.py:100-148`): pick one of the 4 annotator masks uniformly,
@@ -21,7 +29,7 @@ device only ever sees stacked channels-last batches.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -38,11 +46,26 @@ def _open_group(split: str, file_path: Optional[str] = None):
     path = file_path or default_file_path()
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"LIDC HDF5 file not found at {path!r}; set $CCDM_LIDC_PATH "
+            f"LIDC HDF5 file or .npy directory not found at {path!r}; set $CCDM_LIDC_PATH "
             "(schema: train/val/test groups with images/labels/uids)")
+    if os.path.isdir(path):
+        return npy_group(path, split)
     import h5py  # only where a file is read: the card's machine has no h5py
 
     return h5py.File(path, "r")[split]
+
+
+def npy_group(path: str, split: str) -> Dict[str, np.ndarray]:
+    """The `split` group of a LIDC `.npy` directory: `{"images", "labels",
+    "uids"}`, memory-mapped, each indexed per item as an HDF5 dataset is."""
+    group = {}
+    for key in ("images", "labels", "uids"):
+        file = os.path.join(path, split, f"{key}.npy")
+        if not os.path.isfile(file):
+            raise KeyError(f"{path} has no {split}/{key}.npy (schema: "
+                           "{train,val,test}/{images,labels,uids}.npy)")
+        group[key] = np.load(file, mmap_mode="r")
+    return group
 
 
 def one_hot(labels: np.ndarray, num_classes: int = NUM_CLASSES) -> np.ndarray:

@@ -9,6 +9,11 @@ PIL, and the model sees these pixels).
   integer sums start at half an output step, shift right by 22 and clip to
   [0, 255]. The horizontal pass runs first, its result rounded to uint8,
   then the vertical pass.
+- `resize_lanczos_uint8`: `LANCZOS` on "L" and "RGB" images, the same
+  passes with PIL's Lanczos filter (a sinc windowed by a sinc 3 times as
+  wide, support 3, widened by the scale when downsampling), whose negative
+  taps round away from zero in fixed point and whose sums clip at 0 and
+  255.
 - `resize_bilinear_float`: `BILINEAR` on float32 "F" planes: the same taps
   in double, summed tap by tap in double, each pass rounded to float32.
 - `resize_nearest`: `NEAREST` (`libImaging/Geometry.c`, the scaling affine
@@ -28,13 +33,31 @@ import numpy as np
 PRECISION_BITS = 32 - 8 - 2
 
 
-def _taps(in_size: int, out_size: int):
-    """PIL's `precompute_coeffs` for the bilinear filter over the box
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _sinc(x: np.ndarray) -> np.ndarray:
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.where(x == 0.0, 1.0, np.sin(x * math.pi) / (x * math.pi))
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    return np.where((-3.0 <= x) & (x < 3.0), _sinc(x) * _sinc(x / 3.0), 0.0)
+
+
+# PIL's filters: (support, filter)
+_FILTERS = {"bilinear": (1.0, _bilinear), "lanczos": (3.0, _lanczos)}
+
+
+def _taps(in_size: int, out_size: int, kind: str = "bilinear"):
+    """PIL's `precompute_coeffs` for the filter `kind` over the box
     `[0, in_size)`: `(first source index [out], weights [out, ksize])`,
     weights past each output's tap count are 0."""
+    base_support, fn = _FILTERS[kind]
     scale = float(np.float32(in_size)) / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     center = (np.arange(out_size) + 0.5) * scale
     xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
@@ -42,7 +65,7 @@ def _taps(in_size: int, out_size: int):
     x = np.arange(ksize)
     arg = ((x[None, :] + xmin[:, None]).astype(np.float64) - center[:, None] + 0.5) * (
         1.0 / filterscale)
-    w = np.where(x[None, :] < xmax[:, None], np.maximum(1.0 - np.abs(arg), 0.0), 0.0)
+    w = np.where(x[None, :] < xmax[:, None], fn(arg), 0.0)
     total = np.zeros(out_size)
     for k in range(ksize):  # PIL sums the taps in order
         total += w[:, k]
@@ -54,14 +77,15 @@ def _indices(xmin: np.ndarray, ksize: int, in_size: int) -> np.ndarray:
     return np.minimum(xmin[:, None] + np.arange(ksize)[None, :], in_size - 1)
 
 
-def _pass_uint8(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+def _pass_uint8(img: np.ndarray, out_size: int, axis: int, kind: str = "bilinear") -> np.ndarray:
     in_size = img.shape[axis]
-    xmin, w = _taps(in_size, out_size)
+    xmin, w = _taps(in_size, out_size, kind)
     fixed = np.where(w < 0, np.trunc(-0.5 + w * (1 << PRECISION_BITS)),
                      np.trunc(0.5 + w * (1 << PRECISION_BITS))).astype(np.int32)
     idx = _indices(xmin, w.shape[1], in_size)
     src = np.moveaxis(img, axis, 0).astype(np.int32)  # [in, other, (channels)]
-    # int32 as in PIL: 255 x 2^22 per unit of weight stays below 2^31
+    # int32 as in PIL: 255 x 2^22 per unit of weight (at most ~1.3 units of
+    # |weight| for Lanczos) stays below 2^31
     acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1), dtype=np.int32)
     shape = (out_size,) + (1,) * (src.ndim - 1)
     for k in range(w.shape[1]):
@@ -82,19 +106,28 @@ def _pass_float(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
     return np.moveaxis(acc.astype(np.float32), 0, axis)
 
 
+def _resize_uint8(img: np.ndarray, size: Tuple[int, int], kind: str, name: str) -> np.ndarray:
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[-1] == 3)):
+        raise ValueError(f"{name} takes uint8 [H,W] or [H,W,3], got {img.dtype} {img.shape}")
+    th, tw = int(size[0]), int(size[1])
+    if tw != img.shape[1]:
+        img = _pass_uint8(img, tw, 1, kind)
+    if th != img.shape[0]:
+        img = _pass_uint8(img, th, 0, kind)
+    return np.ascontiguousarray(img)
+
+
 def resize_bilinear_uint8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """PIL `BILINEAR` of a uint8 `[H,W]` ("L") or `[H,W,3]` ("RGB") image
     to `size = (height, width)`."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[-1] == 3)):
-        raise ValueError(f"resize_bilinear_uint8 takes uint8 [H,W] or [H,W,3], got "
-                         f"{img.dtype} {img.shape}")
-    th, tw = int(size[0]), int(size[1])
-    if tw != img.shape[1]:
-        img = _pass_uint8(img, tw, axis=1)
-    if th != img.shape[0]:
-        img = _pass_uint8(img, th, axis=0)
-    return np.ascontiguousarray(img)
+    return _resize_uint8(img, size, "bilinear", "resize_bilinear_uint8")
+
+
+def resize_lanczos_uint8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL `LANCZOS` of a uint8 `[H,W]` ("L") or `[H,W,3]` ("RGB") image to
+    `size = (height, width)`."""
+    return _resize_uint8(img, size, "lanczos", "resize_lanczos_uint8")
 
 
 def resize_bilinear_float(plane: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

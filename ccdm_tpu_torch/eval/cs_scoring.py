@@ -1,7 +1,6 @@
 """Official-protocol Cityscapes scoring of label-id PNGs (a copy of
 `ccdm_tpu/eval/cs_scoring.py` that reads with `utils/png.py` and counts the
-confusion matrix with `np.bincount`, the JAX package's own fallback for
-its ctypes library, which gives the same integers).
+confusion matrix with the port's native library, `ccdm_tpu_torch/native.py`).
 
 Re-implements the scoring path the reference vendors from
 `cityscapesscripts` (`evaluation/cs_eval.py:579+` `evaluateImgLists` /
@@ -10,9 +9,8 @@ Re-implements the scoring path the reference vendors from
 eval classes, per-category IoU, and pixel accuracy, exported as JSON.
 
 The reference's optional Cython `addToConfusionMatrix` fast path
-(`cs_eval.py:15-21`) — its only native-code dependency — is replaced by a
-vectorised `np.bincount` over `gt * 256 + pred` codes, which is equally
-O(pixels) and allocation-free.
+(`cs_eval.py:15-21`), its only native-code dependency, is the C++ loop of
+`csrc/confusion_matrix.cpp`, built at first use.
 
 Instance-weighted iIoU (`cs_eval.py:725-762,377-396,451-468`) is computed
 when `*_instanceIds.png` annotations are available: every ground-truth
@@ -33,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ccdm_tpu_torch.data.cityscapes_labels import LABELS
+from ccdm_tpu_torch.native import add_to_confusion_matrix
 from ccdm_tpu_torch.utils.png import read_png
 
 LOGGER = logging.getLogger(__name__)
@@ -170,8 +169,7 @@ def score_img_lists(
         if pred.shape != gt.shape:
             raise ValueError(
                 f"shape mismatch {pred.shape} vs {gt.shape}: {pred_path} / {gt_path}")
-        codes = gt.astype(np.int64).ravel() * MAX_ID + pred.astype(np.int64).ravel()
-        cm += np.bincount(codes, minlength=MAX_ID * MAX_ID).reshape(MAX_ID, MAX_ID)
+        add_to_confusion_matrix(gt, pred, MAX_ID, cm)
         if inst_path and os.path.exists(inst_path):
             inst = read_png(inst_path).astype(np.int64)
             accumulate_instance_stats(pred.astype(np.int64), inst, inst_stats)

@@ -208,9 +208,14 @@ def sampler_programs(model: DenoisingModel, net: torch.nn.Module, num_samples: i
 
 
 def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.Module:
-    """Load the EMA weights (`average_model`, else `model`) of the port's
-    checkpoint at `params["load_from"]` into `net`; without `load_from`,
-    leave its weights as they are, with a warning."""
+    """Load the EMA weights (`average_model`, else `model`) of the checkpoint
+    at `params["load_from"]` into `net`; without `load_from`, leave its
+    weights as they are, with a warning. The checkpoint is the port's, or a
+    `.pt` in the reference's schema (`{"model", "average_model"}` in the
+    reference's key names, fp32: `tools/export_torch_checkpoint.py`, the
+    JAX package's `scripts/export_torch_checkpoint.py`). Every entry of
+    `net` must be there; entries `net` does not build are left out with a
+    warning, as the JAX package's converter leaves them out."""
     load_from = params.get("load_from")
     if not load_from:
         LOGGER.warning("no load_from given — evaluating randomly initialised weights")
@@ -221,7 +226,16 @@ def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.M
     restored = tree.get("average_model", tree.get("model"))
     if restored is None:
         raise KeyError(f"checkpoint at {load_from!r} has no average_model/model key")
-    net.load_state_dict(restored, strict=True)
+    wanted = net.state_dict().keys()
+    missing = sorted(set(wanted) - set(restored))
+    if missing:
+        raise KeyError(f"checkpoint at {load_from!r} lacks {len(missing)} of the model's "
+                       f"entries: {missing[:5]}")
+    extra = sorted(set(restored) - set(wanted))
+    if extra:
+        LOGGER.warning("checkpoint at %r: %d entries the model does not build, left out: %s",
+                       load_from, len(extra), extra[:10])
+    net.load_state_dict({k: restored[k] for k in wanted}, strict=True)
     return net
 
 

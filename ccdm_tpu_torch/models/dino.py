@@ -18,22 +18,29 @@ Module names are those of the DINO/timm `VisionTransformer`
 (`patch_embed.proj`, `cls_token`, `pos_embed`, `blocks.N.norm1`,
 `blocks.N.attn.qkv`, `blocks.N.attn.proj`, `blocks.N.norm2`,
 `blocks.N.mlp.fc1`, `blocks.N.mlp.fc2`), so an upstream checkpoint loads
-once its unused final `norm.*` and `head.*` entries are dropped.
+once its unused final `norm.*` and `head.*` entries are dropped
+(`tools/convert_dino_checkpoint.py` writes the `.npz` that `weights:`
+names).
 
-Not ported: the facets of several blocks at once, log-binned descriptors
-and saliency maps.
+The descriptor extras of the reference's `ViTExtractor`, as the JAX
+module has them: the facets of several blocks in one pass (`DinoViT`'s
+`layers`), log-binned descriptors (`log_bin_descriptors`),
+`DinoFeatureEncoder.extract_descriptors` and `extract_saliency_maps`,
+which `tools/extract_dino_descriptors.py` calls.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ccdm_tpu_torch.ops.precision import fp32_precision
 
 VIT_CONFIGS = {
     "dino_vits8": dict(embed_dim=384, depth=12, num_heads=6, patch_size=8),
@@ -91,19 +98,39 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int]) -> 
     return torch.cat([cls_pe, grid.reshape(1, h * w, -1)], dim=1)
 
 
+def _triangle_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """`[out, in]` weights of `jax.image.resize(..., "bilinear")` along one
+    axis (its `scale_and_translate` with the triangle kernel and
+    antialiasing): sample `(o + 0.5) * in / out - 0.5`, the kernel widened
+    by `in / out` where that is above 1, each row normalised to sum 1."""
+    inv_scale = in_size / out_size
+    width = max(inv_scale, 1.0)
+    sample = (np.arange(out_size) + 0.5) * inv_scale - 0.5
+    w = np.maximum(0.0, 1.0 - np.abs(sample[:, None] - np.arange(in_size)[None]) / width)
+    return (w / w.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear upsample of NHWC `x` to `size` with half-pixel centres: on
-    upsampling, `jax.image.resize(..., "bilinear")` samples the same way
-    (its edge renormalisation equals torch's clamped source coordinate).
-    Downsampling, where JAX antialiases, is not ported."""
+    """Bilinear resize of NHWC `x` to `size`, as `jax.image.resize(...,
+    "bilinear")`. Where both axes grow or keep their size (the evaluator's
+    upsampling of its probabilities), `F.interpolate` samples with
+    half-pixel centres, as JAX does (its edge renormalisation equals
+    torch's clamped source coordinate); where an axis shrinks, JAX
+    antialiases with a triangle kernel widened by the scale, and each axis
+    takes its weight matrix (`_triangle_matrix`)."""
     h, w = x.shape[1:3]
-    if (h, w) == tuple(size):
+    size = tuple(int(s) for s in size)
+    if (h, w) == size:
         return x
-    if size[0] < h or size[1] < w:
-        raise NotImplementedError(f"bilinear downsampling {(h, w)} -> {tuple(size)}")
-    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
-                        align_corners=False)
-    return out.permute(0, 2, 3, 1)
+    if min(size) < 1:
+        raise ValueError(f"bilinear resize of {(h, w)} to {size}")
+    if size[0] >= h and size[1] >= w:
+        out = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                            align_corners=False)
+        return out.permute(0, 2, 3, 1)
+    wh, ww = (torch.from_numpy(_triangle_matrix(n, m)).to(x.device, x.dtype)
+              for n, m in ((h, size[0]), (w, size[1])))
+    return torch.einsum("qw,bpwc->bpqc", ww, torch.einsum("ph,bhwc->bpwc", wh, x))
 
 
 class _Attention(nn.Module):
@@ -176,12 +203,19 @@ class DinoViT(nn.Module):
             torch.zeros(1, 1 + (pretrain_size // patch_size) ** 2, embed_dim))
         self.blocks = nn.ModuleList(ViTBlock(embed_dim, num_heads) for _ in range(depth))
 
-    def forward(self, images: torch.Tensor, facet: Optional[str] = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, facet: Optional[str] = None,
+                layers: Optional[Sequence[int]] = None):
         """`images` `[B,H,W,3]`, ImageNet-normalised. Returns block
         `source_layer`'s facet: `[B,h',w',D]` for "key", "query", "value" or
         "token", the post-softmax attention `[B, heads, 1+h'w', 1+h'w']` for
-        "attn"."""
+        "attn". With `layers` (the multi-layer descriptor path), a list of
+        that facet at each of those blocks, in their order, from one pass
+        that stops at the last of them."""
         facet = facet or self.facet
+        capture = tuple(int(l) for l in layers) if layers is not None else (self.source_layer,)
+        if not capture or not all(0 <= l < len(self.blocks) for l in capture):
+            raise ValueError(f"capture layers {capture} out of range for depth "
+                             f"{len(self.blocks)}")
         b, h, w, _ = images.shape
         gh = 1 + (h - self.patch_size) // self.stride
         gw = 1 + (w - self.patch_size) // self.stride
@@ -189,12 +223,52 @@ class DinoViT(nn.Module):
         x = x.flatten(2).transpose(1, 2)                                # [B,gh*gw,D]
         x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
         x = x + interpolate_pos_embed(self.pos_embed, (gh, gw))
-        for block in self.blocks[:self.source_layer + 1]:  # later blocks feed nothing
+        grabbed = {}
+        for i, block in enumerate(self.blocks[:max(capture) + 1]):  # later blocks feed nothing
             x, facets = block(x)
+            if i in capture:
+                grabbed[i] = facets[facet]
         if facet == "attn":
-            return facets["attn"]
-        # drop cls and fold back to the token grid
-        return facets[facet][:, 1:].reshape(b, gh, gw, self.embed_dim)
+            outs = [grabbed[i] for i in capture]
+        else:  # drop cls and fold back to the token grid
+            outs = [grabbed[i][:, 1:].reshape(b, gh, gw, self.embed_dim) for i in capture]
+        return outs if layers is not None else outs[0]
+
+
+def log_bin_descriptors(feats: torch.Tensor, hierarchy: int = 2) -> torch.Tensor:
+    """Log-binned descriptors of a token-grid facet map `[B,gh,gw,D]` ->
+    `[B,gh,gw,D*(1+8*hierarchy)]` (the JAX package's `log_bin_descriptors`,
+    the reference's `ViTExtractor._log_bin`): level k averages over a 3^k
+    window (edges counting only the cells inside, `count_include_pad=False`)
+    and is read at the ring of offsets `{-3^k, 0, 3^k}` in each direction,
+    row-major, clamped at the edges, the centre only at k = 0. The channels
+    are bin-major blocks of D. Gathers over the whole grid, no loop over
+    pixels."""
+    b, gh, gw, d = feats.shape
+    f32 = feats.float()
+    nchw = f32.permute(0, 3, 1, 2)
+    pools = []
+    for k in range(hierarchy):
+        win = 3 ** k
+        pools.append(f32 if win == 1 else F.avg_pool2d(
+            nchw, win, stride=1, padding=win // 2, count_include_pad=False).permute(0, 2, 3, 1))
+    ys = torch.arange(gh, device=feats.device)
+    xs = torch.arange(gw, device=feats.device)
+    parts = []
+    for k in range(hierarchy):
+        step = 3 ** k
+        for di in (-step, 0, step):
+            for dj in (-step, 0, step):
+                if di == 0 and dj == 0 and k != 0:
+                    continue
+                iy = (ys + di).clamp(0, gh - 1)
+                ix = (xs + dj).clamp(0, gw - 1)
+                parts.append(pools[k][:, iy][:, :, ix])
+    return torch.cat(parts, dim=-1).to(feats.dtype)
+
+
+# the heads averaged for saliency (the reference's `dino.py:336`, dino_vits8's)
+SALIENCY_HEAD_IDXS = (0, 2, 4, 5)
 
 
 @torch.no_grad()
@@ -282,3 +356,48 @@ class DinoFeatureEncoder:
             feats = vit(images)
             h, w = images.shape[1:3]
             return resize_bilinear(feats, resize_to or (h // self.stride, w // self.stride))
+
+    @torch.no_grad()
+    def extract_descriptors(self, vit: DinoViT, images: torch.Tensor, layers=None,
+                            facet: Optional[str] = None,
+                            resize_shape: Optional[Tuple[int, int]] = None,
+                            log_bin: bool = False):
+        """The reference's `ViTExtractor.extract_descriptors` (the JAX
+        package's method of the same name). `layers` an int (None: the
+        configured block) gives one `[B,h',w',D]` map, resized bilinearly
+        to `resize_shape` (default `(H//stride, W//stride)`); a list or
+        tuple gives one map per block, resized only when `resize_shape` is
+        given. `log_bin` applies `log_bin_descriptors` to the token grid
+        first. fp32 whatever the process's TF32 settings."""
+        facet = facet or self.facet
+        if facet not in ("key", "query", "value", "token"):
+            raise ValueError(f"{facet} is not a supported facet for descriptors")
+        multi = isinstance(layers, (list, tuple))
+        capture = tuple(layers) if multi else (
+            (self.source_layer,) if layers is None else (int(layers),))
+        with fp32_precision():
+            grids = vit(images, facet=facet, layers=capture)
+            if log_bin:
+                grids = [log_bin_descriptors(g) for g in grids]
+            h, w = images.shape[1:3]
+            target = resize_shape or (h // self.stride, w // self.stride)
+            out = [g if multi and resize_shape is None else resize_bilinear(g, target)
+                   for g in grids]
+        return out if multi else out[0]
+
+    @torch.no_grad()
+    def extract_saliency_maps(self, vit: DinoViT, images: torch.Tensor) -> torch.Tensor:
+        """The reference's `ViTExtractor.extract_saliency_maps`: the last
+        block's attention from the cls token to every patch token, averaged
+        over the heads `SALIENCY_HEAD_IDXS`, min-max normalised per image
+        (a constant map gives zeros, not NaN). `[B, tokens - 1]`; dino_vits8
+        only, whose heads those are."""
+        if self.name != "dino_vits8":
+            raise ValueError("saliency maps are supported only for dino_vits model_type")
+        with fp32_precision():
+            attn = vit(images, facet="attn", layers=(len(vit.blocks) - 1,))[0]
+        heads = torch.tensor(SALIENCY_HEAD_IDXS, device=attn.device)
+        cls_attn = attn[:, heads, 0, 1:].mean(dim=1)
+        lo = cls_attn.min(dim=1, keepdim=True).values
+        hi = cls_attn.max(dim=1, keepdim=True).values
+        return (cls_attn - lo) / (hi - lo).clamp_min(1e-12)

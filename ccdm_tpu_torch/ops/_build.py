@@ -147,6 +147,28 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def host_library(source: Path, lib_path: Path) -> ctypes.CDLL:
+    """A C++ helper for the host (`csrc/*.cpp`, a plain C interface), built
+    with the host's C++ compiler into `lib_path` if missing or older than
+    its source, and loaded. The library is renamed into place, so processes
+    that build it at once never load a half-written one. The caller holds a
+    lock around the call and declares the functions' types."""
+    if not lib_path.exists() or lib_path.stat().st_mtime < source.stat().st_mtime:
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler (c++ or g++) on PATH: {source} cannot be built")
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
+            out = Path(tmp) / lib_path.name
+            proc = subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(out), str(source)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed to build {source} ({proc.returncode}):\n"
+                                   f"{proc.stderr}")
+            os.replace(out, lib_path)
+    return ctypes.CDLL(str(lib_path))
+
+
 def check(status: int, name: str) -> None:
     """Raise if a C entry point returned a non-zero `cudaError_t`."""
     if status != 0:

@@ -51,12 +51,18 @@ TINY_UNET = {"base_channels": 8, "channel_mult": [1, 2], "attention_resolutions"
              "num_head_channels": 4}
 
 
+def passes(key: str, value: float, bound: float) -> bool:
+    """Whether a metric passes its gate: GED at most the bound, the others at
+    least."""
+    return value <= bound if key.startswith("GED") else value >= bound
+
+
 def gate_failures(mode: str, metrics: dict, gates: dict, seed: int) -> list:
     """The gates `metrics` misses, as `mode:key@seed<seed>`, each printed."""
     failures = []
     for key, bound in gates.items():
         value = float(metrics[key])
-        ok = value <= bound if key.startswith("GED") else value >= bound
+        ok = passes(key, value, bound)
         word = "<=" if key.startswith("GED") else ">="
         print(f"[demo-gate] seed={seed} {mode:<11s} {key} = {value:.4f} (gate {word} {bound}) "
               f"{'ok' if ok else 'FAIL'}", flush=True)

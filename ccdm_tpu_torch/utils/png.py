@@ -22,18 +22,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import struct
-import subprocess
-import tempfile
 import threading
 import zlib
-from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from ccdm_tpu_torch.ops._build import BUILD_DIR, CSRC
+from ccdm_tpu_torch.ops._build import BUILD_DIR, CSRC, host_library
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _SOURCE = CSRC / "png_unfilter.cpp"
@@ -48,23 +44,11 @@ _lib = None
 
 def _library() -> ctypes.CDLL:
     """The unfilter helper, compiled first if missing or older than its
-    source; the library is renamed into place, so processes that build it at
-    once never load a half-written one."""
+    source (`ops/_build.host_library`)."""
     global _lib
     with _lock:
         if _lib is None:
-            if not LIB_PATH.exists() or LIB_PATH.stat().st_mtime < _SOURCE.stat().st_mtime:
-                cxx = shutil.which("c++") or shutil.which("g++")
-                if cxx is None:
-                    raise RuntimeError("no C++ compiler (c++ or g++) on PATH: the PNG "
-                                       f"unfilter helper {_SOURCE} cannot be built")
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                    out = Path(tmp) / LIB_PATH.name
-                    subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-o", str(out),
-                                    str(_SOURCE)], check=True, capture_output=True)
-                    os.replace(out, LIB_PATH)
-            lib = ctypes.CDLL(str(LIB_PATH))
+            lib = host_library(_SOURCE, LIB_PATH)
             lib.ccdm_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                               ctypes.c_longlong, ctypes.c_longlong,
                                               ctypes.c_int]

@@ -240,6 +240,39 @@ without printing its result:
    the export seconds, artifact MB, load seconds and served against eager
    rates (beside phases 5, 7 and 22's), and the host µs a call of each
    kernel's registered op against its eager wrapper.
+26. remaining: the modules the port added last, each on the card, into
+   `build/chip_smoke_remaining/`. (a) The native confusion counts
+   (`ccdm_tpu_torch/native.py`, built at first use by the host's C++
+   compiler) of two 1024x2048 uint8 label maps of 34 ids equal to
+   `np.bincount`'s, and `pairwise_intersection_union` of 16 x 16 samples of
+   128x128 equal to NumPy's, exact; host ms an image of both. (b) DINO
+   ViT-S/8 at a 224x224 image, stride 4 (random weights): the key facets of
+   blocks 5 and 11, log-binned, and the saliency map on the card against
+   the same calls on the CPU in fp32 (a map within 1e-4 of its largest
+   magnitude, the saliency map within 1e-3), with their device ms; then
+   `tools/extract_dino_descriptors.py --bin` and `--saliency` on a PNG that
+   `utils/png.write_png` wrote, with those weights converted by
+   `tools/convert_dino_checkpoint.convert`: exit 0, the `.npy`'s shape, and
+   within 1e-4 of the in-process call. (c) A synthesised LIDC pickle (48
+   crops of 128x128, 4 masks, 12 series uids) through
+   `tools/lidc_pickle_to_npz.py` into a `.npy` directory; `DEMO_TRAIN_PARAMS`
+   with `dataset_file: datasets.lidc` and `$CCDM_LIDC_PATH` at it trains 10 steps at
+   batch 16 (launches exact as in 11). (d) `tools/export_torch_checkpoint.py`
+   writes the run's checkpoint in the reference schema (the run's fp32 EMA,
+   bit for bit); with cuDNN held to its deterministic algorithms, the LIDC
+   harness on the `.npy` test split (4 crops, 2 x 16, T = 50) gives the same
+   results, and the sampler the same maps bit for bit, from `load_from:` the
+   `.pt` as from the run directory, launches exact. (e)
+   `tools/encoder_reuse_ab.py`'s rows over phase 11's masters:
+   `DEMO_EVAL_PARAMS` (the flagship width) with R in {1, 2, 3}, float and
+   int8-static, 4 of its 16 test images at batch 2 x 16 and T = 50 (cut from
+   250, as phase 24's harness): one whole UNet call, one replay and (int8)
+   the calibration, each run alone, launch K1, K2 and K3 exactly at the
+   model's sites (`unet_sites`: 66, 11 and 81 a whole call) and the
+   calibration's 8 float calls; each row's launches equal its whole calls'
+   and replays' sites plus the calibration's (`expected_launches`, as in
+   22), and by path those measured calls times their numbers, exactly; the
+   table with its gate column and samples/s.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -3110,6 +3143,361 @@ def phase_serving(smi, eager_rates):
     return runs, host_us
 
 
+REMAINING_DIR = Path("build/chip_smoke_remaining")
+# phase 26: the A/B's T, cut from the flagship's 250 as phase 24's harness
+# is, and its test images, 4 of DEMO_EVAL_PARAMS' 16 (2 batches of 2 x 16)
+AB_STEPS, AB_IMAGES = 50, 4
+NPZ_STEPS = 10  # phase 26: the trainer's steps on the LIDC .npy directory
+# phase 26, DINO card against CPU in fp32 (TF32 off): a descriptor map's
+# largest |difference| over its largest magnitude; the saliency map (min-max
+# normalised to [0, 1]) in absolute terms
+DINO_REL_TOL, SALIENCY_TOL = 1e-4, 1e-3
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of `fn()` (after one call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def _device_ms(fn, reps: int = 3) -> float:
+    """Median milliseconds of `fn()` on the card, synchronised (after one
+    call)."""
+    import torch
+
+    def synced():
+        fn()
+        torch.cuda.synchronize()
+
+    return _host_ms(synced, reps)
+
+
+def remaining_native():
+    """Phase 26 (a): the native confusion counts against NumPy."""
+    from ccdm_tpu_torch import native
+
+    rng = np.random.default_rng(26)
+    pairs = [tuple(rng.integers(0, 34, CS_LABEL_HW, dtype=np.uint8) for _ in range(2))
+             for _ in range(2)]
+    start = time.perf_counter()
+    native.add_to_confusion_matrix(*pairs[0], 256)  # builds the library if no phase has
+    first_s = time.perf_counter() - start
+
+    def count(fn):
+        cm = np.zeros((256, 256), np.int64)
+        for gt, pred in pairs:
+            fn(gt, pred, 256, cm)
+        return cm
+
+    if not np.array_equal(count(native.add_to_confusion_matrix),
+                          count(native.add_to_confusion_matrix_numpy)):
+        raise AssertionError("remaining: native confusion counts differ from np.bincount's")
+    ms = {name: _host_ms(lambda: count(fn)) / len(pairs) for name, fn in (
+        ("native", native.add_to_confusion_matrix),
+        ("numpy", native.add_to_confusion_matrix_numpy))}
+    x, y = (rng.integers(0, 2, (16, 128 * 128), dtype=np.uint8) for _ in range(2))
+    got, want = native.pairwise_intersection_union(x, y, 2), \
+        native.pairwise_intersection_union_numpy(x, y, 2)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("remaining: native pairwise counts differ from NumPy's")
+    pair_ms = {"native": _host_ms(lambda: native.pairwise_intersection_union(x, y, 2)),
+               "numpy": _host_ms(lambda: native.pairwise_intersection_union_numpy(x, y, 2))}
+    log("remaining", f"native counts: 2 label maps of {CS_LABEL_HW[0]}x{CS_LABEL_HW[1]} (uint8, "
+        f"34 ids) equal to np.bincount's; host ms an image {ms['native']:.3f} native against "
+        f"{ms['numpy']:.3f} NumPy (the process's first call, which builds the library, "
+        f"is phase 16's scoring; here {first_s:.2f} s); "
+        f"pairwise_intersection_union of 16 x 16 samples of 128x128 equal to NumPy's, "
+        f"{pair_ms['native']:.2f} ms against {pair_ms['numpy']:.2f}")
+
+
+def remaining_dino(smi):
+    """Phase 26 (b): DINO's descriptor extras, ViT-S/8 at 224x224, stride 4,
+    on the card against the CPU, then the descriptor CLI on a PNG."""
+    import torch
+
+    from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
+    from ccdm_tpu_torch.tools import convert_dino_checkpoint, extract_dino_descriptors
+    from ccdm_tpu_torch.utils.png import write_png
+
+    enc = DinoFeatureEncoder({"model": "dino_vits8", "output_stride": 4, "source_layer": 11,
+                              "facet": "key"})
+    card = enc.init(torch.Generator().manual_seed(26))
+    cpu = enc.init(torch.Generator().manual_seed(26), device="cpu")
+    images = torch.randn(1, 224, 224, 3, generator=torch.Generator().manual_seed(27))
+    calls = {
+        "keys of blocks 5 and 11, log-binned": lambda vit, x: enc.extract_descriptors(
+            vit, x, layers=[5, 11], log_bin=True),
+        "saliency": lambda vit, x: [enc.extract_saliency_maps(vit, x)],
+    }
+    for name, call in calls.items():
+        ours = call(card, images.cuda())
+        ref = call(cpu, images)
+        if name == "saliency":
+            err = float((ours[0].cpu() - ref[0]).abs().max())
+            ok = err <= SALIENCY_TOL
+        else:
+            err = max(float((o.cpu() - r).abs().max() / r.abs().max()) for o, r in zip(ours, ref))
+            ok = err <= DINO_REL_TOL
+        if not ok or not all(bool(torch.isfinite(o).all()) for o in ours):
+            raise AssertionError(f"remaining: DINO {name}: card against CPU {err}")
+        ms = _device_ms(lambda: call(card, images.cuda()))
+        log("remaining", f"DINO ViT-S/8 at 224x224, stride 4, {name}: shapes "
+            f"{[tuple(o.shape) for o in ours]}, card against CPU fp32 {err:.3g} "
+            f"({'of the largest magnitude' if name != 'saliency' else 'absolute'}; limit "
+            f"{DINO_REL_TOL if name != 'saliency' else SALIENCY_TOL}); {ms:.2f} ms on the card "
+            f"({smi})")
+
+    # the CLI on a PNG, with the card's weights converted to the .npz
+    REMAINING_DIR.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:240, 0:320]
+    rgb = np.stack([(yy * 255 // 239), (xx * 255 // 319), ((yy + xx) * 7) % 256], axis=-1)
+    write_png(str(REMAINING_DIR / "image.png"), rgb.astype(np.uint8))
+    np.savez(REMAINING_DIR / "vits8.npz", **convert_dino_checkpoint.convert(
+        {k: v.cpu().numpy() for k, v in card.state_dict().items()}))
+    image = torch.from_numpy(extract_dino_descriptors.load_image(
+        str(REMAINING_DIR / "image.png"), 224)).cuda()
+    for flag, want_shape, ref in (
+            ("--bin", (1, 56, 74, 384 * 17), enc.extract_descriptors(card, image, log_bin=True)),
+            ("--saliency", (1, 55 * 73), enc.extract_saliency_maps(card, image))):
+        npy = REMAINING_DIR / f"desc{flag[1:]}.npy"
+        start = time.perf_counter()
+        rc = extract_dino_descriptors.main([
+            "--image_path", str(REMAINING_DIR / "image.png"), "--output_path", str(npy),
+            "--weights", str(REMAINING_DIR / "vits8.npz"), flag])
+        wall = time.perf_counter() - start
+        got = np.load(npy)
+        ref = ref.cpu().numpy()
+        err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        if rc != 0 or got.shape != want_shape or not np.isfinite(got).all() or \
+                err > DINO_REL_TOL:
+            raise AssertionError(f"remaining: extract_dino_descriptors {flag}: exit {rc}, "
+                                 f"shape {got.shape} (want {want_shape}), err {err}")
+        log("remaining", f"tools/extract_dino_descriptors.py {flag} on a 240x320 PNG (LANCZOS "
+            f"to 224x299): exit 0 in {wall:.2f} s, {got.shape}, against the in-process call "
+            f"{err:.3g} of the largest magnitude")
+
+
+def remaining_lidc_npz(smi):
+    """Phase 26 (c, d): a synthesised LIDC pickle converted to `.npy` files, the
+    flagship trainer on it, the harness on its test split, the checkpoint
+    exported in the reference schema and loaded back."""
+    import os
+    import pickle
+
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.data import lidc as lidc_data
+    from ccdm_tpu_torch.data.synthetic import make_synthetic_lidc_group
+    from ccdm_tpu_torch.eval.lidc_uncertainty import (
+        eval_lidc_uncertainty,
+        load_eval_params,
+        make_prob_sampler,
+    )
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.tools import export_torch_checkpoint, lidc_pickle_to_npz
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    group = make_synthetic_lidc_group(n=48, resolution=128, seed=26)
+    data = {f"LIDC-{i:03d}": {"image": group["images"][i] + 0.5, "masks": group["labels"][i],
+                              "series_uid": f"1.3.6.1.4.1.14519.5.2.1.6279.{i // 4}"}
+            for i in range(48)}
+    pkl, npy = REMAINING_DIR / "data_lidc.pickle", REMAINING_DIR / "data_lidc"
+    pkl.write_bytes(pickle.dumps(data))
+    start = time.perf_counter()
+    if lidc_pickle_to_npz.main([str(pkl), str(npy)]) != 0:
+        raise AssertionError("remaining: lidc_pickle_to_npz failed")
+    convert_s = time.perf_counter() - start
+    os.environ["CCDM_LIDC_PATH"] = str(npy)
+    sizes = {s: len(lidc_data.npy_group(str(npy), s)["uids"]) for s in ("train", "val", "test")}
+
+    run_dir = REMAINING_DIR / "run"
+    params = dict(DEMO_TRAIN_PARAMS, dataset_file="datasets.lidc", output_path=str(run_dir),
+                  save_freq=NPZ_STEPS, validation_freq=10 ** 6, display_freq=NPZ_STEPS,
+                  progress_bar=False)
+    run = TrainingRun(params)
+    metrics, marks, _, _, calls, launches, paths = run_training(run, NPZ_STEPS, (1, NPZ_STEPS))
+    check_train_launches("lidc_npz_train", launches, NPZ_STEPS, calls, 66, 11)
+    runs = {"lidc_npz_train": {"launches": launches, "path_launches": paths}}
+    warm = (marks[NPZ_STEPS] - marks[1]) / (NPZ_STEPS - 1)
+    log("remaining", f"LIDC .npy directory: a synthesised pickle of 48 crops (128x128, 4 "
+        f"masks, 12 series) -> tools/lidc_pickle_to_npz.py in {convert_s:.2f} s, splits "
+        f"{sizes}; DEMO_TRAIN_PARAMS with datasets.lidc on it ({smi}): {NPZ_STEPS} steps at "
+        f"batch 16, loss {float(metrics[0]['loss']):.4g} -> {float(metrics[-1]['loss']):.4g}, "
+        f"{warm * 1e3:.1f} ms/step after the first; launches {launches}")
+
+    # the harness on the .npy test split, from the run and from its export,
+    # with cuDNN held to its deterministic algorithms
+    pt = REMAINING_DIR / "exported.pt"
+    start = time.perf_counter()
+    if export_torch_checkpoint.main([str(run_dir), str(pt)]) != 0:
+        raise AssertionError("remaining: export_torch_checkpoint failed")
+    export_s = time.perf_counter() - start
+    written = torch.load(pt, weights_only=True)
+    if set(written) != {"model", "average_model"} or not all(
+            torch.equal(written["average_model"][k], v.cpu()) and v.dtype == torch.float32
+            for k, v in run.state.ema_params.items()):
+        raise AssertionError("remaining: the exported .pt is not the run's fp32 EMA")
+    torch.backends.cudnn.deterministic = True
+    try:
+        results, maps = [], []
+        for name, source in (("lidc_npz_eval", run_dir), ("lidc_npz_eval_pt", pt)):
+            eval_params = lidc_eval_params(dataset_file="datasets.lidc", load_from=str(source),
+                                           dataset_val_max_size=4,
+                                           evaluation_path=str(REMAINING_DIR / name))
+            torch.cuda.synchronize()
+            reset_counts()
+            start = time.perf_counter()
+            res = eval_lidc_uncertainty(eval_params, num_steps=AB_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launches, paths = read_counts()
+            want = {"group_norm": 66 * AB_STEPS * 2, "flash_attention": 11 * AB_STEPS * 2,
+                    "group_norm_backward": 0, "quant_conv": 0}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches} != {want}")
+            check_lidc_results(name, res, 4)
+            runs[name] = {"launches": launches, "path_launches": paths}
+            results.append({k: v for k, v in res.items()
+                            if not k.endswith(("seconds", "_per_sec"))})
+            model = build_model(eval_params, 2, 1, 128, generator=torch.Generator().manual_seed(0))
+            net = load_eval_params(eval_params, model.unet)
+            images = torch.from_numpy(np.stack([lidc_data.test_dataset(2).get(i)["image"]
+                                                for i in range(2)])).cuda()
+            maps.append(make_prob_sampler(model, 16, AB_STEPS)(net, images, EVAL_SEED))
+            log("remaining", f"{name}: the harness on the .npy test split (4 crops, 2 x 16 x "
+                f"{AB_STEPS}), load_from {source}: wall {wall:.2f} s, GED_16 {res['GED_16']:.4f}, "
+                f"HM-IoU_16 {res['HMIoU_16']:.4f}, Dice {[round(v, 4) for v in res['Dice']]}; "
+                f"launches {launches}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if results[0] != results[1] or not torch.equal(maps[0], maps[1]):
+        raise AssertionError(f"remaining: load_from the .pt differs from the run directory: "
+                             f"{results}")
+    log("remaining", f"tools/export_torch_checkpoint.py: {len(written['average_model'])} fp32 "
+        f"tensors a state dict in {export_s:.2f} s; load_from the .pt gives the harness's "
+        f"results and the sampler's maps bit-equal to load_from the run directory (cuDNN "
+        f"deterministic)")
+    return runs
+
+
+def _per_call_paths(params, mode: str):
+    """Launches by kernel and path of one whole UNet call and one replay of
+    `params`' model at the harness's batch (2 x 16), and for the int8 mode
+    of its calibration first; and the model's sites (`unet_sites`)."""
+    import torch
+
+    from ccdm_tpu_torch.eval.lidc_uncertainty import load_eval_params
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.ops import quant
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, read_counts()[1]
+
+    model = build_model(params, 2, 1, 128, generator=torch.Generator().manual_seed(0))
+    sites = unet_sites(model.unet)
+    net = load_eval_params(params, model.unet)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    images = torch.randn(2, 128, 128, 1, generator=gen, device="cuda")
+    calibration = None
+    if mode != "float":
+        model, calibration = counted(lambda: quant.calibrate_static_scales(model, net, images))
+    cond = images.repeat_interleave(16, dim=0)
+    xt = torch.nn.functional.one_hot(torch.randint(0, 2, (32, 128, 128), generator=gen,
+                                                   device="cuda"), 2).float()
+    t = torch.full((32,), 100, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        full_fn, reuse_fn = model.denoise_fns_cached(net, cond)
+        (_, skips), full = counted(lambda: full_fn(xt, t))
+        _, replay = counted(lambda: reuse_fn(xt, t, skips))
+    return calibration, full, replay, sites
+
+
+def remaining_ab(smi):
+    """Phase 26 (e): `tools/encoder_reuse_ab.py` over phase 11's masters."""
+    from ccdm_tpu_torch import DEMO_EVAL_PARAMS
+    from ccdm_tpu_torch.tools.encoder_reuse_ab import MODES, ab_rows, format_row
+
+    params = dict(DEMO_EVAL_PARAMS, load_from="build/chip_smoke_train/run",
+                  dataset_val_max_size=AB_IMAGES, output_path=str(REMAINING_DIR / "ab"),
+                  evaluation_path=str(REMAINING_DIR / "ab"))
+    per_call = {mode: _per_call_paths(dict(params, **extra), mode) for mode, extra in MODES}
+    for mode, (calibration, one_full, one_replay, (full_sites, replay_sites)) in per_call.items():
+        # the measured call and replay launch at each of the model's sites
+        # once, and the calibration's min(8, T) float calls none of int8
+        calib = 8 if calibration else 0
+
+        def total(counts):
+            return {k: sum(counts[k].values()) if counts else 0 for k in full_sites}
+
+        got = (total(one_full), total(one_replay), total(calibration))
+        want = (full_sites, replay_sites, {k: n for k, n in expected_launches(
+            full_sites, replay_sites, 0, 0, calib).items() if k in full_sites})
+        if got != want or full_sites["quant_conv"] != (81 if calib else 0):
+            raise AssertionError(f"ab {mode}: one call, one replay and the calibration launch "
+                                 f"{got}; the model's sites give {want}")
+    rows, runs = [], {}
+    batches = AB_IMAGES // 2
+    rows_iter = ab_rows(params, (1, 2, 3), num_steps=AB_STEPS)
+    while True:
+        reset_counts()
+        start = time.perf_counter()
+        try:
+            row, res = next(rows_iter)
+        except StopIteration:
+            break
+        wall = time.perf_counter() - start
+        launches, paths = read_counts()
+        r = row["R"]
+        full = batches * len(range(0, AB_STEPS, r))
+        replays = batches * AB_STEPS - full
+        calibration, one_full, one_replay, (full_sites, replay_sites) = per_call[row["mode"]]
+        want = {k: {p: full * n + replays * one_replay[k][p]
+                    + (calibration[k][p] if calibration else 0) for p, n in one_full[k].items()}
+                for k in one_full}
+        calib = 8 if calibration else 0
+        want_total = expected_launches(full_sites, replay_sites, full, replays, calib)
+        if paths != want or launches != want_total:
+            raise AssertionError(f"ab {row['mode']} R={r}: launches {launches} != {want_total} "
+                                 f"by the sites, by path {paths} != {want} ({full} whole UNet "
+                                 f"calls, {replays} replays, {calib} calibration calls)")
+        check_lidc_results(f"ab {row['mode']} R={r}", res, AB_IMAGES)
+        rows.append(dict(row, samples_per_sec=res["samples_per_sec"]))
+        runs[f"ab_{row['mode']}_r{r}"] = {"launches": launches, "path_launches": paths}
+        log("remaining", f"{format_row(row)} samples/s {res['samples_per_sec']:.2f} wall "
+            f"{wall:.2f} s; {full} whole UNet calls + {replays} replays; launches {launches} "
+            f"by path {paths}")
+    log("remaining", f"encoder-reuse A/B ({smi}): phase 11's masters (30 steps), "
+        f"DEMO_EVAL_PARAMS at T = {AB_STEPS} (cut from 250), {AB_IMAGES} of its 16 synthetic "
+        f"test images at batch 2 x 16; samples/s by mode and R: " + ", ".join(
+            f"{r['mode']} R={r['R']} {r['samples_per_sec']:.2f}" for r in rows))
+    return runs
+
+
+def phase_remaining(smi):
+    """Phase 26: the modules the port added last, each on the card."""
+    import shutil
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(REMAINING_DIR, ignore_errors=True)
+    REMAINING_DIR.mkdir(parents=True)
+    remaining_native()
+    remaining_dino(smi)
+    runs = remaining_lidc_npz(smi)
+    runs.update(remaining_ab(smi))
+    log("remaining", f"phase {time.perf_counter() - phase_start:.1f} s")
+    return runs
+
+
 def _dp_train_params():
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
 
@@ -3156,6 +3544,7 @@ def main() -> None:
         "flagship": bare_rate, "cityscapes": runs["cityscapes_r1"]["images_per_s"],
         "int8_harness": quant_rates["eval_lidc_fast"]})
     runs.update(serving_runs)
+    runs.update(phase_remaining(smi))
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],

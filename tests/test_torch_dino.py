@@ -105,8 +105,15 @@ def test_resize_bilinear_matches_jax_upsampling(src, dst):
 
 
 def test_resize_bilinear_refuses_downsampling():
-    with pytest.raises(NotImplementedError):
-        tdino.resize_bilinear(torch.zeros(1, 8, 8, 2), (4, 8))
+    """Downsampling was refused until it was ported; it now antialiases as
+    `jax.image.resize` does (more cases in test_torch_dino_extras.py), and
+    an empty target is what is refused."""
+    x = np.random.default_rng(5).standard_normal((1, 8, 8, 2)).astype(np.float32)
+    ours = tdino.resize_bilinear(torch.from_numpy(x), (4, 8)).numpy()
+    ref = np.asarray(jax.image.resize(jnp.asarray(x), (1, 4, 8, 2), method="bilinear"))
+    np.testing.assert_allclose(ours, ref, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError):
+        tdino.resize_bilinear(torch.zeros(1, 8, 8, 2), (0, 8))
 
 
 def test_converter_inverts_the_checkpoint_script(encoders, tmp_path):

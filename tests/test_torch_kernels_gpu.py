@@ -540,3 +540,40 @@ def test_registered_ops_launch_the_kernels_and_pass_opcheck(cuda):
             assert torch.equal(out, wrapper()) and out.is_contiguous()
     for _, op, args, _ in cases:
         torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+
+
+def test_native_counts_build_on_the_cards_host(cuda, tmp_path, monkeypatch):
+    """The confusion counts' library, built afresh by the card machine's own
+    C++ compiler, counts two Cityscapes-size label maps as NumPy does."""
+    import numpy as np
+
+    from ccdm_tpu_torch import native
+
+    monkeypatch.setattr(native, "LIB_PATH", tmp_path / "libccdm_native.so")
+    monkeypatch.setattr(native, "_lib", None)
+    rng = np.random.default_rng(0)
+    gt, pred = (rng.integers(0, 34, (1024, 2048), dtype=np.uint8) for _ in range(2))
+    cm = native.add_to_confusion_matrix(gt, pred, 256)
+    assert (tmp_path / "libccdm_native.so").is_file()
+    np.testing.assert_array_equal(cm, native.add_to_confusion_matrix_numpy(gt, pred, 256))
+
+
+def test_dino_descriptors_on_the_card_equal_the_cpus(cuda):
+    """Multi-layer key facets, log-binned descriptors and the saliency map of
+    a small ViT on the card against the same calls on the CPU, fp32."""
+    from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
+
+    enc = DinoFeatureEncoder({"model": "dino_vits8", "output_stride": 4, "source_layer": 2,
+                              "vit_config": dict(embed_dim=96, depth=3, num_heads=6,
+                                                 patch_size=8, pretrain_size=64)})
+    cpu = enc.init(torch.Generator().manual_seed(1), device="cpu")
+    card = enc.init(torch.Generator().manual_seed(1), device="cuda")
+    images = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(2))
+    for kwargs in ({"layers": [0, 2]}, {"log_bin": True}, {"resize_shape": (5, 7)}):
+        ours = enc.extract_descriptors(card, images.cuda(), **kwargs)
+        ref = enc.extract_descriptors(cpu, images, **kwargs)
+        for o, r in zip(ours if isinstance(ours, list) else [ours],
+                        ref if isinstance(ref, list) else [ref]):
+            assert float((o.cpu() - r).abs().max()) <= 1e-4 * float(r.abs().max())
+    sal = enc.extract_saliency_maps(card, images.cuda()).cpu()
+    assert float((sal - enc.extract_saliency_maps(cpu, images)).abs().max()) <= 1e-4
