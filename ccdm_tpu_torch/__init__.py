@@ -112,7 +112,8 @@ CITYSCAPES_EVAL_PARAMS = {
 # (128x128, C=2, base 32, bf16) trained on the synthetic multi-annotator set
 # at batch 16 with Adam and a polynomial LR 1e-4 -> 1e-6, Polyak 0.999. A
 # copy for the same reasons as the one above; a test holds it equal to the
-# YAML. `steps_per_launch` is accepted and not ported (one step a launch).
+# YAML. `steps_per_launch: 2` groups two steps a launch, as the JAX trainer
+# does (`train/trainer.py`; on the card each step replays a CUDA graph).
 DEMO_TRAIN_PARAMS = {
     "output_path": "/tmp/ccdm_demo/run",
     "dataset_file": "ccdm_tpu.data.synthetic",

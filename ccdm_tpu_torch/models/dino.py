@@ -52,6 +52,25 @@ VIT_CONFIGS = {
 _CUBIC_A = -0.75  # torch's bicubic kernel coefficient (Keys, a = -0.75)
 
 
+_MATRICES: Dict[tuple, torch.Tensor] = {}
+
+
+def _on_device(key: tuple, device: torch.device, dtype: torch.dtype, make) -> torch.Tensor:
+    """The resampling matrix `make()` (a numpy array) on `device` in
+    `dtype`, copied there once per key: a copy from pageable host memory
+    each call would wait for the device, and a CUDA graph of the train step
+    cannot capture one. Made outside inference mode, so that a matrix first
+    made by a sampler may enter a trainable encoder's autograd graph."""
+    full = (key, torch.device(device), dtype)
+    if full in _MATRICES:
+        return _MATRICES[full]
+    with torch.inference_mode(False):
+        matrix = torch.from_numpy(make()).to(device, dtype)
+    if not torch.compiler.is_exporting():  # what an export traces is not kept
+        _MATRICES[full] = matrix
+    return matrix
+
+
 def _torch_bicubic_matrix(in_size: int, out_size: int, src_scale: float) -> np.ndarray:
     """Interpolation weights `[out, in]` of torch's `F.interpolate(mode=
     'bicubic', align_corners=False, recompute_scale_factor=False)`: source
@@ -90,8 +109,8 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid_hw: Tuple[int, int]) -> 
     grid = patch_pe.reshape(1, side, side, -1)
 
     def matrix(out):  # torch is handed scale (g + 0.1) / side and samples at its inverse
-        return torch.from_numpy(_torch_bicubic_matrix(side, out, side / (out + 0.1))).to(
-            pos_embed.device)
+        return _on_device(("bicubic", side, out), pos_embed.device, torch.float32,
+                          lambda: _torch_bicubic_matrix(side, out, side / (out + 0.1)))
 
     grid = torch.einsum("hs,bstd->bhtd", matrix(h), grid)
     grid = torch.einsum("wt,bhtd->bhwd", matrix(w), grid)
@@ -128,7 +147,8 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         out = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
                             align_corners=False)
         return out.permute(0, 2, 3, 1)
-    wh, ww = (torch.from_numpy(_triangle_matrix(n, m)).to(x.device, x.dtype)
+    wh, ww = (_on_device(("triangle", n, m), x.device, x.dtype,
+                         lambda n=n, m=m: _triangle_matrix(n, m))
               for n, m in ((h, size[0]), (w, size[1])))
     return torch.einsum("qw,bpwc->bpqc", ww, torch.einsum("ph,bhwc->bpwc", wh, x))
 

@@ -229,10 +229,11 @@ def _counter(device: torch.device, stream) -> torch.Tensor:
 
     Launches that share a counter must not run at the same time; launches
     on one stream never do. A CUDA graph keeps the counter of the stream it
-    was captured on: replaying it on another stream while that stream runs
-    backward kernels of its own would race on the counter and give wrong
-    weight and bias gradients. A graph of the train step must be replayed
-    on its capture stream, or be given a counter of its own."""
+    was captured on: replayed on another stream while that stream runs
+    backward kernels of its own, it would race on the counter and give
+    wrong weight and bias gradients, unless no launch outside the graph
+    uses its capture stream after the capture. So the graphed train step
+    (`train/step.GraphedTrainStep`) is captured on a stream of its own."""
     key = (device.index, stream.cuda_stream)
     if key not in _counters:
         _counters[key] = torch.zeros(1, dtype=torch.int32, device=device)

@@ -15,11 +15,14 @@ ViT-S/8 (random weights). All at batch 16, bf16 torso, fp32 masters, Adam
 and the Polyak EMA, with PyTorch's default TF32 settings (what `run_train`
 runs).
 
-- `loop`: the trainer's own loop (`TrainingRun.run`, data loading, the
-  pinned-memory prefetch and the metric reads two steps behind included,
-  no validation or save inside the window): the cold first step, then the
-  mean ms/step and images/s over `--steps` warm steps;
-- `phases`: per step, the device-stream span of the DINO map (0 without
+- `loop`: the trainer's own loop (`TrainingRun.run`: the step replayed as
+  a CUDA graph, data loading, the pinned-memory prefetch and the metric
+  reads two launches behind included, no validation or save inside the
+  window): the cold launches up to the graph's capture (its eager warm-up
+  steps), then the mean ms/step and images/s over `--steps` warm steps
+  (rounded up to whole launches), replays of the graph;
+- `phases`: per eager step (the step's parts driven one by one, no
+  graph), the device-stream span of the DINO map (0 without
   DINO), the forward (with the loss), the backward and the update
   (optimizer, EMA, the masters written into the bf16 module), from CUDA
   events around each, and the host's time per step, over 20 steps driven
@@ -164,7 +167,7 @@ def main() -> None:
     from ccdm_tpu_torch.data.loader import device_prefetch
     from ccdm_tpu_torch.models.layers import GroupNorm32
     from ccdm_tpu_torch.ops import _build
-    from ccdm_tpu_torch.train.step import step_seed, train_loss
+    from ccdm_tpu_torch.train.step import WARMUP_STEPS, step_seed, train_loss
     from ccdm_tpu_torch.train.trainer import STEP_KEYS, TrainingRun, _class_weights
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -186,15 +189,18 @@ def main() -> None:
 
     torch.cuda.synchronize()
     start = time.perf_counter()
-    run.run(max_steps=1)
+    # the graph's eager warm-up steps and its capture
+    run.run(max_steps=WARMUP_STEPS + 1)
     torch.cuda.synchronize()
     cold = time.perf_counter() - start
-    start = time.perf_counter()
-    run.run(max_steps=args.steps)
+    start, step0 = time.perf_counter(), run.state.step
+    run.run(max_steps=args.steps)  # to the first launch boundary at or past it
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    emit("loop", cold_first_step_s=cold, warm_steps=args.steps,
-         ms_per_step=wall / args.steps * 1e3, images_per_s=run.batch_size * args.steps / wall,
+    warm = run.state.step - step0
+    emit("loop", cold_steps=step0, cold_s=cold, warm_steps=warm,
+         steps_per_launch=run.steps_per_launch, ms_per_step=wall / warm * 1e3,
+         images_per_s=run.batch_size * warm / wall,
          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
 
     # the step's phases, as make_train_step runs them (a frozen encoder or none)

@@ -22,6 +22,24 @@ Adam (b1 0.9, b2 0.999, eps 1e-8, no weight decay), AdamW (weight decay
 added to the gradient first). The learning rate of update n is the schedule
 at the count before the increment, as optax's `scale_by_schedule` reads it.
 Total steps = `steps_per_epoch * optim.epochs`.
+
+The learning rate and Adam's bias corrections `1 - b**count` change every
+update. They enter the update as device fp32 scalars that the optimizer
+owns (`scalars`), written by `prepare` before each update with `fill_`, so
+that the value travels as a kernel argument: the update (`apply`) then
+launches the same kernels with the same arguments at every step, and a CUDA
+graph of it (`train/step.py`) replays it at any count. The eager update runs
+the same ops on the same tensors, so eager and graph do the same arithmetic.
+optax computes these scalars in fp32 too. The ops are chosen to give on the
+card the bits that the same update with host scalars gave: PyTorch's CUDA
+foreach division by a host scalar multiplies by its reciprocal (so the
+scalars hold `1 / (1 - b**count)`, computed on the host), and its add with
+`alpha=-lr` is one fused multiply-add (so `addcmul` by tensors filled with
+`-lr`: they have the parameters' shapes, because a 0-d tensor beside them
+sends `_foreach_addcmul_` to one kernel a parameter). Ulp-level
+changes of the masters move a later step's rounding-level gradients, and
+Adam turns a sign flip there into a move of lr; keeping the bits keeps the
+trajectory.
 """
 
 from __future__ import annotations
@@ -147,10 +165,22 @@ def build_lr_schedule(optim_params: Dict[str, Any], steps_per_epoch: int,
     return lambda step: base_lr * mult(float(step))
 
 
+def _fill(tensors: List[torch.Tensor], value: torch.Tensor) -> List[torch.Tensor]:
+    """`tensors`, each filled in place with the device scalar `value` (two
+    multi-tensor launches)."""
+    torch._foreach_zero_(tensors)
+    # the Tensor overload by name: `torch._foreach_add_(tensors, value)` binds
+    # a 0-d tensor to the Scalar overload, which reads it on the host
+    torch.ops.aten._foreach_add_.Tensor(tensors, value)
+    return tensors
+
+
 class Optimizer:
     """In-place updates of a dict of fp32 parameters. `kind` is "Adam",
-    "AdamW" or "SGD"; `state` is a dict: `count` and the moments `mu`, `nu`
-    (Adam, AdamW) or `trace` (SGD), each keyed like the parameters."""
+    "AdamW" or "SGD"; `state` is a dict: `count` (a host int) and the
+    moments `mu`, `nu` (Adam, AdamW) or `trace` (SGD), each keyed like the
+    parameters. `scalars` holds the device fp32 scalars of the next update
+    (see `prepare`), on the device `prepare` was last given."""
 
     def __init__(self, kind: str, schedule: Callable[[int], float], *, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
@@ -160,6 +190,7 @@ class Optimizer:
         self.kind, self.schedule = kind, schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.momentum = weight_decay, momentum
+        self.scalars: Dict[str, torch.Tensor] = {}
 
     def init(self, params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         def zeros():
@@ -170,38 +201,63 @@ class Optimizer:
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
     @torch.no_grad()
-    def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> float:
-        """Apply one update to `params` and `state` in place; returns the
-        learning rate it used."""
+    def prepare(self, count: int, device: torch.device) -> float:
+        """Write the scalars of the update that follows update number
+        `count` into `scalars` on `device`: `neg_lr`, minus the learning
+        rate at `count`, and (Adam) `inv_bc1`, `inv_bc2`, the reciprocals of
+        the bias corrections at `count + 1`. Returns the learning rate.
+        Each is filled in place on the current stream: a replayed graph
+        reads the tensor, and no host buffer is rewritten under a copy."""
+        lr = self.schedule(count)
+        values = {"neg_lr": -lr}
+        if self.kind != "SGD":
+            values.update(inv_bc1=1.0 / (1.0 - self.b1 ** (count + 1)),
+                          inv_bc2=1.0 / (1.0 - self.b2 ** (count + 1)))
+        for name, value in values.items():
+            if name not in self.scalars or self.scalars[name].device != device:
+                self.scalars[name] = torch.zeros((), dtype=torch.float32, device=device)
+            self.scalars[name].fill_(value)
+        return lr
+
+    @torch.no_grad()
+    def apply(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
+              params: Dict[str, torch.Tensor]) -> None:
+        """The update with the prepared scalars, on the device alone: no
+        host value changes (`count` included), so a graph may capture it."""
         names = list(params)
         p: List[torch.Tensor] = [params[k] for k in names]
         g: List[torch.Tensor] = [grads[k] for k in names]
-        lr = self.schedule(state["count"])
-        state["count"] += 1
+        neg_lr = self.scalars["neg_lr"]
         if self.kind == "SGD":
             trace = [state["trace"][k] for k in names]
             if self.weight_decay:
                 g = torch._foreach_add(g, p, alpha=self.weight_decay)
             torch._foreach_mul_(trace, self.momentum)
             torch._foreach_add_(trace, g)
-            torch._foreach_add_(p, trace, alpha=-lr)
-            return lr
+            torch._foreach_addcmul_(p, trace, _fill([torch.empty_like(t) for t in trace], neg_lr))
+            return
         mu = [state["mu"][k] for k in names]
         nu = [state["nu"][k] for k in names]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, g, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - self.b2)
-        count = state["count"]
-        denom = torch._foreach_div(nu, 1.0 - self.b2 ** count)
+        denom = torch._foreach_mul(nu, self.scalars["inv_bc2"])
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu, 1.0 - self.b1 ** count)
+        step = torch._foreach_mul(mu, self.scalars["inv_bc1"])
         torch._foreach_div_(step, denom)
         if self.kind == "AdamW":
             torch._foreach_add_(step, p, alpha=self.weight_decay)
-        torch._foreach_add_(p, step, alpha=-lr)
+        torch._foreach_addcmul_(p, step, _fill(denom, neg_lr))
+
+    def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
+               params: Dict[str, torch.Tensor]) -> float:
+        """Apply one update to `params` and `state` in place (`prepare`,
+        `apply`, then the count); returns the learning rate it used."""
+        lr = self.prepare(state["count"], next(iter(params.values())).device)
+        self.apply(grads, state, params)
+        state["count"] += 1
         return lr
 
 

@@ -60,16 +60,35 @@ class TrainState:
     tx: Optimizer
     polyak_alpha: float = 0.9999
 
-    @torch.no_grad()
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> float:
         """One optimizer update of the masters, then `ema = a ema + (1 - a)
-        p` on the new params; returns the learning rate used."""
-        lr = self.tx.update(grads, self.opt_state, self.params)
+        p` on the new params; returns the learning rate used. The three
+        parts, which a CUDA graph of the step takes apart: `prepare_update`
+        (the host's scalars), `update` (the device's work) and `advance`
+        (the host's counts)."""
+        lr = self.prepare_update()
+        self.update(grads)
+        self.advance()
+        return lr
+
+    def prepare_update(self) -> float:
+        """The optimizer's scalars of the next update, written on the
+        masters' device; returns its learning rate."""
+        return self.tx.prepare(self.opt_state["count"], next(iter(self.params.values())).device)
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor]) -> None:
+        """The update with the prepared scalars and the EMA, on the device
+        alone (no host value changes)."""
+        self.tx.apply(grads, self.opt_state, self.params)
         ema = [self.ema_params[k] for k in self.params]
         torch._foreach_mul_(ema, self.polyak_alpha)
         torch._foreach_add_(ema, list(self.params.values()), alpha=1.0 - self.polyak_alpha)
+
+    def advance(self) -> None:
+        """Count the update: the optimizer's count and the step."""
+        self.opt_state["count"] += 1
         self.step += 1
-        return lr
 
     @torch.no_grad()
     def write_to(self, net: nn.Module, ema: bool = False, prefix: str = "") -> None:

@@ -9,11 +9,21 @@ gradients, update, EMA.
 - `invalid`: a non-finite loss or `min KL < -1e-3` (the reference's
   `_check_loss`), and `kl_min`.
 
-Draws come from a `torch.Generator` seeded from `(seed, step)`, so a resumed
-run draws what an uninterrupted one would (the JAX version folds the step
-into its key). `train_loss` also takes injected `t` and `x_t`. The metrics
-stay on the device; the trainer reads them two steps later. Not ported, by
-decision: `make_multi_step` (several steps a launch).
+Draws come from the step function's own `torch.Generator`, reseeded from
+`(seed, step)` before each step, so a resumed run draws what an
+uninterrupted one would (the JAX version folds the step into its key).
+`train_loss` also takes injected `t` and `x_t`. The metrics stay on the
+device; the trainer reads them two launches later.
+
+Launches (the JAX package's `jax.jit` of the step and `make_multi_step`'s
+`lax.scan` of K steps): on the card the trainer runs the step as a replay
+of a CUDA graph of it (`GraphedTrainStep`), captured once after warm-up
+steps, and `make_multi_step` enqueues K steps back to back, with no host
+sync between them. The CPU runs the eager step, the plain version the
+tests hold against the JAX package. The graph replays what the eager step
+launches, with the same arguments: the draws' seeds and the optimizer's
+scalars are device values written before each replay, so replays are bit
+for bit the eager steps.
 
 The forward and the backward run under `ops.precision.fp32_precision`:
 fp32 convolutions (the output heads) in fp32, not in PyTorch's default TF32.
@@ -35,13 +45,16 @@ same loss and raises at the same step. The gradients are reduced in fp32
 and outside the module, so `net` is not wrapped in
 `DistributedDataParallel` (which would reduce the bf16 copies). Dropout
 masks draw from `(seed, step, rank)` on rank > 0, so they are not the
-one-process run's.
+one-process run's. A gloo collective cannot be captured, so the graphed
+step is then two graphs, the gradients into the flat buffer and the
+update, with the all-reduce run eagerly between them.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -55,6 +68,8 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post_prob,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.ops import flash_attention as fa
+from ccdm_tpu_torch.ops import group_norm as gn
 from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
 from ccdm_tpu_torch.ops.precision import fp32_precision
@@ -94,29 +109,157 @@ def train_loss(model: DenoisingModel, net: torch.nn.Module, batch: Dict[str, tor
     return loss, {"kl_min": kl_min, "invalid": invalid}
 
 
-def _reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
-                      aux: Dict[str, torch.Tensor], count: int):
-    """The mean over the ranks of `grads` and `loss` (one flat fp32 buffer,
-    one sum), the minimum of `kl_min` and the maximum of `invalid`: new
-    `(grads, loss, aux)`, the same on every rank."""
+def _flatten(grads: Dict[str, torch.Tensor], loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
+    """What the ranks reduce: `(flat, worst)`, the fp32 gradients and the
+    loss in one buffer, and `[-kl_min, invalid]`."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.reshape(1)])
+    worst = torch.stack([-aux["kl_min"].float(), aux["invalid"].float()])
+    return flat, worst
+
+
+def _all_reduce(flat: torch.Tensor, worst: torch.Tensor) -> None:
+    """The sum of `flat` and the maximum of `worst` over the ranks, in place."""
     import torch.distributed as dist
 
-    flat = torch.cat([g.reshape(-1) for g in grads.values()] + [loss.detach().reshape(1)])
     dist.all_reduce(flat)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+
+
+def _unflatten(flat: torch.Tensor, worst: torch.Tensor, grads: Dict[str, torch.Tensor],
+               count: int):
+    """The reduced `(grads, loss, aux)` from the summed buffers: the mean
+    gradients (views of `flat`, named and shaped as `grads`) and loss, the
+    minimum `kl_min` and any `invalid`."""
     flat /= count
     out, offset = {}, 0
     for name, g in grads.items():
         out[name] = flat[offset:offset + g.numel()].view_as(g)
         offset += g.numel()
-    worst = torch.stack([-aux["kl_min"].float(), aux["invalid"].float()])
-    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
     return out, flat[-1], {"kl_min": -worst[0], "invalid": worst[1] > 0}
+
+
+def _reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                      aux: Dict[str, torch.Tensor], count: int):
+    """The mean over the ranks of `grads` and `loss` (one flat fp32 buffer,
+    one sum), the minimum of `kl_min` and the maximum of `invalid`: new
+    `(grads, loss, aux)`, the same on every rank."""
+    flat, worst = _flatten(grads, loss, aux)
+    _all_reduce(flat, worst)
+    return _unflatten(flat, worst, grads, count)
+
+
+class TrainStep:
+    """The eager train step that `make_train_step` returns (see there), in
+    parts that `GraphedTrainStep` captures: `seeded` (host), `local_gradients`
+    and `finish` (device), `_reduce_gradients` between them in a process
+    group."""
+
+    def __init__(self, model: DenoisingModel, class_weights: torch.Tensor,
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 feature_fn: Optional[Callable] = None,
+                 encoder_apply: Optional[Callable] = None):
+        self.model, self.class_weights, self.lr_schedule = model, class_weights, lr_schedule
+        self.feature_fn, self.encoder_apply = feature_fn, encoder_apply
+        self.dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0
+                              for m in model.unet.modules())
+        self.rank, self.ranks = mesh.process_index(), mesh.process_count()
+        self._generators: Dict[torch.device, torch.Generator] = {}
+
+    def generator(self, device: torch.device) -> torch.Generator:
+        """The step's generator on `device`, made once: a CUDA graph
+        registers it and reads its seed at every replay."""
+        device = torch.device(device)
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(device=device)
+        return self._generators[device]
+
+    @contextlib.contextmanager
+    def seeded(self, step: int, seed: int, device: torch.device):
+        """The draws of step `step`: the step's generator reseeded from
+        `(seed, step)`; with dropout, the default generator forked and
+        seeded from it (and the rank) for the block."""
+        s = step_seed(seed, step)
+        self.generator(device).manual_seed(s)
+        if not self.dropout_on:
+            yield
+            return
+        with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+            torch.manual_seed(s if self.rank == 0 else step_seed(s, self.rank))
+            yield
+
+    def local_gradients(self, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                        encoder_net: Optional[torch.nn.Module] = None, *,
+                        t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
+        """The forward and backward of this rank's `batch` with the seeded
+        draws: `(grads, loss, aux)`, the fp32 gradients by master name. On
+        the device alone (no host sync), so a graph may capture it."""
+        modules = ({"": net} if self.encoder_apply is None
+                   else {UNET: net, ENCODER: encoder_net})
+        device = batch["x0"].device
+        net.train(self.dropout_on)
+        for m in modules.values():
+            m.zero_grad(set_to_none=True)
+        # forward and backward in fp32 where the model computes in fp32 (the
+        # output heads): TF32 there cost the LIDC gate its quality
+        with fp32_precision():
+            fc = None
+            if self.encoder_apply is not None:
+                fc = self.encoder_apply(encoder_net, batch["image"])
+            elif self.feature_fn is not None:
+                with torch.no_grad():
+                    fc = self.feature_fn(encoder_net, batch["image"])
+            b = batch["x0"].shape[0]
+            loss, aux = train_loss(self.model, net, batch, self.generator(device),
+                                   self.class_weights, fc, t=t, xt=xt,
+                                   rows=slice(self.rank, None, self.ranks),
+                                   global_batch=b * self.ranks)
+            loss.backward()
+        grads = {prefix + name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                 for prefix, m in modules.items() for name, p in m.named_parameters()}
+        for m in modules.values():
+            m.zero_grad(set_to_none=True)
+        return grads, loss.detach(), aux
+
+    def metrics(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                aux: Dict[str, torch.Tensor], num_items: int) -> Dict[str, object]:
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        return {"loss": loss, "invalid": aux["invalid"], "kl_min": aux["kl_min"],
+                "grad_norm": grad_norm, "num_items": num_items}
+
+    def write(self, state: TrainState, net: torch.nn.Module,
+              encoder_net: Optional[torch.nn.Module]) -> None:
+        """The new masters into the modules."""
+        state.write_to(net, prefix=UNET if self.encoder_apply is not None else "")
+        if self.encoder_apply is not None:
+            state.write_to(encoder_net, prefix=ENCODER)
+
+    def gradients(self, state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                  seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
+                  t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
+        """`(grads, metrics)` of the step, without updating: the reduced fp32
+        gradients by master name."""
+        with self.seeded(state.step, seed, batch["x0"].device):
+            grads, loss, aux = self.local_gradients(net, batch, encoder_net, t=t, xt=xt)
+        if self.ranks > 1:
+            grads, loss, aux = _reduce_gradients(grads, loss, aux, self.ranks)
+        return grads, self.metrics(grads, loss, aux, batch["x0"].shape[0] * self.ranks)
+
+    def __call__(self, state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                 seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
+                 t: Optional[torch.Tensor] = None,
+                 xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
+        grads, metrics = self.gradients(state, net, batch, seed, encoder_net, t=t, xt=xt)
+        lr = state.apply_gradients(grads)
+        self.write(state, net, encoder_net)
+        if self.lr_schedule is not None:
+            metrics["lr"] = lr
+        return metrics
 
 
 def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
                     lr_schedule: Optional[Callable[[int], float]] = None,
                     feature_fn: Optional[Callable] = None,
-                    encoder_apply: Optional[Callable] = None) -> Callable:
+                    encoder_apply: Optional[Callable] = None) -> TrainStep:
     """`step(state, net, batch, seed, encoder_net=None, *, t=None, xt=None)
     -> metrics`: one update of `state` (in place) from the gradients of
     `net`, the module that holds the compute-dtype copy of the state's
@@ -135,60 +278,204 @@ def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
     the module docstring). `step.gradients(...)`, with the step's arguments,
     returns `(grads, metrics)` without updating: the reduced fp32
     gradients by master name."""
-    dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0 for m in model.unet.modules())
-    rank, ranks = mesh.process_index(), mesh.process_count()
+    return TrainStep(model, class_weights, lr_schedule, feature_fn, encoder_apply)
 
-    def gradients(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
-                  seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
-                  t: Optional[torch.Tensor] = None, xt: Optional[torch.Tensor] = None):
-        modules = {"": net} if encoder_apply is None else {UNET: net, ENCODER: encoder_net}
-        device = batch["x0"].device
-        s = step_seed(seed, state.step)
-        generator = torch.Generator(device=device).manual_seed(s)
-        net.train(dropout_on)
-        for m in modules.values():
-            m.zero_grad(set_to_none=True)
-        fork = contextlib.nullcontext()
-        if dropout_on:
-            fork = torch.random.fork_rng(devices=[device] if device.type == "cuda" else [])
-        # forward and backward in fp32 where the model computes in fp32 (the
-        # output heads): TF32 there cost the LIDC gate its quality
-        with fork, fp32_precision():
-            if dropout_on:
-                torch.manual_seed(s if rank == 0 else step_seed(s, rank))
-            fc = None
-            if encoder_apply is not None:
-                fc = encoder_apply(encoder_net, batch["image"])
-            elif feature_fn is not None:
-                with torch.no_grad():
-                    fc = feature_fn(encoder_net, batch["image"])
-            b = batch["x0"].shape[0]
-            loss, aux = train_loss(model, net, batch, generator, class_weights, fc, t=t, xt=xt,
-                                   rows=slice(rank, None, ranks), global_batch=b * ranks)
-            loss.backward()
-        grads = {prefix + name: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
-                 for prefix, m in modules.items() for name, p in m.named_parameters()}
-        for m in modules.values():
-            m.zero_grad(set_to_none=True)
-        loss = loss.detach()
-        if ranks > 1:
-            grads, loss, aux = _reduce_gradients(grads, loss, aux, ranks)
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
-        return grads, {"loss": loss, "invalid": aux["invalid"], "kl_min": aux["kl_min"],
-                       "grad_norm": grad_norm, "num_items": b * ranks}
 
-    def step(state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
-             seed: int, encoder_net: Optional[torch.nn.Module] = None, *,
-             t: Optional[torch.Tensor] = None,
-             xt: Optional[torch.Tensor] = None) -> Dict[str, object]:
-        grads, metrics = gradients(state, net, batch, seed, encoder_net, t=t, xt=xt)
-        lr = state.apply_gradients(grads)
-        state.write_to(net, prefix=UNET if encoder_apply is not None else "")
-        if encoder_apply is not None:
-            state.write_to(encoder_net, prefix=ENCODER)
-        if lr_schedule is not None:
-            metrics["lr"] = lr
+def make_multi_step(step_fn: Callable) -> Callable:
+    """`multi(state, net, batches, seed, encoder_net=None) -> metrics`: one
+    launch of K = `len(batches)` steps of `step_fn` (port of
+    `ccdm_tpu/train/step.py::make_multi_step`). Each step folds its own
+    `state.step` into its draws, so one launch of K and K launches of 1 give
+    the same trajectory bit for bit. Metrics: the last step's, `loss_mean`
+    over the K steps and `invalid` if any step's was. With a
+    `GraphedTrainStep` the launch is K replays enqueued back to back with no
+    host sync between them; on the CPU, K eager steps."""
+
+    def multi(state: TrainState, net: torch.nn.Module, batches: List[Dict[str, torch.Tensor]],
+              seed: int, encoder_net: Optional[torch.nn.Module] = None) -> Dict[str, object]:
+        ms = [step_fn(state, net, batch, seed, encoder_net) for batch in batches]
+        metrics = dict(ms[-1])
+        metrics["invalid"] = torch.stack([m["invalid"] for m in ms]).any()
+        metrics["loss_mean"] = torch.stack([m["loss"] for m in ms]).mean()
         return metrics
 
-    step.gradients = gradients
-    return step
+    return multi
+
+
+WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
+
+# The kernel wrappers' launch counts on the step's path, by module: a capture
+# records launches, which run only at a replay, so the counts move there
+_COUNTED = ((gn, ("launches", "path_launches", "launches_bwd", "path_launches_bwd")),
+            (fa, ("launches", "path_launches")))
+
+
+def _launch_counts() -> Dict:
+    counts = {}
+    for module, names in _COUNTED:
+        for name in names:
+            value = getattr(module, name)
+            counts[module, name] = dict(value) if isinstance(value, dict) else value
+    return counts
+
+
+def _count_launches(delta: Dict, sign: int = 1) -> None:
+    """Add `sign` times `delta` (as `_launch_counts` gives, differences) to
+    the wrappers' counts."""
+    for (module, name), d in delta.items():
+        value = getattr(module, name)
+        if isinstance(value, dict):
+            for key in d:
+                value[key] += sign * d[key]
+        else:
+            setattr(module, name, value + sign * d)
+
+
+def capture_graph(fn: Callable, stream: torch.cuda.Stream, pool, generators, what: str):
+    """`(graph, fn())` with `fn`'s device work captured into a new CUDA graph
+    on `stream` and memory `pool`, `generators` registered with the graph.
+    A capture that fails (a host sync, a copy from pageable memory, an
+    unregistered generator) raises a RuntimeError that names `what` and the
+    cause; nothing runs eagerly in its place."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            out = fn()
+    except Exception as e:
+        # the capture's end reports a capture that an error inside it broke:
+        # name that first error too
+        first = e.__context__
+        cause = f"{type(e).__name__}: {e}" + (
+            f" (after {type(first).__name__}: {first})" if first is not None else "")
+        raise RuntimeError(f"CUDA graph capture of {what} failed: {cause}") from e
+    return graph, out
+
+
+class GraphedTrainStep:
+    """`step` (a `TrainStep`) on the card as replays of CUDA graphs of it,
+    called as the eager step is (`t` and `xt` are not injected).
+
+    The first `WARMUP_STEPS` calls are eager steps on the step's own stream
+    (real steps of the run: they build the kernels, the cuDNN and cuBLAS
+    handles and the autograd state). The next call captures the step on
+    that stream into one graph (two in a process group: the gradients into
+    the flat buffer, then the update, with the all-reduce eager between
+    them), with static buffers for the batch and the step's generator
+    registered, and then replays it, as every later call does. A capture
+    records and runs nothing: the host's counts (`TrainState.advance`) and
+    the kernel wrappers' launch counts move only at a replay, by what the
+    capture recorded. The GroupNorm backward launches in the graph keep the
+    completion counter of the step's stream (`ops/group_norm._counter`),
+    which no launch outside the graph uses after the capture: a replay on
+    any stream cannot race with eager backward launches.
+
+    A replay, on the current stream: the batch copied into the static
+    buffers, the optimizer's scalars filled (`TrainState.prepare_update`),
+    the generators reseeded (`TrainStep.seeded`), the graph launched, the
+    counts advanced, and the metrics cloned out of the graph's static
+    outputs, which the next replay overwrites. `eager_steps`, `captures`,
+    `replays` and `capture_s` count what ran."""
+
+    def __init__(self, step: TrainStep):
+        self.step = step
+        self.eager_steps = self.captures = self.replays = 0
+        self.capture_s = 0.0
+        self.graphs: List = []
+        self.stream: Optional[torch.cuda.Stream] = None
+        self._static: Dict[str, torch.Tensor] = {}
+        self._outputs: Dict[str, object] = {}
+        self._between = None  # the flat buffers the all-reduce sums
+        self._launches: Dict = {}  # the wrappers' launches a replay makes
+
+    def __call__(self, state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                 seed: int, encoder_net: Optional[torch.nn.Module] = None) -> Dict[str, object]:
+        device = batch["x0"].device
+        if device.type != "cuda":
+            raise ValueError(f"GraphedTrainStep: the batch is on {device}; CUDA graphs run on "
+                             f"the card (the CPU takes the eager step)")
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        if not self.graphs and self.eager_steps < WARMUP_STEPS:
+            current = torch.cuda.current_stream(device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                metrics = self.step(state, net, batch, seed, encoder_net)
+            current.wait_stream(self.stream)
+            self.eager_steps += 1
+            return metrics
+        if not self.graphs:
+            self._capture(state, net, batch, encoder_net)
+        return self._replay(state, batch, seed)
+
+    def _capture(self, state: TrainState, net: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                 encoder_net: Optional[torch.nn.Module]) -> None:
+        step, device = self.step, batch["x0"].device
+        start = time.perf_counter()
+        self._static = {k: torch.empty_like(v) for k, v in batch.items()}
+        # the scalars and the stream's GroupNorm backward counter exist
+        # before the capture (the scalars' values are written at each replay)
+        state.prepare_update()
+        gn._counter(device, self.stream)
+        pool = torch.cuda.graph_pool_handle()
+        num_items = batch["x0"].shape[0] * step.ranks
+
+        def finish(grads, loss, aux):
+            metrics = step.metrics(grads, loss, aux, num_items)
+            state.update(grads)
+            step.write(state, net, encoder_net)
+            return metrics
+
+        def gradients():
+            return step.local_gradients(net, self._static, encoder_net)
+
+        def gathered():
+            grads, loss, aux = gradients()
+            return grads, _flatten(grads, loss, aux)
+
+        generators = [step.generator(device)]
+        before = _launch_counts()
+        if step.ranks == 1:
+            graph, self._outputs = capture_graph(lambda: finish(*gradients()), self.stream,
+                                                 pool, generators, "the train step")
+            self.graphs = [graph]
+        else:
+            first, (grads, self._between) = capture_graph(
+                gathered, self.stream, pool, generators, "the train step's gradients")
+            second, self._outputs = capture_graph(
+                lambda: finish(*_unflatten(*self._between, grads, step.ranks)), self.stream,
+                pool, [], "the train step's update")
+            self.graphs = [first, second]
+        after = _launch_counts()
+        self._launches = {key: ({k: after[key][k] - v for k, v in before[key].items()}
+                                if isinstance(v, dict) else after[key] - v)
+                          for key, v in before.items()}
+        _count_launches(self._launches, -1)
+        torch.cuda.current_stream(device).wait_stream(self.stream)
+        self.captures += 1
+        self.capture_s = time.perf_counter() - start
+
+    def _replay(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                seed: int) -> Dict[str, object]:
+        if batch.keys() != self._static.keys() or any(
+                batch[k].shape != v.shape or batch[k].dtype != v.dtype
+                for k, v in self._static.items()):
+            raise ValueError(f"GraphedTrainStep: the graph was captured for batches of "
+                             f"{ {k: tuple(v.shape) for k, v in self._static.items()} }, got "
+                             f"{ {k: tuple(v.shape) for k, v in batch.items()} }")
+        for k, v in self._static.items():
+            v.copy_(batch[k])
+        lr = state.prepare_update()
+        with self.step.seeded(state.step, seed, batch["x0"].device):
+            self.graphs[0].replay()
+        if len(self.graphs) > 1:
+            _all_reduce(*self._between)
+            self.graphs[1].replay()
+        _count_launches(self._launches)
+        state.advance()
+        self.replays += 1
+        metrics = {k: v.clone() if torch.is_tensor(v) else v for k, v in self._outputs.items()}
+        if self.step.lr_schedule is not None:
+            metrics["lr"] = lr
+        return metrics

@@ -23,14 +23,25 @@ data parallel over a process group, one process per card.
   sets, mIoU on single-annotator ones such as Cityscapes, each with its
   best checkpoints) and a qualitative grid (`images_<step>.png`), whose
   failure only warns.
-- Metrics stay on the device and are read two steps later, so the host
-  never waits on the step it just queued; an invalid loss (non-finite or
-  negative KL) saves `debug_state/` and raises.
+- Launches, as the JAX trainer's: `steps_per_launch: K` groups an epoch's
+  batches into launches of K steps (`train.step.make_multi_step`), the
+  epoch's tail (`remaining % K`) as launches of one, a mid-epoch resume
+  grouping the remaining batches; the trajectory is K = 1's, bit for bit.
+  On the card each step is a replay of a CUDA graph of it
+  (`train.step.GraphedTrainStep`, captured once after warm-up steps), so the
+  host steps in once a launch; the CPU runs the eager step. The cadence,
+  the preemption check and `max_steps` act at launch boundaries: an event
+  fires at the launch that crosses its multiple, and `max_steps` stops at
+  the first boundary at or past it.
+- Metrics stay on the device and are read two launches later, so the host
+  never waits on the launch it just queued; an invalid loss (non-finite or
+  negative KL) saves `debug_state/` (with the launch's batches) and raises.
 - Resume: the epoch and batch position follow from the restored step, and
   `max_epochs` is the total budget. `max_steps` ends with a final save;
-  SIGTERM saves and returns. `profile_steps: N` writes a `torch.profiler`
-  trace of steps 10 .. 10 + N under `<output_path>/profile` (rank 0's
-  only: the other ranks run untraced).
+  SIGTERM saves and returns at the end of the launch. `profile_steps: N`
+  writes a `torch.profiler` trace of steps 10 .. 10 + N (whole launches)
+  under `<output_path>/profile` (rank 0's only: the other ranks run
+  untraced).
 
 Data parallel (`parallel/mesh.py`; `cli/train.py --multihost` under
 torchrun): every rank builds the same masters from the seed (or loads the
@@ -42,12 +53,11 @@ checkpoints, which the others wait for at a barrier. Validation is sliced by ran
 samples its strided share of the images) and combined with one float64
 allgather; the scores that choose a best checkpoint are rank 0's,
 broadcast. A SIGTERM on any rank stops every rank at the same step (a max
-over the ranks at each step boundary), and they save together.
+over the ranks at each launch boundary), and they save together.
 `mesh.data`, where given, must equal the world size.
 
 Not ported by decision: `mesh.model > 1` (tensor parallelism, refused
-with `NotImplementedError`) and `steps_per_launch` (one step a launch; the
-trajectory is the same).
+with `NotImplementedError`; no config sets it).
 """
 
 from __future__ import annotations
@@ -82,7 +92,12 @@ from ccdm_tpu_torch.train.state import (
     master_params,
     prefixed,
 )
-from ccdm_tpu_torch.train.step import make_train_step, step_seed
+from ccdm_tpu_torch.train.step import (
+    GraphedTrainStep,
+    make_multi_step,
+    make_train_step,
+    step_seed,
+)
 from ccdm_tpu_torch.utils.archive import archive_code
 from ccdm_tpu_torch.utils.logging import setup_logger
 from ccdm_tpu_torch.utils.metrics_log import MetricsLogger
@@ -211,9 +226,7 @@ class TrainingRun:
             masters = {**prefixed(UNET, masters),
                        **prefixed(ENCODER, master_params(self.encoder_net))}
             self._prefix = UNET
-        if int(params.get("steps_per_launch", 1)) > 1:
-            LOGGER.info("steps_per_launch is not ported (one step a launch; the "
-                        "trajectory is the same)")
+        self.steps_per_launch = max(1, int(params.get("steps_per_launch", 1)))
 
         self.batch_size = int(params["batch_size"])
         # each rank loads its rows p::P of every global batch; with P > 1 an
@@ -236,11 +249,13 @@ class TrainingRun:
             LOGGER.info("resuming from %s", load_from)
             load_checkpoint(expanduservars(load_from), self.state)
             self.state.write_to(self.net, prefix=self._prefix)
-        self.step_fn = make_train_step(
+        step = make_train_step(
             self.model, _class_weights(self.module, self.num_classes, self.device),
             self.lr_schedule,
             feature_fn=None if self.trainable_encoder else self.encoder,
             encoder_apply=self.encoder if self.trainable_encoder else None)
+        # on the card a step is a replay of a CUDA graph of it
+        self.step_fn = GraphedTrainStep(step) if self.device.type == "cuda" else step
         self._samplers = {}  # (num_samples, num_steps) -> batched sampler
         self._ema_step = None  # the step whose EMA `ema_net` holds
 
@@ -422,6 +437,14 @@ class TrainingRun:
         self._profiler = None
         LOGGER.info("profiler trace written to %s/profile", self.output_path)
 
+    def _launch(self, batches) -> Dict[str, Any]:
+        """One launch: a step of one batch, or `make_multi_step` over K."""
+        if len(batches) == 1:
+            return self.step_fn(self.state, self.net, batches[0], self.seed + 1,
+                                self.encoder_net)
+        return make_multi_step(self.step_fn)(self.state, self.net, batches, self.seed + 1,
+                                             self.encoder_net)
+
     def _run_impl(self, max_steps: Optional[int] = None) -> TrainState:
         p = self.params
         max_epochs = int(p.get("max_epochs", 1))
@@ -429,12 +452,14 @@ class TrainingRun:
         save_freq = int(p.get("save_freq", 1000))
         validation_freq = int(p.get("validation_freq", 5000))
         profile_steps = int(p.get("profile_steps", 0))  # trace N steps from step 10
+        k_launch = self.steps_per_launch
 
-        pending = collections.deque()  # (step, metrics on the device)
-        recent_batches = collections.deque(maxlen=4)  # for the debug dump
+        pending = collections.deque()  # (launch's last step, metrics on the device)
+        recent_batches = collections.deque(maxlen=4)  # (step, the launch's batches)
         window_items, window_t0 = 0, time.perf_counter()
         progress = ProgressLine(enable=bool(p.get("progress_bar", True)) and self.is_main)
         last_loss: Optional[float] = None
+        profiled = False
 
         def drain(block_all: bool = False):
             nonlocal last_loss
@@ -443,7 +468,10 @@ class TrainingRun:
                 if bool(m["invalid"]):
                     progress.close()
                     LOGGER.error("invalid loss at step %d — saving debug state", s)
-                    extras = dict(next((b for bs, b in recent_batches if bs == s), {}))
+                    group = next((b for bs, b in recent_batches if bs == s), [{}])
+                    # a launch of K steps dumps its batches stacked [K, B, ...]
+                    extras = dict(group[0]) if len(group) == 1 else {
+                        k: torch.stack([b[k] for b in group]) for k in group[0]}
                     extras["loss"] = m["loss"]
                     self.checkpoints.save_debug(self.state, extras)
                     raise ValueError(f"Invalid loss (nan/inf/neg-KL) at step {s}")
@@ -462,21 +490,23 @@ class TrainingRun:
             # max_epochs is the budget unless an explicit max_steps drives the loop
             if max_steps is None and epoch >= max_epochs:
                 break
-            raw = self.loader.epoch(epoch, start_batch=skip0 if epoch == start_epoch else 0)
-            batches = ({k: b[k] for k in STEP_KEYS} for b in raw)
-            for batch in device_prefetch(batches, self.device):
-                if profile_steps and self.is_main and total == 10 and self._profiler is None:
+            skip = skip0 if epoch == start_epoch else 0
+            raw = self.loader.epoch(epoch, start_batch=skip)
+            batches = device_prefetch(({k: b[k] for k in STEP_KEYS} for b in raw), self.device,
+                                      buffer_size=k_launch + 1)
+            for group in launch_groups(batches, spe - skip, k_launch):
+                if profile_steps and self.is_main and total >= 10 and not profiled:
                     self._start_profile()
-                metrics = self.step_fn(self.state, self.net, batch, self.seed + 1,
-                                       self.encoder_net)
-                total += 1
+                    profiled = True
+                metrics = self._launch(group)
+                total += len(group)
                 step = step0 + total
                 pending.append((step, metrics))
-                recent_batches.append((step, batch))
+                recent_batches.append((step, group))
                 if self._profiler is not None and total >= 10 + profile_steps:
                     self._stop_profile()
-                window_items += self.batch_size
-                prev = step - 1
+                window_items += self.batch_size * len(group)
+                prev = step - len(group)
 
                 def crossed(freq):
                     return (prev // freq) != (step // freq)
@@ -515,7 +545,7 @@ class TrainingRun:
                             self.metrics.log_image(step, png, f"iteration {step}")
                         except Exception as e:  # a grid is not worth a run
                             LOGGER.warning("qualitative grid failed: %s", e)
-                # the ranks stop at the same step: the flag of any rank
+                # the ranks stop at the same launch: the flag of any rank
                 if mesh.any_rank(self._sigterm):
                     drain(block_all=True)
                     progress.close()
@@ -534,6 +564,17 @@ class TrainingRun:
         progress.close()
         self.checkpoints.save_periodic(self.state)
         return self.state
+
+
+def launch_groups(batches, count: int, k: int):
+    """The launches of an epoch's `count` remaining batches (as the JAX
+    trainer groups them, `ccdm_tpu/train/trainer.py`): whole groups of `k`,
+    then the tail, `count % k`, one batch a launch. Lists of batches."""
+    it = iter(batches)
+    for _ in range(count // k):
+        yield [next(it) for _ in range(k)]
+    for batch in it:
+        yield [batch]
 
 
 def run_train(params: Dict[str, Any], max_steps: Optional[int] = None,

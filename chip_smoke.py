@@ -70,16 +70,20 @@ without printing its result:
 11. train: `TrainingRun(DEMO_TRAIN_PARAMS)` at full width and depth on the
    card (128x128, C=2, base 32, batch 16, bf16, synthetic LIDC), 30 steps
    with a periodic save and a GED/HM-IoU validation at step 20, into
-   `build/chip_smoke_train/`. Checks a finite loss and no invalid flag at
-   every step, launches of exactly 66 GroupNorm forward + 66 backward + 11
-   attention a step plus the validation sampler's sites x UNet calls, the
+   `build/chip_smoke_train/`, at the config's `steps_per_launch: 2`, each
+   step after the first two a replay of the trainer's CUDA graph (captured
+   at step 3). Checks a finite loss and no invalid flag at every step,
+   launches of exactly 66 GroupNorm forward + 66 backward + 11 attention a
+   step (the wrappers count a replay's launches at the replay, none at the
+   capture) plus the validation sampler's sites x UNet calls, the
    backward's launches by path equal to `_plan_backward`'s path of every
    GroupNorm call that autograd recorded (as in 18 and 19), GED
    in [0, 2] and HM-IoU in [0, 1], and that a new `TrainingRun` loading the
    checkpoint holds the same params, EMA, Adam state and step, bit for bit,
    and that the validation wrote its qualitative grid. Prints the cold
-   first step, the warm s/step and images/s of steps 11-30 (validation,
-   grid and saves taken out), peak memory and the validation's seconds.
+   first step, the warm s/step and images/s of steps 11-30 (replays;
+   validation, grid and saves taken out), peak memory and the validation's
+   seconds.
 12. train_reference: one train step on the card (kernels, TF32 off) against
    the CPU (plain versions), injected t and x_t. First fp32 at flagship
    widths, 32x32 input, batch 2: loss within 1e-5 relative, every gradient
@@ -133,9 +137,10 @@ without printing its result:
    of 32 train and 4 val scenes at 256x512 (the release's 1024x2048 cut by
    4 a side) written under `build/chip_smoke_cs_train/`, through the
    config's host pipeline; 30 steps with a save and an mIoU validation at
-   step 20 (`dataset_val_max_size` 4). Checks a finite loss and no invalid
-   flag, launches of exactly 81 GroupNorm forward + 81 backward + 16
-   attention a step plus the validation's sites x UNet calls, val and
+   step 20 (`dataset_val_max_size` 4), through the graph as in 11. Checks a
+   finite loss and no invalid flag, launches of exactly 81 GroupNorm
+   forward + 81 backward + 16 attention a step (replays counted as in
+   11) plus the validation's sites x UNet calls, val and
    train-split mIoU in [0, 1] or NaN, a `best_miou/20` checkpoint, the
    grid, and a bit-exact reload (params, EMA, Adam, step). Prints the cold
    step, warm ms/step and images/s of steps 11-30 (validation, grid and
@@ -146,7 +151,7 @@ without printing its result:
    run and absent from the checkpoint, the trainable one's masters and EMA
    moved and stored under `feature_cond_encoder` /
    `average_feature_cond_encoder`, launches exact as in 18; ms/step of
-   each and the DINO forward's share. Then `CityscapesEvaluator` with
+   each over steps 5-10 (replays) and the DINO forward's share. Then `CityscapesEvaluator` with
    `load_from` on the trainable run holds its EMA encoder bit for bit and
    predicts 1 image x 1 vote x 250 steps (launches 81 and 16 x 250).
 20. cityscapes_train_reference: one fp32 train step (Cityscapes widths,
@@ -211,8 +216,10 @@ without printing its result:
    (analytic zeros within 1e-6 of the tree's largest), the masters after 3 Adam
    steps within 3 x 2 lr and all but 1e-4 of them within 1e-5, the ranks
    bit-equal; a bf16 `TrainingRun` of 20 steps with a save and a
-   validation at step 20: launches per rank exactly 66 GroupNorm forward +
-   66 backward + 11 attention a step plus the rank's validation UNet calls,
+   validation at step 20 (through two graphs a step around the eager
+   all-reduce): launches per rank exactly 66 GroupNorm forward + 66
+   backward + 11 attention a step the wrappers saw (as in 11) plus the
+   rank's validation UNet calls,
    the checkpoint written by rank 0 alone and reloaded by one process bit
    for bit against rank 1's state; the LIDC harness (phase 13's tree,
    phase 11's weights, T = 50) equal to one process within 1e-6 relative,
@@ -257,7 +264,7 @@ without printing its result:
    crops of 128x128, 4 masks, 12 series uids) through
    `tools/lidc_pickle_to_npz.py` into a `.npy` directory; `DEMO_TRAIN_PARAMS`
    with `dataset_file: datasets.lidc` and `$CCDM_LIDC_PATH` at it trains 10 steps at
-   batch 16 (launches exact as in 11). (d) `tools/export_torch_checkpoint.py`
+   batch 16 (launches exact as in 11; ms/step over the replays 5-10). (d) `tools/export_torch_checkpoint.py`
    writes the run's checkpoint in the reference schema (the run's fp32 EMA,
    bit for bit); with cuDNN held to its deterministic algorithms, the LIDC
    harness on the `.npy` test split (4 crops, 2 x 16, T = 50) gives the same
@@ -273,6 +280,30 @@ without printing its result:
    and replays' sites plus the calibration's (`expected_launches`, as in
    22), and by path those measured calls times their numbers, exactly; the
    table with its gate column and samples/s.
+27. train_graphs: the trainer's CUDA graphs (`train/step.GraphedTrainStep`,
+   replayed K = 2 a launch by `make_multi_step`) against its eager step
+   (the `TrainStep` the graph wraps), each a `TrainingRun` built from the
+   same seed, with cuDNN's deterministic algorithms, into
+   `build/chip_smoke_graphs/`: (a) `DEMO_TRAIN_PARAMS` at full width,
+   batch 16, 6 steps (2 eager warm-up steps, the capture at step 3, 4
+   replays); (b) `CITYSCAPES_DINO_TRAIN_PARAMS` with DINO ViT-S/8 trainable
+   on phase 18's tree, 4 steps; (c) (a) with dropout 0.1, and the last
+   step's mask at the first Dropout read from the replay; (d) two gloo
+   ranks on cuda:0 as in 24 (`--train-graphs-rank R`), (a)'s run over
+   them, two graphs a step around the eager all-reduce. Each: masters,
+   EMA, Adam moments, step, count and every launch's metrics bit-equal,
+   launches as in 11 (the ranks' states bit-equal too). For (a) and (b),
+   the kernels a step launches by name in a `torch.profiler` trace of 4
+   (a) or 2 (b) more steps, eager and graph, equal the wrappers' counts by
+   path in those steps and the sites (66 K2 + 66 K2's backward + 11 K1 a
+   flagship step, 81 + 81 + 16 a Cityscapes step; a path-L call launches
+   2 or 3 kernels); printed, eager against graph: capture seconds, peak
+   memory above the run's start, (a) warm ms/step and host ms a launch
+   over 10 more steps, the profile's device ms/step and busy share (the
+   profiler's own host cost included). For (a) also the Adam update
+   alone over the flagship's masters, the port's (device scalars) against
+   the same update with host scalars: bit for bit, and each one's kernels
+   and device ms an update in a profile of 5 updates.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -1023,7 +1054,8 @@ def run_training(run, steps: int, marks_at):
     UNet calls of the EMA module (validation and grid), and the launches
     and launches by path. The GroupNorm backward's launches by path must
     equal `_plan_backward`'s path of every GroupNorm call that autograd
-    records (hooks on the trained module's sites count them)."""
+    records (hooks on the trained module's sites count them; a replay of
+    the trainer's graph runs no Python and repeats the captured step's)."""
     import collections
 
     import torch
@@ -1075,9 +1107,16 @@ def run_training(run, steps: int, marks_at):
     state = run.run(max_steps=steps)
     torch.cuda.synchronize()
     launches, paths = read_counts()
+    run.step_fn = step_fn
     for h in hooks:
         h.remove()
-    want = {path: want_bwd[path] for path in gn.path_launches_bwd}
+    seen = steps  # the steps whose Python forward the hooks saw
+    if hasattr(step_fn, "replays"):
+        seen = step_fn.eager_steps + step_fn.captures
+    if any(n % seen for n in want_bwd.values()):
+        raise AssertionError(f"GroupNorm backward plans {dict(want_bwd)} are not the same "
+                             f"in each of {seen} steps")
+    want = {path: want_bwd[path] // seen * steps for path in gn.path_launches_bwd}
     if paths["group_norm_backward"] != want:
         raise AssertionError(f"GroupNorm backward launches by path "
                              f"{paths['group_norm_backward']} != the plans' {want}")
@@ -1090,12 +1129,21 @@ def run_training(run, steps: int, marks_at):
 
 
 def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
-                         attn: int = 16):
+                         attn: int = 16, graph=None):
+    """The wrappers' counts of a run of `steps` train steps and `calls`
+    validation UNet calls. With the trainer's graphed step (`graph`, a
+    `GraphedTrainStep`), the steps must be its eager warm-up steps and its
+    replays, after one capture: the wrappers count a replay's launches when
+    it runs, and none at the capture, which launches nothing."""
+    if graph is not None and (graph.captures != 1
+                              or graph.eager_steps + graph.replays != steps):
+        raise AssertionError(f"{name}: {graph.eager_steps} eager steps, {graph.captures} "
+                             f"captures and {graph.replays} replays for {steps} steps")
     want = {"group_norm": gn * (steps + calls), "group_norm_backward": gn * steps,
             "flash_attention": attn * (steps + calls), "quant_conv": 0}
     if launches != want:
-        raise AssertionError(f"{name}: launches {launches} != {want} ({steps} steps, {calls} "
-                             f"validation UNet calls)")
+        raise AssertionError(f"{name}: launches {launches} != {want} ({steps} steps, "
+                             f"{calls} validation UNet calls)")
 
 
 def check_round_trip(name: str, state, restored) -> None:
@@ -1150,7 +1198,8 @@ def phase_train(smi):
         run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
-    check_train_launches("train", launches, TRAIN_STEPS, calls, gn_sites, attn_sites)
+    check_train_launches("train", launches, TRAIN_STEPS, calls, gn_sites, attn_sites,
+                         run.step_fn)
     scores, val_s = val["validate"]
     if not (0 <= scores["GED"] <= 2 and 0 <= scores["HMIoU"] <= 1):
         raise AssertionError(f"validation scores out of range: {scores}")
@@ -1735,7 +1784,7 @@ def phase_cityscapes_train(smi):
     metrics, marks, pauses, results, calls, launches, paths = run_training(
         run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls)
+    check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls, graph=run.step_fn)
     scores, val_s, grid_s = check_miou("cityscapes_train", results)
     if not (CS_TRAIN_DIR / "run" / "best_miou" / str(TRAIN_EVENT) / "state.pt").is_file():
         raise AssertionError(f"cityscapes_train: no best_miou/{TRAIN_EVENT} checkpoint")
@@ -1786,10 +1835,12 @@ def phase_cityscapes_train_dino(smi):
         run = TrainingRun(params)
         before = {k: v.clone() for k, v in run.encoder_net.state_dict().items()}
         metrics, marks, pauses, results, calls, launches, paths = run_training(
-            run, DINO_STEPS, (1, 2, DINO_STEPS))
-        check_train_launches(f"cityscapes_train_dino {mode}", launches, DINO_STEPS, calls)
+            run, DINO_STEPS, (1, 4, DINO_STEPS))
+        check_train_launches(f"cityscapes_train_dino {mode}", launches, DINO_STEPS, calls,
+                             graph=run.step_fn)
         scores, val_s, _ = check_miou(f"cityscapes_train_dino {mode}", results)
-        warm = (marks[DINO_STEPS] - marks[2]) / (DINO_STEPS - 2)  # no pause inside
+        # steps 5-10, replays of the graph captured at step 3; no pause inside
+        warm = (marks[DINO_STEPS] - marks[4]) / (DINO_STEPS - 4)
         saved = set(load_tree(str(CS_TRAIN_DIR / f"dino_{mode}")))
         after = run.encoder_net.state_dict()
         state = run.state
@@ -1816,7 +1867,7 @@ def phase_cityscapes_train_dino(smi):
         runs[f"cityscapes_train_dino_{mode}"] = {"launches": launches, "path_launches": paths}
         log("cityscapes_train_dino", f"{mode}: CITYSCAPES_DINO_TRAIN_PARAMS bf16, ViT-S/8 random "
             f"weights, batch {run.batch_size}, {DINO_STEPS} steps ({smi}): warm "
-            f"{warm * 1e3:.2f} ms/step = {run.batch_size / warm:.1f} images/s (steps 3-"
+            f"{warm * 1e3:.2f} ms/step = {run.batch_size / warm:.1f} images/s (steps 5-"
             f"{DINO_STEPS}, the loader included), DINO forward at batch {run.batch_size} "
             f"{dino_ms:.2f} ms = {dino_ms / (warm * 1e3):.1%} of the step; validation mIoU "
             f"{scores['mIoU']:.4f}, train-split {scores['mIoU_train']:.4f}, {val_s:.2f} s; "
@@ -2520,7 +2571,8 @@ def dp_child(rank: int) -> None:
              sum(isinstance(m, AttentionBlock) for m in run.net.modules()))
     metrics, marks, pauses, _, calls, launches, paths = run_training(
         run, DP_STEPS, (1, 10, DP_STEPS))
-    check_train_launches(f"data_parallel rank {rank}", launches, DP_STEPS, calls, *sites)
+    check_train_launches(f"data_parallel rank {rank}", launches, DP_STEPS, calls, *sites,
+                         run.step_fn)
     inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[DP_STEPS])
     out["train"] = {"launches": launches, "path_launches": paths, "calls": calls,
                     "writes": writes, "steps_per_epoch": run.steps_per_epoch,
@@ -2561,10 +2613,10 @@ def trees_equal(a, b) -> bool:
     return a == b
 
 
-def spawn_ranks(n: int, argv):
+def spawn_ranks(n: int, argv, logs: Path = DP_DIR):
     """Start `n` copies of `argv` (the rank as the last argument), each
-    with its output in `build/chip_smoke_dp/rank<r>.log`; wait for all and
-    raise, with their logs, if any exits non-zero."""
+    with its output in `<logs>/rank<r>.log`; wait for all and raise, with
+    their logs, if any exits non-zero."""
     import os
     import socket
 
@@ -2574,7 +2626,7 @@ def spawn_ranks(n: int, argv):
     procs = []
     try:
         for rank in range(n):
-            log = open(DP_DIR / f"rank{rank}.log", "w")
+            log = open(logs / f"rank{rank}.log", "w")
             procs.append((subprocess.Popen([*argv, str(rank)], stdout=log,
                                            stderr=subprocess.STDOUT,
                                            env=dict(os.environ, DP_PORT=str(port))),
@@ -2594,7 +2646,7 @@ def spawn_ranks(n: int, argv):
             log.close()
     if rcs != [0] * n:
         logs = "\n".join(f"--- rank {r} (exit {rc}):\n"
-                         + (DP_DIR / f"rank{r}.log").read_text()[-4000:]
+                         + (logs / f"rank{r}.log").read_text()[-4000:]
                          for r, rc in enumerate(rcs))
         raise AssertionError(f"data_parallel: a rank failed: {rcs}\n{logs}")
 
@@ -3321,15 +3373,16 @@ def remaining_lidc_npz(smi):
                   save_freq=NPZ_STEPS, validation_freq=10 ** 6, display_freq=NPZ_STEPS,
                   progress_bar=False)
     run = TrainingRun(params)
-    metrics, marks, _, _, calls, launches, paths = run_training(run, NPZ_STEPS, (1, NPZ_STEPS))
-    check_train_launches("lidc_npz_train", launches, NPZ_STEPS, calls, 66, 11)
+    metrics, marks, _, _, calls, launches, paths = run_training(run, NPZ_STEPS,
+                                                                (1, 4, NPZ_STEPS))
+    check_train_launches("lidc_npz_train", launches, NPZ_STEPS, calls, 66, 11, run.step_fn)
     runs = {"lidc_npz_train": {"launches": launches, "path_launches": paths}}
-    warm = (marks[NPZ_STEPS] - marks[1]) / (NPZ_STEPS - 1)
+    warm = (marks[NPZ_STEPS] - marks[4]) / (NPZ_STEPS - 4)  # replays of the graph
     log("remaining", f"LIDC .npy directory: a synthesised pickle of 48 crops (128x128, 4 "
         f"masks, 12 series) -> tools/lidc_pickle_to_npz.py in {convert_s:.2f} s, splits "
         f"{sizes}; DEMO_TRAIN_PARAMS with datasets.lidc on it ({smi}): {NPZ_STEPS} steps at "
         f"batch 16, loss {float(metrics[0]['loss']):.4g} -> {float(metrics[-1]['loss']):.4g}, "
-        f"{warm * 1e3:.1f} ms/step after the first; launches {launches}")
+        f"{warm * 1e3:.1f} ms/step over steps 5-{NPZ_STEPS}; launches {launches}")
 
     # the harness on the .npy test split, from the run and from its export,
     # with cuDNN held to its deterministic algorithms
@@ -3498,6 +3551,406 @@ def phase_remaining(smi):
     return runs
 
 
+GRAPH_DIR = Path("build/chip_smoke_graphs")
+GRAPH_STEPS, GRAPH_CS_STEPS, GRAPH_TIMED_STEPS, GRAPH_PROFILED_STEPS = 6, 4, 10, 4
+GRAPH_CS_PROFILED_STEPS, GRAPH_UPDATES = 2, 5
+GRAPH_K = 2  # steps a launch in phase 27
+# a kernel's names in a profile, by the wrapper whose calls launch it: S
+# and M run one kernel a call, L two (forward) or three (backward)
+GRAPH_KERNELS = {
+    "group_norm": {"S": ("gn_small<",), "M": ("gn_cluster<",),
+                   "L": ("gn_partial_stats<", "gn_apply<")},
+    "group_norm_backward": {"S": ("gn_backward_small<",), "M": ("gn_backward_cluster<",),
+                            "L": ("gn_backward_stats<", "gn_backward_sums<",
+                                  "gn_backward_dx<")},
+    "flash_attention": {"mma": ("attn_fwd_mma<",), "mma_scalar": ("attn_fwd_mma<",),
+                        "simt": ("attn_fwd_simt<",)},
+}
+
+
+def graph_params(base, name: str, **overrides):
+    """`base` at K = `GRAPH_K` into `build/chip_smoke_graphs/<name>`, with no
+    save, validation or log line inside the run."""
+    never = 10 ** 9
+    return dict(base, output_path=str(GRAPH_DIR / name), steps_per_launch=GRAPH_K,
+                save_freq=never, validation_freq=never, display_freq=never, progress_bar=False,
+                **overrides)
+
+
+def graph_drive(run, steps: int):
+    """`run.run(max_steps=steps)` with no checkpoint written, recording each
+    launch's metrics (CPU copies) and host seconds (the call, not the device
+    work): `(metrics, host_s, seconds a step, peak bytes above the start)`."""
+    import torch
+
+    records, host = [], []
+    launch = run._launch
+
+    def timed(batches):
+        start = time.perf_counter()
+        m = launch(batches)
+        host.append(time.perf_counter() - start)
+        records.append(m)
+        return m
+
+    run._launch = timed
+    run.checkpoints.save_periodic = lambda state: None
+    torch.cuda.synchronize()
+    base, step0 = torch.cuda.memory_allocated(), run.state.step
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    run.run(max_steps=steps)
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - start) / (run.state.step - step0)
+    peak = torch.cuda.max_memory_allocated() - base
+    run._launch = launch
+    metrics = [{k: v.cpu() if torch.is_tensor(v) else v for k, v in m.items()} for m in records]
+    return metrics, host, per_step, peak
+
+
+def device_profile(fn, what: str):
+    """`fn()` under `torch.profiler`: `(fn's result, host seconds, device ms,
+    kernels launched by name)`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    device_us, kernels = 0.0, collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        self_dev = getattr(evt, "self_device_time_total", None)
+        device_us += evt.self_cuda_time_total if self_dev is None else self_dev
+        kernels[evt.key] += evt.count
+    if not kernels:
+        raise AssertionError(f"{what}: the profile shows no device work")
+    return out, wall, device_us / 1e3, kernels
+
+
+def graph_profile(run, steps: int):
+    """`steps` steps of `run` under `torch.profiler`: device ms a step, the
+    busy share of the wall, the kernels launched by name, and the wrappers'
+    launches by path in the same steps."""
+    step0 = run.state.step
+    reset_counts()
+    _, wall, device_ms, kernels = device_profile(lambda: run.run(max_steps=steps),
+                                                 "train_graphs")
+    if run.state.step - step0 != steps:
+        raise AssertionError(f"train_graphs: profiled {run.state.step - step0} steps, not {steps}")
+    return device_ms / steps, device_ms / (wall * 1e3), kernels, read_counts()[1]
+
+
+def graph_launches_per_step(kernels, steps: int, paths):
+    """The hand-written kernels' launches a step in a profile of `steps`
+    steps, by wrapper, against what the wrappers counted by path in those
+    steps (a path's calls times its kernels)."""
+    got, want = {}, {}
+    for wrapper, by_path in GRAPH_KERNELS.items():
+        names = {n for ns in by_path.values() for n in ns}
+        got[wrapper] = sum(c for key, c in kernels.items() if any(n in key for n in names)) / steps
+        want[wrapper] = sum(paths[wrapper][path] * len(ns) for path, ns in by_path.items()
+                            ) / steps
+    return got, want
+
+
+def check_profiled_launches(name: str, res, steps: int):
+    """A profile's kernels a step (`graph_pair`'s `kernels`, eager and graph)
+    equal the wrappers' counts in those steps and the model's sites (K2 and
+    its backward at every GroupNorm, K1 at every attention block)."""
+    gn, attn = res["eager"]["sites"]
+    for mode in ("eager", "graph"):
+        got, want = graph_launches_per_step(res[mode]["kernels"], steps,
+                                            res[mode]["profiled_paths"])
+        if got != want or want != {"group_norm": gn, "group_norm_backward": gn,
+                                   "flash_attention": attn}:
+            raise AssertionError(f"train_graphs {name} {mode}: the profile's kernel launches a "
+                                 f"step {got} != the wrappers' counts {want} or the sites "
+                                 f"({gn} / {gn} / {attn})")
+    return got
+
+
+def host_scalar_update(tx, grads, opt_state, params) -> None:
+    """Adam's update with the learning rate and bias corrections as host
+    scalars: the op sequence of the port's eager update before its step
+    was a CUDA graph, the baseline of `graph_update_cost`."""
+    import torch
+
+    names = list(params)
+    p, g = [params[k] for k in names], [grads[k] for k in names]
+    lr = tx.schedule(opt_state["count"])
+    opt_state["count"] += 1
+    count = opt_state["count"]
+    mu = [opt_state["mu"][k] for k in names]
+    nu = [opt_state["nu"][k] for k in names]
+    torch._foreach_mul_(mu, tx.b1)
+    torch._foreach_add_(mu, g, alpha=1.0 - tx.b1)
+    torch._foreach_mul_(nu, tx.b2)
+    torch._foreach_addcmul_(nu, g, g, value=1.0 - tx.b2)
+    denom = torch._foreach_div(nu, 1.0 - tx.b2 ** count)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, tx.eps)
+    step = torch._foreach_div(mu, 1.0 - tx.b1 ** count)
+    torch._foreach_div_(step, denom)
+    torch._foreach_add_(p, step, alpha=-lr)
+
+
+def graph_update_cost(state):
+    """The optimizer's update of `state`'s masters alone (Adam, random
+    gradients, `GRAPH_UPDATES` updates from copies of the masters and
+    moments), the port's (`Optimizer.update`: device scalars) against
+    `host_scalar_update`: bit for bit, and each form's kernels and device
+    ms an update from a profile."""
+    import torch
+
+    if state.tx.kind != "Adam":
+        raise AssertionError(f"train_graphs: the update's cost is measured for Adam, "
+                             f"not {state.tx.kind}")
+    device = next(iter(state.params.values())).device
+    gen = torch.Generator(device=device).manual_seed(EVAL_SEED)
+    grads = {k: torch.randn(v.shape, generator=gen, device=device) * 1e-2
+             for k, v in state.params.items()}
+    out = {}
+    for form, update in (("port", state.tx.update),
+                         ("host_scalars", lambda *a: host_scalar_update(state.tx, *a))):
+        params = {k: v.clone() for k, v in state.params.items()}
+        opt = {"count": state.opt_state["count"],
+               "mu": {k: v.clone() for k, v in state.opt_state["mu"].items()},
+               "nu": {k: v.clone() for k, v in state.opt_state["nu"].items()}}
+        update(grads, opt, params)  # the port's first update makes its scalars
+
+        def updates():
+            for _ in range(GRAPH_UPDATES):
+                update(grads, opt, params)
+
+        _, _, device_ms, kernels = device_profile(updates, f"train_graphs update {form}")
+        out[form] = {"params": params, "kernels": sum(kernels.values()) / GRAPH_UPDATES,
+                     "ms": device_ms / GRAPH_UPDATES}
+    if not all(torch.equal(out["port"]["params"][k], out["host_scalars"]["params"][k])
+               for k in state.params):
+        raise AssertionError("train_graphs: the port's update differs in bits from the "
+                             "host-scalar update")
+    return {form: (r["kernels"], r["ms"]) for form, r in out.items()}, len(state.params)
+
+
+def graph_equal(name: str, eager, graph) -> int:
+    """The eager and the graphed run's states (`TrainState.tree()`: masters,
+    EMA, Adam moments, step and count) and every launch's metrics, bit for
+    bit; returns the number of tensors compared."""
+    import torch
+
+    (e_tree, e_metrics), (g_tree, g_metrics) = eager, graph
+    if not trees_equal(e_tree, g_tree):
+        bad = [f"{part}/{k}" for part in ("model", "average_model")
+               for k in e_tree[part] if not torch.equal(e_tree[part][k], g_tree[part][k])]
+        raise AssertionError(f"train_graphs {name}: the graphed run's state differs from the "
+                             f"eager run's: {len(bad)} tensors, {bad[:4]}, step "
+                             f"{e_tree['step']}/{g_tree['step']}")
+    if len(e_metrics) != len(g_metrics) or not all(
+            a.keys() == b.keys() and all(
+                torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+            for a, b in zip(e_metrics, g_metrics)):
+        raise AssertionError(f"train_graphs {name}: the launches' metrics differ: "
+                             f"{e_metrics} vs {g_metrics}")
+    return sum(len(v) for k, v in e_tree.items() if isinstance(v, dict) and k != "opt_state") \
+        + sum(len(v) for v in e_tree["opt_state"].values() if isinstance(v, dict))
+
+
+def graph_pair(params, name: str, steps: int, timed: int = 0, profiled: int = 0, hook=None):
+    """The eager and the graphed `TrainingRun` of `params` (the same seed,
+    so the same masters) for `steps` steps at K = `GRAPH_K` with cuDNN's
+    deterministic algorithms, then `timed` and `profiled` more steps each.
+    The graphed run is the trainer's own on the card; the eager one runs
+    the `TrainStep` that its graph wraps. `hook(run)` -> a callable (or None) read
+    after the run, for both. Returns a dict per mode."""
+    import torch
+
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    out = {}
+    for mode in ("eager", "graph"):
+        run = TrainingRun(graph_params(params, f"{name}_{mode}"))
+        graph = run.step_fn
+        if mode == "eager":
+            run.step_fn = graph.step
+        sites = (sum(isinstance(m, GroupNorm32) for m in run.net.modules()),
+                 sum(isinstance(m, AttentionBlock) for m in run.net.modules()))
+        read = hook(run) if hook else None
+        reset_counts()
+        metrics, _, _, peak = graph_drive(run, steps)
+        launches, paths = read_counts()
+        check_train_launches(f"train_graphs {name} {mode}", launches, steps, 0, *sites,
+                             graph if mode == "graph" else None)
+        res = {"tree": run.state.tree(), "metrics": metrics, "peak": peak, "sites": sites,
+               "launches": launches, "paths": paths, "hooked": read() if read else None}
+        if mode == "graph":
+            res["capture_s"] = graph.capture_s
+        if timed:
+            _, host, per_step, _ = graph_drive(run, timed)
+            res.update(ms=per_step * 1e3, host_ms=statistics.mean(host) * 1e3)
+        if profiled:
+            (res["device_ms"], res["busy"], res["kernels"],
+             res["profiled_paths"]) = graph_profile(run, profiled)
+        out[mode] = res
+        del run, graph
+        torch.cuda.empty_cache()
+    out["tensors"] = graph_equal(name, (out["eager"]["tree"], out["eager"]["metrics"]),
+                                 (out["graph"]["tree"], out["graph"]["metrics"]))
+    return out
+
+
+def graphs_child(rank: int) -> None:
+    """One of phase 27's two gloo ranks on cuda:0
+    (`chip_smoke.py --train-graphs-rank R`): the eager and the graphed bf16
+    `TrainingRun` of `DEMO_TRAIN_PARAMS` at K = 2 over two ranks, with
+    cuDNN's deterministic algorithms; states and metrics to
+    `build/chip_smoke_graphs/dp_rank<R>.pt`."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", rank=rank, world_size=DP_RANKS,
+                            init_method=f"tcp://127.0.0.1:{os.environ['DP_PORT']}")
+    out = graph_pair(DEMO_TRAIN_PARAMS, f"dp{rank}", GRAPH_STEPS)
+    torch.save({mode: {"tree": out[mode]["tree"], "metrics": out[mode]["metrics"]}
+                for mode in ("eager", "graph")} | {"tensors": out["tensors"]},
+               GRAPH_DIR / f"dp_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def phase_train_graphs(smi):
+    """Phase 27: the trainer's CUDA graphs against its eager step (see the
+    docstring). Returns the graphed runs' launch counts."""
+    import os
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_DINO_TRAIN_PARAMS, DEMO_TRAIN_PARAMS
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    GRAPH_DIR.mkdir(parents=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        # (a) the flagship, with its numbers
+        flag = graph_pair(DEMO_TRAIN_PARAMS, "flagship", GRAPH_STEPS, GRAPH_TIMED_STEPS,
+                          GRAPH_PROFILED_STEPS,
+                          hook=lambda run: (lambda: graph_update_cost(run.state))
+                          if hasattr(run.step_fn, "replays") else None)
+        e, g = flag["eager"], flag["graph"]
+        if g["sites"] != (66, 11):
+            raise AssertionError(f"train_graphs: the flagship has {g['sites']} GroupNorm and "
+                                 f"attention sites, not (66, 11)")
+        got = check_profiled_launches("flagship", flag, GRAPH_PROFILED_STEPS)
+        parts = {"flagship": time.perf_counter() - phase_start}
+        ours = sorted((c / GRAPH_PROFILED_STEPS, k[:60]) for k, c in g["kernels"].items()
+                      if any(n in k for ns in GRAPH_KERNELS.values() for v in ns.values()
+                             for n in v))
+        runs["train_graphs_flagship"] = {"launches": g["launches"], "path_launches": g["paths"]}
+        log("train_graphs", f"DEMO_TRAIN_PARAMS bf16 at batch 16, K = {GRAPH_K}, "
+            f"{GRAPH_STEPS} steps eager against graphed from the same masters, cuDNN "
+            f"deterministic: bit-equal ({flag['tensors']} tensors of masters, EMA and Adam "
+            f"moments; step, count and {len(g['metrics'])} launches' metrics)")
+        log("train_graphs", f"flagship ({smi}): capture {g['capture_s']:.3f} s; peak memory "
+            f"above the run's start eager {e['peak'] / 2**30:.3f} GiB, graph "
+            f"{g['peak'] / 2**30:.3f} GiB; warm ms/step ({GRAPH_TIMED_STEPS} steps) eager "
+            f"{e['ms']:.2f}, graph {g['ms']:.2f}; host ms a launch of {GRAPH_K} eager "
+            f"{e['host_ms']:.2f}, graph {g['host_ms']:.2f}; profiler ({GRAPH_PROFILED_STEPS} "
+            f"steps) device ms/step eager {e['device_ms']:.3f}, graph {g['device_ms']:.3f}, "
+            f"busy share eager {e['busy']:.3f}, graph {g['busy']:.3f}")
+        log("train_graphs", f"flagship kernel launches a replay (profiler): {got} = the "
+            f"wrappers' counts by path in the profiled steps = the sites; by name {ours}")
+        (update, n_params) = g["hooked"]
+        log("train_graphs", f"flagship Adam update alone ({n_params} masters, {smi}), "
+            f"{GRAPH_UPDATES} updates profiled: the port's (device scalars) "
+            f"{update['port'][0]:.1f} kernels, {update['port'][1]:.4f} device ms an update; "
+            f"with host scalars {update['host_scalars'][0]:.1f} kernels, "
+            f"{update['host_scalars'][1]:.4f} ms; bit-equal")
+
+        # (b) Cityscapes with DINO trainable, on phase 18's tree (untimed: its
+        # host loader paces it, phase 19)
+        tree = CS_TRAIN_DIR / "tree"
+        if not (tree / "leftImg8bit").is_dir():
+            write_cityscapes_tree(tree, 32, "train", CS_TREE_HW, seed=EVAL_SEED + 1)
+            write_cityscapes_tree(tree, 4, "val", CS_TREE_HW, seed=EVAL_SEED + 2)
+        os.environ["CCDM_CITYSCAPES_PATH"] = str(tree)
+        fce = dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"], train=True)
+        cs = graph_pair(dict(CITYSCAPES_DINO_TRAIN_PARAMS, feature_cond_encoder=fce,
+                             dataset_val_max_size=4), "cs_dino", GRAPH_CS_STEPS,
+                        profiled=GRAPH_CS_PROFILED_STEPS)
+        e, g = cs["eager"], cs["graph"]
+        if g["sites"] != (81, 16):
+            raise AssertionError(f"train_graphs: Cityscapes has {g['sites']} GroupNorm and "
+                                 f"attention sites, not (81, 16)")
+        cs_got = check_profiled_launches("cs_dino", cs, GRAPH_CS_PROFILED_STEPS)
+        parts["cityscapes"] = time.perf_counter() - phase_start - sum(parts.values())
+        runs["train_graphs_cs_dino"] = {"launches": g["launches"], "path_launches": g["paths"]}
+        log("train_graphs", f"CITYSCAPES_DINO_TRAIN_PARAMS, DINO ViT-S/8 trainable, batch 16, "
+            f"K = {GRAPH_K}, {GRAPH_CS_STEPS} steps eager against graphed: bit-equal "
+            f"({cs['tensors']} tensors, step, count, metrics) ({smi}): capture "
+            f"{g['capture_s']:.3f} s; peak above start eager {e['peak'] / 2**30:.3f} GiB, "
+            f"graph {g['peak'] / 2**30:.3f} GiB; profiler ({GRAPH_CS_PROFILED_STEPS} steps, "
+            f"the host loader's pace included) device ms/step eager {e['device_ms']:.3f}, "
+            f"graph {g['device_ms']:.3f}, busy share eager {e['busy']:.3f}, graph "
+            f"{g['busy']:.3f}; kernel launches a step {cs_got} = the wrappers' counts = the "
+            f"sites")
+
+        # (c) the flagship with dropout 0.1: the last step's masks of one
+        # Dropout, eager against replayed
+        def masks(run):
+            drop = next(m for m in run.net.modules()
+                        if isinstance(m, torch.nn.Dropout) and m.p > 0)
+            seen = []
+            drop.register_forward_hook(lambda mod, args, out: seen.append(out == 0))
+            return lambda: seen[-1].cpu()
+
+        unet = dict(DEMO_TRAIN_PARAMS["unet_openai"], dropout=0.1)
+        drop = graph_pair(dict(DEMO_TRAIN_PARAMS, unet_openai=unet), "dropout", GRAPH_CS_STEPS,
+                          hook=masks)
+        me, mg = drop["eager"]["hooked"], drop["graph"]["hooked"]
+        share = float(mg.float().mean())
+        if not torch.equal(me, mg) or not 0.05 < share < 0.2:
+            raise AssertionError(f"train_graphs dropout: the replay's masks differ from the "
+                                 f"eager step's, or drop {share:.3f} of the units")
+        log("train_graphs", f"DEMO_TRAIN_PARAMS with dropout 0.1, {GRAPH_CS_STEPS} steps: "
+            f"bit-equal ({drop['tensors']} tensors, metrics); step {GRAPH_CS_STEPS}'s mask at "
+            f"the first Dropout ({tuple(mg.shape)}, {share:.3f} dropped) equal in the replay")
+
+        parts["dropout"] = time.perf_counter() - phase_start - sum(parts.values())
+        # (d) two gloo ranks on cuda:0, as phase 24
+        start = time.perf_counter()
+        spawn_ranks(DP_RANKS, [sys.executable, str(Path(__file__).resolve()),
+                               "--train-graphs-rank"], GRAPH_DIR)
+        ranks_s = time.perf_counter() - start
+        r = [torch.load(GRAPH_DIR / f"dp_rank{i}.pt", weights_only=False)
+             for i in range(DP_RANKS)]
+        if not trees_equal(r[0]["graph"]["tree"], r[1]["graph"]["tree"]):
+            raise AssertionError("train_graphs data parallel: the ranks' graphed states differ")
+        log("train_graphs", f"{DP_RANKS} gloo ranks on cuda:0, DEMO_TRAIN_PARAMS bf16 at "
+            f"global batch 16, K = {GRAPH_K}, {GRAPH_STEPS} steps: on each rank the graphed "
+            f"run (two graphs around the eager all-reduce) bit-equal to the eager run "
+            f"({r[0]['tensors']} tensors, metrics), the ranks' states bit-equal; "
+            f"{ranks_s:.1f} s of processes")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("train_graphs", f"phase {time.perf_counter() - phase_start:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ", ranks the rest)")
+    return runs
+
+
 def _dp_train_params():
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
 
@@ -3509,6 +3962,9 @@ def main() -> None:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     if sys.argv[1:2] == ["--data-parallel-rank"]:  # one of phase 24's ranks
         dp_child(int(sys.argv[2]))
+        return
+    if sys.argv[1:2] == ["--train-graphs-rank"]:  # one of phase 27's ranks
+        graphs_child(int(sys.argv[2]))
         return
     import torch
 
@@ -3545,6 +4001,7 @@ def main() -> None:
         "int8_harness": quant_rates["eval_lidc_fast"]})
     runs.update(serving_runs)
     runs.update(phase_remaining(smi))
+    runs.update(phase_train_graphs(smi))
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],

@@ -96,6 +96,24 @@ def test_bicubic_matrix_is_torch_interpolate():
         torch.testing.assert_close(ours, ref, atol=1e-5, rtol=0)
 
 
+def test_cached_resampling_matrices_made_under_inference_mode_enter_autograd():
+    """The resampling matrices are copied to the device once and kept (a
+    CUDA graph of the train step cannot copy them from the host); one first
+    made by a sampler, under `inference_mode`, still enters a trainable
+    encoder's autograd graph. Sizes no other test uses, so these calls
+    make the matrices."""
+    pe = torch.randn(1, 1 + 16, 8, generator=torch.Generator().manual_seed(6))
+    x = torch.randn(1, 9, 9, 2, generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        first = (tdino.interpolate_pos_embed(pe, (5, 9)), tdino.resize_bilinear(x, (5, 3)))
+    leaf_pe, leaf_x = pe.clone().requires_grad_(), x.clone().requires_grad_()
+    again = (tdino.interpolate_pos_embed(leaf_pe, (5, 9)), tdino.resize_bilinear(leaf_x, (5, 3)))
+    (again[0].sum() + again[1].sum()).backward()
+    assert leaf_pe.grad is not None and leaf_x.grad is not None
+    for a, b in zip(first, again):
+        assert torch.equal(a, b.detach())
+
+
 @pytest.mark.parametrize("src,dst", [((7, 15), (8, 16)), ((8, 16), (64, 128)), ((3, 5), (3, 5))])
 def test_resize_bilinear_matches_jax_upsampling(src, dst):
     x = np.random.default_rng(4).standard_normal((2, *src, 5)).astype(np.float32)

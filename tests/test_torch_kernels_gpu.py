@@ -577,3 +577,149 @@ def test_dino_descriptors_on_the_card_equal_the_cpus(cuda):
             assert float((o.cpu() - r).abs().max()) <= 1e-4 * float(r.abs().max())
     sal = enc.extract_saliency_maps(card, images.cuda()).cpu()
     assert float((sal - enc.extract_saliency_maps(cpu, images)).abs().max()) <= 1e-4
+
+
+def _graph_setup(seed: int = 3):
+    """A bf16 UNet at smoke size (32x32, base 32, attention at ds 2 with
+    32-channel heads) on the card, its fp32 masters, and 4 batches of 4."""
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.train.state import master_params
+
+    params = dict(DEMO_TRAIN_PARAMS, unet_openai=dict(
+        DEMO_TRAIN_PARAMS["unet_openai"], channel_mult=[1, 2], attention_resolutions=[2]))
+    model = build_model(params, 2, 1, 32, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [{"image": torch.randn(4, 32, 32, 1, generator=gen, device="cuda"),
+                "x0": torch.nn.functional.one_hot(
+                    torch.randint(0, 2, (4, 32, 32), generator=gen, device="cuda"), 2).float()}
+               for _ in range(4)]
+    return params, model, master_params(model.unet), batches
+
+
+def _graph_run(params, model, masters, batches, graphed: bool):
+    import copy
+
+    from ccdm_tpu_torch.train.optimizer import build_optimizer
+    from ccdm_tpu_torch.train.state import create_train_state
+    from ccdm_tpu_torch.train.step import GraphedTrainStep, make_multi_step, make_train_step
+
+    net = copy.deepcopy(model.unet)
+    tx, schedule = build_optimizer(params, steps_per_epoch=100)
+    state = create_train_state({k: v.clone() for k, v in masters.items()}, tx, 0.999)
+    step = make_train_step(model, torch.ones(2, device="cuda"), schedule)
+    if graphed:
+        step = GraphedTrainStep(step)
+    multi = make_multi_step(step)
+    before = (gn.launches, gn.launches_bwd, fa.launches)
+    metrics = [multi(state, net, batches[i:i + 2], 11) for i in (0, 2)]
+    metrics.append(step(state, net, batches[0], 11))
+    launches = tuple(a - b for a, b in zip((gn.launches, gn.launches_bwd, fa.launches), before))
+    return step, state, net, metrics, launches
+
+
+def test_graphed_train_step_is_bit_equal_to_the_eager_step(cuda):
+    params, model, masters, batches = _graph_setup()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager = _graph_run(params, model, masters, batches, graphed=False)
+        graph = _graph_run(params, model, masters, batches, graphed=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    step = graph[0]
+    assert (step.eager_steps, step.captures, step.replays) == (2, 1, 3)
+    (_, e_state, e_net, e_metrics, e_launches), (_, g_state, g_net, g_metrics, g_launches) = \
+        eager, graph
+    # the wrappers count each replay's launches, and none at the capture
+    assert g_launches == e_launches and e_launches[0] > 0
+    assert g_state.step == e_state.step == 5
+    assert g_state.opt_state["count"] == e_state.opt_state["count"] == 5
+    for a, b in ((e_state.params, g_state.params), (e_state.ema_params, g_state.ema_params),
+                 (e_state.opt_state["mu"], g_state.opt_state["mu"]),
+                 (e_state.opt_state["nu"], g_state.opt_state["nu"]),
+                 (dict(e_net.named_parameters()), dict(g_net.named_parameters()))):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    # each launch's metrics are its own, not overwritten by a later replay
+    for a, b in zip(e_metrics, g_metrics):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k], k
+    assert not torch.equal(g_metrics[1]["loss"], g_metrics[2]["loss"])
+
+
+def test_a_capture_that_meets_a_host_sync_raises(cuda):
+    from ccdm_tpu_torch.train.step import capture_graph
+
+    x = torch.ones(4, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the probe failed"):
+        capture_graph(lambda: float(x.sum()), torch.cuda.Stream(),
+                      torch.cuda.graph_pool_handle(), [], "the probe")
+    assert float(x.sum()) == 4  # the card still works
+
+
+def test_the_graphs_group_norm_counter_is_its_own_and_zero_after_a_replay(cuda):
+    params, model, masters, batches = _graph_setup(seed=4)
+    step, state, net, *_ = _graph_run(params, model, masters, batches, graphed=True)
+    device = torch.device("cuda", torch.cuda.current_device())
+    # the graph's counter: its capture stream's, which no launch outside it uses
+    counter = gn._counters[device.index, step.stream.cuda_stream]
+    assert counter.data_ptr() != gn._counter(device, torch.cuda.current_stream()).data_ptr()
+    x = batches[1]["image"].permute(0, 3, 1, 2).repeat(1, 32, 1, 1).contiguous()
+    x.requires_grad_()
+    other = torch.cuda.Stream()
+    other.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(other):  # a replay on a stream other than the capture's
+        step(state, net, batches[1], 11)
+    # meanwhile an eager GroupNorm backward on the current stream
+    gn.group_norm(x, torch.ones(32, device="cuda"), torch.zeros(32, device="cuda"),
+                  32).sum().backward()
+    torch.cuda.synchronize()
+    assert step.replays == 4 and int(counter.item()) == 0
+    assert all(int(c.item()) == 0 for c in gn._counters.values())
+
+
+@pytest.mark.parametrize("kind", ["Adam", "AdamW", "SGD"])
+def test_the_optimizers_device_scalars_keep_the_host_scalar_updates_bits(cuda, kind):
+    """The update with device scalars (what a CUDA graph replays) against
+    the same update with the learning rate and bias corrections as host
+    scalars, the op sequence the port ran before its step was a graph: bit
+    for bit on the card, over 5 updates."""
+    from ccdm_tpu_torch.train.optimizer import Optimizer
+
+    shapes = [(64, 32, 3, 3), (32,), (256, 96), (7,)]
+    p0 = {str(i): torch.randn(s, generator=cuda, device="cuda") * 0.05
+          for i, s in enumerate(shapes)}
+    grads = [{k: torch.randn(v.shape, generator=cuda, device="cuda") * 10.0 ** -e
+              for k, v in p0.items()} for e in range(1, 6)]
+    tx = Optimizer(kind, lambda c: 1e-4 * (1 - c / 1000), weight_decay=0.01)
+    ours = {k: v.clone() for k, v in p0.items()}
+    state = tx.init(ours)
+    ref = {k: v.clone() for k, v in p0.items()}
+    moments = tx.init(ref)
+    for count, g in enumerate(grads):
+        tx.update(g, state, ours)
+        names = list(ref)
+        p, gl = [ref[k] for k in names], [g[k] for k in names]
+        lr = tx.schedule(count)
+        if kind == "SGD":
+            trace = [moments["trace"][k] for k in names]
+            gl = torch._foreach_add(gl, p, alpha=tx.weight_decay)
+            torch._foreach_mul_(trace, tx.momentum)
+            torch._foreach_add_(trace, gl)
+            torch._foreach_add_(p, trace, alpha=-lr)
+            continue
+        mu, nu = [moments["mu"][k] for k in names], [moments["nu"][k] for k in names]
+        torch._foreach_mul_(mu, tx.b1)
+        torch._foreach_add_(mu, gl, alpha=1.0 - tx.b1)
+        torch._foreach_mul_(nu, tx.b2)
+        torch._foreach_addcmul_(nu, gl, gl, value=1.0 - tx.b2)
+        denom = torch._foreach_div(nu, 1.0 - tx.b2 ** (count + 1))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, tx.eps)
+        step = torch._foreach_div(mu, 1.0 - tx.b1 ** (count + 1))
+        torch._foreach_div_(step, denom)
+        if kind == "AdamW":
+            torch._foreach_add_(step, p, alpha=tx.weight_decay)
+        torch._foreach_add_(p, step, alpha=-lr)
+    assert all(torch.equal(ours[k], ref[k]) for k in ref)

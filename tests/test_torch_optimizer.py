@@ -94,3 +94,42 @@ def test_updates_match_optax_over_5_steps(name, extra):
             np.testing.assert_allclose(pp[k].numpy(), np.asarray(jp[k]), rtol=1e-6, atol=1e-7,
                                        err_msg=f"{name} step {step} {k}")
     assert lr < 1e-2
+
+
+@pytest.mark.parametrize("kind", ["Adam", "AdamW", "SGD"])
+def test_the_update_reads_nothing_on_the_host_and_keeps_to_multi_tensor_ops(kind):
+    """`Optimizer.apply` is what a CUDA graph of the train step captures: it
+    must not read a device value on the host (a capture refuses the sync),
+    and each op must be a foreach op whose tensor lists match pairwise in
+    shape, so that on the card it takes the multi-tensor kernels and not
+    one kernel a parameter."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from ccdm_tpu_torch.train.optimizer import Optimizer
+
+    calls = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            calls.append((func, args))
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator().manual_seed(0)
+    params = {str(i): torch.randn(s, generator=gen)
+              for i, s in enumerate([(4, 3, 3), (5,), (2, 6)])}
+    grads = {k: torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    tx = Optimizer(kind, lambda c: 1e-3, weight_decay=0.01)
+    state = tx.init(params)
+    for count in range(2):
+        tx.prepare(count, torch.device("cpu"))
+        calls.clear()
+        with Record():
+            tx.apply(grads, state, params)
+        names = [str(func) for func, _ in calls]
+        assert "aten._local_scalar_dense.default" not in names
+        assert all(n.startswith(("aten._foreach_", "aten.empty")) for n in names), names
+        for func, args in calls:
+            lists = [a for a in args if isinstance(a, (list, tuple)) and a
+                     and all(torch.is_tensor(t) for t in a)]
+            for other in lists[1:]:
+                assert [t.shape for t in other] == [t.shape for t in lists[0]], func
