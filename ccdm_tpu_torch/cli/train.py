@@ -9,7 +9,9 @@ works, or a caller passes the dict to `run_train` itself. Training runs on
 the CUDA card unless `--device` names another. `--multihost` joins the
 process group of a torchrun launch (`parallel.mesh.init_distributed`): one
 process per card over `nccl`, or CPU processes over `gloo` with `--device
-cpu`, training one model data parallel.
+cpu`, training one model over the config's `mesh: {data: d, model: m}`
+(data parallel by default; `--nproc_per_node` must be `d * m`, a model axis
+splitting the wide layers over `m` ranks, `parallel/tensor.py`).
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ def main(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device to train on (default: the CUDA card)")
     parser.add_argument("--multihost", action="store_true",
-                        help="join the process group of a torchrun launch (data parallel, "
-                             "one process per card)")
+                        help="join the process group of a torchrun launch (one process per "
+                             "card, laid out as the config's mesh)")
     args = parser.parse_args(argv)
     os.environ.setdefault("NOW", time.strftime("%Y%m%d_%H%M%S"))
     os.environ.setdefault("SLURM_JOB_ID", "local")

@@ -10,7 +10,10 @@ the result loads into `UNetModel` with `strict=True`.
 `flax_dino_to_state_dict` does the same for the JAX package's `DinoViT`, and
 `flax_train_state_to_tree` carries a JAX `TrainState` (params, EMA, the
 optimizer's moments, the step; the encoder's too where it trains) into the
-port's checkpoint schema.
+port's checkpoint schema. `flax_spatial_transformer_to_state_dict` maps
+the JAX package's `SpatialTransformer` (`models/cross_attention.py`).
+`flax_trailing_dim` says where a flax leaf's trailing dim lands in the
+port's tensor, which the tensor-parallel rule needs (`parallel/tensor.py`).
 """
 
 from __future__ import annotations
@@ -66,6 +69,18 @@ _SUBMAP = {
     ("kernel",): "weight",
     ("bias",): "bias",
 }
+
+
+# leaves carried over without a transpose: flax's trailing dim stays last
+_UNTRANSPOSED = ("cls_token", "pos_embed")
+
+
+def flax_trailing_dim(name: str, ndim: int) -> int:
+    """The dim of the port's `ndim`-dim tensor `name` that holds the flax
+    leaf's trailing (output-feature) dim: the last of a leaf the converters
+    carry over as it is, else 0 (every conv and dense kernel is transposed
+    to put its outputs first: HWIO -> OIHW, [I,O] -> [O,I] or [O,I,1])."""
+    return ndim - 1 if name.rsplit(".", 1)[-1] in _UNTRANSPOSED else 0
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -145,7 +160,7 @@ def flax_dino_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     `scale` -> `weight`)."""
     state_dict: Dict[str, torch.Tensor] = {}
     for parts, value in _leaves(tree):
-        if parts in (("cls_token",), ("pos_embed",)):
+        if len(parts) == 1 and parts[0] in _UNTRANSPOSED:
             name = parts[0]
         elif parts[0] == "patch_embed" and parts[1:] in (("kernel",), ("bias",)):
             name = f"patch_embed.proj.{'weight' if parts[1] == 'kernel' else 'bias'}"
@@ -160,6 +175,30 @@ def flax_dino_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
             if value.ndim == 2:  # Dense [I,O] -> Linear [O,I]
                 value = np.transpose(value)
         state_dict[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return state_dict
+
+
+def flax_spatial_transformer_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """Convert the JAX package's `SpatialTransformer` param tree to the
+    port's (`models/cross_attention.py`): `block_i` -> `blocks.i`, the
+    GroupNorm's `GroupNorm_0` level dropped, `scale` -> `weight`, `kernel`
+    -> `weight` (1x1 conv HWIO -> OIHW, Dense [I,O] -> Linear [O,I])."""
+    state_dict: Dict[str, torch.Tensor] = {}
+    for parts, value in _leaves(tree):
+        names = []
+        for part in parts:
+            m = re.fullmatch(r"block_(\d+)", part)
+            if m:
+                names += ["blocks", m.group(1)]
+            elif part in ("kernel", "scale"):
+                names.append("weight")
+            elif part != "GroupNorm_0":
+                names.append(part)
+        if value.ndim == 4:  # HWIO -> OIHW
+            value = np.transpose(value, (3, 2, 0, 1))
+        elif value.ndim == 2:  # Dense [I,O] -> Linear [O,I]
+            value = np.transpose(value)
+        state_dict[".".join(names)] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state_dict
 
 

@@ -35,10 +35,14 @@ the JAX package's and both are kept.
   `DenoisingModel.with_quant_scales` holds a table of device fp32 absmax
   scalars keyed by the sites' module names and applies it around each
   UNet call (`static_scales`); a model without a table runs every site
-  dynamically. Nothing here is process-global.
+  dynamically. Apart from the knob below, nothing here is process-global.
 
-`STATIC_ACTIVATION_SCALE` is not ported (an experiment knob of the JAX
-package).
+`STATIC_ACTIVATION_SCALE` is the JAX package's experiment knob, and it is
+process-global: when set, a site with no static scale of its own
+quantizes its input with this one fixed scale (the scale itself, not an
+absmax) instead of the dynamic one. It is read at each call, as the JAX
+package reads it at each trace, and made into a device scalar once for each
+value and device. No caller in the port sets it.
 """
 
 from __future__ import annotations
@@ -59,8 +63,18 @@ from ccdm_tpu_torch.ops.precision import fp32_precision
 
 LOGGER = logging.getLogger(__name__)
 
+# The fixed activation scale of every site without a static one (None:
+# dynamic); see the module docstring
+STATIC_ACTIVATION_SCALE: Optional[float] = None
+
 launches = 0
 path_launches = {"ring": 0, "tile": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_scale(value: float, device: torch.device) -> torch.Tensor:
+    """`STATIC_ACTIVATION_SCALE`'s value as an fp32 scalar on `device`."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PATH_CODES = {"tile": 0, "ring": 1}
@@ -385,7 +399,11 @@ class QuantConv2d(nn.Conv2d):
             self.absmax = cur if self.absmax is None else torch.maximum(self.absmax, cur)
             y = F.conv2d(x.float(), self.weight, None, self.stride, self.padding)
             return (y + self.bias[:, None, None]).to(x.dtype)
-        s_x = self.act_scale if self.act_scale is not None else dynamic_act_scale(x)
+        s_x = self.act_scale
+        if s_x is None and STATIC_ACTIVATION_SCALE is not None:
+            s_x = _fixed_scale(STATIC_ACTIVATION_SCALE, x.device)
+        elif s_x is None:
+            s_x = dynamic_act_scale(x)
         w_q, s_w = self.codes()
         return quant_conv(x, w_q, s_w, self.bias, s_x, self.kernel_size[0], self.stride[0],
                           self.padding[0])

@@ -1,11 +1,27 @@
-"""Data parallelism on `torch.distributed` (port of the data-parallel half
-of `ccdm_tpu/parallel/mesh.py`).
+"""The process grid on `torch.distributed` (port of
+`ccdm_tpu/parallel/mesh.py`).
 
-One process per card, as PyTorch runs it: every rank holds the whole model
-and its fp32 masters, takes its slice of the global batch, and the train
-step sums the gradients over the ranks (`train/step.py`). The evaluators
-slice their images by rank and combine partial sums once at the end.
+One process per card, as PyTorch runs it. The JAX package's 2-D
+`Mesh(data, model)` becomes a grid over the ranks, laid out as its
+`np.asarray(devices).reshape(data, model)`: rank `r` has data index
+`r // model` and model index `r % model`.
 
+- `data`: each data index takes its slice of the global batch, and the
+  train step sums the gradients over the data indices (`train/step.py`).
+  With `model == 1` this is plain data parallelism, every rank holding the
+  whole model and its fp32 masters.
+- `model`: tensor parallelism. The wide convs and linears keep only their
+  share of the output channels on each rank of a model group
+  (`parallel/tensor.py`), and `gather_channels` makes the activation whole
+  again after each of them.
+
+- `MeshConfig`, `make_mesh`, `current` and the accessors `data_index`,
+  `data_count`, `model_index`, `model_count` (0 / 1 / 0 / 1 without a
+  process group; a group without a mesh made is all data); each rank's
+  model group (the `model` consecutive ranks of its data index) and data
+  group (the ranks of its model index);
+- `gather_channels` and `all_reduce_sum`: the tensor-parallel collectives,
+  always in fp32 (the cast from bf16 and back is exact);
 - `process_index()` / `process_count()`: the group's rank and size, or 0 /
   1 when no process group is initialized;
 - `host_slice` and `pad_chunk`: a rank's strided share of globally indexed
@@ -16,14 +32,14 @@ slice their images by rank and combine partial sums once at the end.
   the card's queue;
 - `init_distributed`: the process group of a `torchrun` launch.
 
-Not ported, by decision: the `model` axis and its tensor-parallel rule, and
-`mesh_for_eval`'s sharding of one process's generation batch over its local
-chips (one process per card instead; the per-element noise streams make the
-result the same either way).
+Not ported, by decision: `mesh_for_eval`'s sharding of one process's
+generation batch over its local chips (one process per card instead; the
+per-element noise streams make the result the same either way).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import List, Optional, Sequence
 
@@ -49,6 +65,130 @@ def process_count() -> int:
 
 
 _rank, _size = process_index, process_count  # host_slice's parameters shadow the names
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    data: int
+    model: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place in the `data x model` grid and its two groups
+    (None where the group is the whole world or this rank alone)."""
+
+    config: MeshConfig
+    data_index: int
+    model_index: int
+    model_group: Optional[object] = None
+    data_group: Optional[object] = None
+
+    @property
+    def data_count(self) -> int:
+        return self.config.data
+
+    @property
+    def model_count(self) -> int:
+        return self.config.model
+
+
+_meshes = {}  # (the default group, MeshConfig) -> its Mesh: groups are made once
+_current: Optional[Mesh] = None
+
+
+def make_mesh(config: Optional[MeshConfig] = None) -> Mesh:
+    """The grid of `config` (default: all data) over the process group, made
+    the current one. A layout whose size is not the world size raises a
+    ValueError. Every rank must call it, in the same order: it makes the
+    model and data groups, each over the default group's backend."""
+    world, rank = process_count(), process_index()
+    config = config or MeshConfig(data=world)
+    if config.data < 1 or config.model < 1 or config.num_devices != world:
+        raise ValueError(f"mesh data {config.data} x model {config.model} needs "
+                         f"{config.num_devices} ranks; the process group has {world} (launch "
+                         f"data * model processes, one per card, with torchrun)")
+    key = (dist.group.WORLD if _initialized() else None, config)
+    if key not in _meshes:
+        m = config.model
+        model_group = data_group = None
+        if m > 1:  # every rank makes every group, its own or not
+            for d in range(config.data):
+                group = dist.new_group([d * m + j for j in range(m)])
+                if d == rank // m:
+                    model_group = group
+            for j in range(m):
+                group = dist.new_group([d * m + j for d in range(config.data)])
+                if j == rank % m:
+                    data_group = group
+        _meshes[key] = Mesh(config, rank // m, rank % m, model_group, data_group)
+    global _current
+    _current = _meshes[key]
+    return _current
+
+
+def current() -> Mesh:
+    """The mesh `make_mesh` made last in this process group, or the
+    all-data one of the group (rank r at data index r)."""
+    world = dist.group.WORLD if _initialized() else None
+    if _current is not None and _meshes.get((world, _current.config)) is _current:
+        return _current
+    return Mesh(MeshConfig(data=process_count()), process_index(), 0)
+
+
+def data_index() -> int:
+    return current().data_index
+
+
+def data_count() -> int:
+    return current().data_count
+
+
+def model_index() -> int:
+    return current().model_index
+
+
+def model_count() -> int:
+    return current().model_count
+
+
+def _group_size(group) -> int:
+    return dist.get_world_size(group) if group is not None else 1
+
+
+def gather_channels(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The whole tensor from each rank's share `x` of dim `dim`, in the
+    group's rank order: contiguous, in x's dtype. It travels in fp32, as an
+    all-reduce of the share written into a zeroed buffer. That call runs
+    under either backend: gloo's CUDA tensors take only broadcast and
+    all-reduce, and on one card only gloo can hold two ranks."""
+    n = _group_size(group)
+    if n == 1:
+        return x
+    local = x.float()
+    dim = dim % x.dim()
+    shape = list(local.shape)
+    shape[dim] *= n
+    whole = local.new_zeros(shape)
+    width = local.shape[dim]
+    whole.narrow(dim, dist.get_rank(group) * width, width).copy_(local)
+    dist.all_reduce(whole, group=group)
+    return whole.to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the group, in fp32, returned in x's dtype."""
+    if _group_size(group) == 1:
+        return x
+    total = x.float().contiguous()
+    if total is x:
+        total = x.clone()
+    dist.all_reduce(total, group=group)
+    return total.to(x.dtype)
 
 
 def host_slice(n: int, process_index: Optional[int] = None,

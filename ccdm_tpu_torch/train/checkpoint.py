@@ -17,13 +17,15 @@ not saved). Managers under the experiment directory:
 Saves are synchronous and atomic: a file is written under a temporary name
 and renamed, so a reader never sees half a checkpoint. In a process group
 every rank holds the same state: rank 0 writes, and every rank waits at a
-barrier until it has (`parallel/mesh.py`). A checkpoint does not depend on
-the world size that wrote it.
+barrier until it has (`parallel/mesh.py`). A state split over a model axis
+is gathered whole first, with every rank taking part. A checkpoint depends
+neither on the world size nor on the layout that wrote it.
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
 import json
 import logging
 import os
@@ -57,13 +59,19 @@ def _write(manager_dir: str, step: int, tree: Dict[str, Any]) -> str:
 
 
 def _on_main(save):
-    """Run `save` on rank 0 only, then hold every rank at a barrier (a save
-    that raises leaves the others waiting there until rank 0's process
-    ends, which fails their barrier)."""
+    """Run `save` on rank 0 only, with its `state`'s `tree()` as `tree`,
+    then hold every rank at a barrier (a save that raises leaves the others
+    waiting there until rank 0's process ends, which fails their barrier).
+    Every rank makes the tree of a sharded state: a gather."""
+    signature = inspect.signature(save)
+
     @functools.wraps(save)
     def wrapped(*args, **kwargs):
-        if mesh.process_index() == 0:
-            save(*args, **kwargs)
+        state = signature.bind(*args, **kwargs).arguments["state"]
+        main = mesh.process_index() == 0
+        tree = state.tree() if main or state.sharded else None
+        if main:
+            save(*args, tree=tree, **kwargs)
         mesh.barrier()
     return wrapped
 
@@ -74,19 +82,19 @@ class CheckpointManagers:
         self.keep = keep
 
     @_on_main
-    def save_periodic(self, state) -> None:
+    def save_periodic(self, state, tree=None) -> None:
         manager = os.path.join(self.output_path, "model")
-        _write(manager, state.step, state.tree())
+        _write(manager, state.step, tree)
         for step in _steps(manager)[:-self.keep]:
             shutil.rmtree(os.path.join(manager, str(step)))
 
     @_on_main
-    def save_best(self, name: str, state, score: float) -> None:
+    def save_best(self, name: str, state, score: float, tree=None) -> None:
         """Save under `best_<name>/` and keep the `keep` best scores (ties:
         the newer step stays). `score` must be the same on every rank
         (`mesh.broadcast_from_main`)."""
         manager = os.path.join(self.output_path, f"best_{name}")
-        step_dir = _write(manager, state.step, state.tree())
+        step_dir = _write(manager, state.step, tree)
         with open(os.path.join(step_dir, "score.json"), "w") as f:
             json.dump({name: float(score)}, f)
         scored = []
@@ -99,9 +107,8 @@ class CheckpointManagers:
             shutil.rmtree(os.path.join(manager, str(step)))
 
     @_on_main
-    def save_debug(self, state, extras: Optional[Dict[str, Any]] = None) -> None:
+    def save_debug(self, state, extras: Optional[Dict[str, Any]] = None, tree=None) -> None:
         """The debug dump of an invalid loss: the state and `extras`."""
-        tree = state.tree()
         if extras:
             tree["tensors"] = {k: (v.detach().cpu() if torch.is_tensor(v) else v)
                                for k, v in extras.items()}

@@ -16,6 +16,15 @@ UNet's masters under `unet.<name>`, the encoder's under `encoder.<name>`
 (the JAX package's `{"unet", "encoder"}` trees), so Adam and the EMA run
 jointly over both. Its checkpoint splits them again into the reference's
 keys (`model` and `feature_cond_encoder`, with their `average_*` EMAs).
+
+Over a mesh's `model` axis (`parallel/tensor.py`) the state holds this
+rank's share of each leaf the axis splits, for the masters, the EMA and the
+optimizer's moments alike, and the whole of every other leaf. `sharding`
+names the split leaves: `write_to` gathers them into a module that holds
+them whole (the EMA module of validation), `tree()` gathers them (a
+collective every rank of the model group joins), and `load_tree` takes
+each rank's share of a whole tree, so a checkpoint is the same file under
+any layout.
 """
 
 from __future__ import annotations
@@ -59,6 +68,19 @@ class TrainState:
     opt_state: Dict[str, Any]
     tx: Optimizer
     polyak_alpha: float = 0.9999
+    sharding: Optional[Any] = None  # parallel.tensor.Sharding of a model axis
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the state holds shares of leaves a model axis splits."""
+        return bool(self.sharding is not None and self.sharding.dims)
+
+    def _whole(self, d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """`d` with the shares of split leaves gathered whole (collective)."""
+        if not self.sharded:
+            return d
+        whole = self.sharding.gather({k: v for k, v in d.items() if k in self.sharding.dims})
+        return {k: whole.get(k, v) for k, v in d.items()}
 
     def apply_gradients(self, grads: Dict[str, torch.Tensor]) -> float:
         """One optimizer update of the masters, then `ema = a ema + (1 - a)
@@ -94,11 +116,17 @@ class TrainState:
     def write_to(self, net: nn.Module, ema: bool = False, prefix: str = "") -> None:
         """Copy the masters (or the EMA) named `prefix + <parameter name>`
         into `net`'s parameters, cast to their dtype; parameters that are
-        the masters themselves stay."""
+        the masters themselves stay. Where `net` holds a split leaf whole,
+        the shares are gathered (a collective every rank of the model group
+        joins)."""
         src = self.ema_params if ema else self.params
+        named = [(prefix + name, p) for name, p in net.named_parameters()]
+        split = [k for k, p in named if p.shape != src[k].shape]
+        if split:
+            src = {**src, **self.sharding.gather({k: src[k] for k in split})}
         dst, vals = [], []
-        for name, p in net.named_parameters():
-            master = src[prefix + name]
+        for name, p in named:
+            master = src[name]
             if p.data_ptr() != master.data_ptr():
                 dst.append(p)
                 vals.append(master)
@@ -110,29 +138,33 @@ class TrainState:
         `model`, `average_model`, `opt_state`, `step`, as CPU tensors; a
         composite state stores its encoder under `feature_cond_encoder` and
         `average_feature_cond_encoder` (the optimizer's moments keep the
-        prefixed names)."""
+        prefixed names). A sharded state gathers its split leaves: every
+        rank of the model group calls it."""
         def cpu(d):
             return {k: v.detach().cpu().clone() for k, v in d.items()}
 
-        opt = {k: (cpu(v) if isinstance(v, dict) else v) for k, v in self.opt_state.items()}
+        params, ema = self._whole(self.params), self._whole(self.ema_params)
+        opt = {k: (cpu(self._whole(v)) if isinstance(v, dict) else v)
+               for k, v in self.opt_state.items()}
         tree = {"opt_state": opt, "step": int(self.step)}
-        if is_composite(self.params):
-            tree.update(model=cpu(_part(self.params, UNET)),
-                        average_model=cpu(_part(self.ema_params, UNET)),
-                        feature_cond_encoder=cpu(_part(self.params, ENCODER)),
-                        average_feature_cond_encoder=cpu(_part(self.ema_params, ENCODER)))
+        if is_composite(params):
+            tree.update(model=cpu(_part(params, UNET)),
+                        average_model=cpu(_part(ema, UNET)),
+                        feature_cond_encoder=cpu(_part(params, ENCODER)),
+                        average_feature_cond_encoder=cpu(_part(ema, ENCODER)))
         else:
-            tree.update(model=cpu(self.params), average_model=cpu(self.ema_params))
+            tree.update(model=cpu(params), average_model=cpu(ema))
         return tree
 
     @torch.no_grad()
     def load_tree(self, tree: Dict[str, Any]) -> "TrainState":
-        """Restore from a `tree()` in place, on the state's devices."""
+        """Restore from a `tree()` in place, on the state's devices; a
+        sharded state takes its share of each split leaf."""
         def copy(dst, src):
             if set(dst) != set(src):
                 raise KeyError(f"checkpoint keys differ: {sorted(set(dst) ^ set(src))[:5]}")
             for k, v in dst.items():
-                v.copy_(src[k])
+                v.copy_(self.sharding.share(k, src[k]) if self.sharded else src[k])
 
         if is_composite(self.params):
             if "feature_cond_encoder" not in tree:
@@ -156,9 +188,12 @@ class TrainState:
 
 def create_train_state(params: Dict[str, torch.Tensor], tx: Optimizer,
                        polyak_alpha: float = 0.9999,
-                       ema_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
-    """A state at step 0; the EMA starts as a copy of the params."""
+                       ema_params: Optional[Dict[str, torch.Tensor]] = None,
+                       sharding=None) -> TrainState:
+    """A state at step 0; the EMA starts as a copy of the params. With a
+    `sharding`, `params` holds this rank's shares of the split leaves."""
     if ema_params is None:
         ema_params = {k: v.detach().clone() for k, v in params.items()}
     return TrainState(step=0, params=params, ema_params=ema_params,
-                      opt_state=tx.init(params), tx=tx, polyak_alpha=polyak_alpha)
+                      opt_state=tx.init(params), tx=tx, polyak_alpha=polyak_alpha,
+                      sharding=sharding)

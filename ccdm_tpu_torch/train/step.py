@@ -48,11 +48,24 @@ masks draw from `(seed, step, rank)` on rank > 0, so they are not the
 one-process run's. A gloo collective cannot be captured, so the graphed
 step is then two graphs, the gradients into the flat buffer and the
 update, with the all-reduce run eagerly between them.
+
+Over a `data x model` mesh (`parallel/mesh.py`, `parallel/tensor.py`) the
+rows, the draws and the dropout masks follow the data index, not the rank:
+every rank of a model group takes the same rows, `t`, noise and masks, as
+its activations are whole. A leaf the model axis splits has its gradient
+(this rank's share) summed over the data group and divided by the data
+count; every other leaf's gradient, and the loss, over all ranks and
+divided by the world size, which keeps the whole leaves' masters equal on
+every rank even where cuDNN's weight gradients are not deterministic.
+`grad_norm` is the global norm: the split leaves' squares summed over the
+model group, each whole leaf counted once. The forward of a split layer
+holds collectives, so this step runs eagerly (`trainer.py`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -148,6 +161,27 @@ def _reduce_gradients(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
     return _unflatten(flat, worst, grads, count)
 
 
+def _reduce_split(grads: Dict[str, torch.Tensor], loss: torch.Tensor,
+                  aux: Dict[str, torch.Tensor], split, layout: mesh.Mesh):
+    """`_reduce_gradients` over a mesh with a model axis (see the module
+    docstring): the whole leaves and the loss over all ranks, the shares of
+    the `split` leaves over the data group."""
+    import torch.distributed as dist
+
+    whole = {k: g for k, g in grads.items() if k not in split}
+    whole, loss, aux = _reduce_gradients(whole, loss, aux, mesh.process_count())
+    shares = {k: g for k, g in grads.items() if k in split}
+    if shares and layout.data_count > 1:
+        flat = torch.cat([g.reshape(-1) for g in shares.values()])
+        dist.all_reduce(flat, group=layout.data_group)
+        flat /= layout.data_count
+        offset = 0
+        for name, g in shares.items():
+            shares[name] = flat[offset:offset + g.numel()].view_as(g)
+            offset += g.numel()
+    return {k: whole[k] if k in whole else shares[k] for k in grads}, loss, aux
+
+
 class TrainStep:
     """The eager train step that `make_train_step` returns (see there), in
     parts that `GraphedTrainStep` captures: `seeded` (host), `local_gradients`
@@ -157,12 +191,16 @@ class TrainStep:
     def __init__(self, model: DenoisingModel, class_weights: torch.Tensor,
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  feature_fn: Optional[Callable] = None,
-                 encoder_apply: Optional[Callable] = None):
+                 encoder_apply: Optional[Callable] = None, sharding=None):
         self.model, self.class_weights, self.lr_schedule = model, class_weights, lr_schedule
         self.feature_fn, self.encoder_apply = feature_fn, encoder_apply
         self.dropout_on = any(isinstance(m, torch.nn.Dropout) and m.p > 0
                               for m in model.unet.modules())
-        self.rank, self.ranks = mesh.process_index(), mesh.process_count()
+        self.layout = sharding.layout if sharding is not None else mesh.current()
+        # rows and draws by data index: a model group's ranks take the same
+        self.rank, self.ranks = self.layout.data_index, self.layout.data_count
+        # master names the model axis splits
+        self.split = frozenset(sharding.dims if sharding is not None else ())
         self._generators: Dict[torch.device, torch.Generator] = {}
 
     def generator(self, device: torch.device) -> torch.Generator:
@@ -177,7 +215,7 @@ class TrainStep:
     def seeded(self, step: int, seed: int, device: torch.device):
         """The draws of step `step`: the step's generator reseeded from
         `(seed, step)`; with dropout, the default generator forked and
-        seeded from it (and the rank) for the block."""
+        seeded from it (and the data index) for the block."""
         s = step_seed(seed, step)
         self.generator(device).manual_seed(s)
         if not self.dropout_on:
@@ -222,7 +260,14 @@ class TrainStep:
 
     def metrics(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor,
                 aux: Dict[str, torch.Tensor], num_items: int) -> Dict[str, object]:
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
+        norms = torch.stack(torch._foreach_norm(list(grads.values())))
+        if self.split:  # the shares' squares over the model group, whole leaves once
+            share = torch.tensor([k in self.split for k in grads], device=norms.device)
+            squares = norms.square()
+            grad_norm = (mesh.all_reduce_sum(squares[share].sum(), self.layout.model_group)
+                         + squares[~share].sum()).sqrt()
+        else:
+            grad_norm = torch.linalg.vector_norm(norms)
         return {"loss": loss, "invalid": aux["invalid"], "kl_min": aux["kl_min"],
                 "grad_norm": grad_norm, "num_items": num_items}
 
@@ -240,7 +285,9 @@ class TrainStep:
         gradients by master name."""
         with self.seeded(state.step, seed, batch["x0"].device):
             grads, loss, aux = self.local_gradients(net, batch, encoder_net, t=t, xt=xt)
-        if self.ranks > 1:
+        if self.layout.model_count > 1:
+            grads, loss, aux = _reduce_split(grads, loss, aux, self.split, self.layout)
+        elif self.ranks > 1:
             grads, loss, aux = _reduce_gradients(grads, loss, aux, self.ranks)
         return grads, self.metrics(grads, loss, aux, batch["x0"].shape[0] * self.ranks)
 
@@ -259,7 +306,7 @@ class TrainStep:
 def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
                     lr_schedule: Optional[Callable[[int], float]] = None,
                     feature_fn: Optional[Callable] = None,
-                    encoder_apply: Optional[Callable] = None) -> TrainStep:
+                    encoder_apply: Optional[Callable] = None, sharding=None) -> TrainStep:
     """`step(state, net, batch, seed, encoder_net=None, *, t=None, xt=None)
     -> metrics`: one update of `state` (in place) from the gradients of
     `net`, the module that holds the compute-dtype copy of the state's
@@ -277,8 +324,14 @@ def make_train_step(model: DenoisingModel, class_weights: torch.Tensor,
     are this rank's too, and the gradients are summed over the ranks (see
     the module docstring). `step.gradients(...)`, with the step's arguments,
     returns `(grads, metrics)` without updating: the reduced fp32
-    gradients by master name."""
-    return TrainStep(model, class_weights, lr_schedule, feature_fn, encoder_apply)
+    gradients by master name.
+
+    With a `sharding` (`parallel.tensor.Sharding`: the mesh and the masters
+    whose shares this rank holds), `batch` is the rows of this rank's data
+    index and the reductions are the model axis's (see the module
+    docstring); without one, the mesh `parallel.mesh.make_mesh` made last
+    (all data unless one was made)."""
+    return TrainStep(model, class_weights, lr_schedule, feature_fn, encoder_apply, sharding)
 
 
 def make_multi_step(step_fn: Callable) -> Callable:
@@ -336,10 +389,17 @@ def capture_graph(fn: Callable, stream: torch.cuda.Stream, pool, generators, wha
     on `stream` and memory `pool`, `generators` registered with the graph.
     A capture that fails (a host sync, a copy from pageable memory, an
     unregistered generator) raises a RuntimeError that names `what` and the
-    cause; nothing runs eagerly in its place."""
+    cause; nothing runs eagerly in its place.
+
+    Python's cyclic garbage collector is kept off during the capture: it
+    could free an unreachable cycle that holds an earlier CUDA graph (a
+    dropped run's step), and a graph's destructor makes a call that no
+    capture permits, which would break this capture."""
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.graph(graph, pool=pool, stream=stream):
             out = fn()
@@ -350,6 +410,9 @@ def capture_graph(fn: Callable, stream: torch.cuda.Stream, pool, generators, wha
         cause = f"{type(e).__name__}: {e}" + (
             f" (after {type(first).__name__}: {first})" if first is not None else "")
         raise RuntimeError(f"CUDA graph capture of {what} failed: {cause}") from e
+    finally:
+        if collecting:
+            gc.enable()
     return graph, out
 
 

@@ -1,6 +1,6 @@
 """The training runtime (port of `ccdm_tpu/train/trainer.py`): a plain
 step-indexed loop around `train.step.make_train_step`, on one device or
-data parallel over a process group, one process per card.
+over a `data x model` grid of ranks, one process per card.
 
 - `run_train(params, max_steps=None, device=None)` is the entry point, with
   the reference's `params.yml` surface; it trains on the CUDA card unless
@@ -54,10 +54,18 @@ samples its strided share of the images) and combined with one float64
 allgather; the scores that choose a best checkpoint are rank 0's,
 broadcast. A SIGTERM on any rank stops every rank at the same step (a max
 over the ranks at each launch boundary), and they save together.
-`mesh.data`, where given, must equal the world size.
 
-Not ported by decision: `mesh.model > 1` (tensor parallelism, refused
-with `NotImplementedError`; no config sets it).
+`mesh: {data: d, model: m}` lays the ranks out as the JAX trainer's mesh
+(`parallel/mesh.py`; `data` defaults to the world size over `model`), and
+`d * m` must equal the world size. With `m > 1` the UNet (and a trainable
+encoder) keeps each rank's share of the leaves the model axis splits
+(`parallel/tensor.py`), and so does the state; the loader shards the data
+by data index, so a model group's ranks take the same rows. Validation and
+the eval paths sample with the whole EMA, gathered on every rank, and keep
+their slicing by rank, as the JAX trainer's multi-process validation
+copies its sharded EMA out of the mesh. The split layers' forward holds
+collectives, which a CUDA graph under gloo cannot capture, so the step
+runs eagerly there (logged once).
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from ccdm_tpu_torch.eval.metrics import ConfusionMatrix
 from ccdm_tpu_torch.models.builder import DenoisingModel, build_model
 from ccdm_tpu_torch.models.dino import DinoFeatureEncoder
 from ccdm_tpu_torch.parallel import mesh
+from ccdm_tpu_torch.parallel.tensor import Sharding, shard_modules
 from ccdm_tpu_torch.train.checkpoint import CheckpointManagers, load_checkpoint
 from ccdm_tpu_torch.train.optimizer import build_optimizer
 from ccdm_tpu_torch.train.state import (
@@ -162,17 +171,16 @@ def _build_datasets(params: Dict[str, Any]):
     return module, train_ds, val_ds
 
 
-def _refuse_unported(params: Dict[str, Any]) -> None:
+def _mesh_config(params: Dict[str, Any]) -> mesh.MeshConfig:
+    """The `mesh` of `params` (`data` defaults to the world size over
+    `model`), refusing what the port does not run."""
     layout = params.get("mesh") or {}
-    if int(layout.get("model", 1)) > 1:
-        raise NotImplementedError("mesh.model > 1 (tensor parallel training) is not ported: "
-                                  "the port trains data parallel, one process per card")
-    if "data" in layout and int(layout["data"]) != mesh.process_count():
-        raise ValueError(f"mesh.data {layout['data']} != the {mesh.process_count()} ranks of "
-                         f"the process group (launch one process per card with torchrun)")
+    model = int(layout.get("model", 1))
+    data = int(layout.get("data", mesh.process_count() // max(model, 1)))
     if params.get("quantized_inference"):
         raise ValueError("quantized_inference is inference-only; remove it from the "
                          "training config (training always runs the float path)")
+    return mesh.MeshConfig(data=data, model=model)
 
 
 class TrainingRun:
@@ -182,15 +190,16 @@ class TrainingRun:
         params = with_defaults(params)
         self.params = params
         self.device = _device(device)
-        _refuse_unported(params)
+        self.mesh = mesh.make_mesh(_mesh_config(params))
         self.is_main = mesh.process_index() == 0
         self._sigterm = False  # set by the SIGTERM handler, read by the loop
         self.output_path = expanduservars(params.get("output_path", "./logs/run"))
         os.makedirs(self.output_path, exist_ok=True)
         if self.is_main:
             archive_code(self.output_path)
-        LOGGER.info("rank %d of %d on %s", mesh.process_index(), mesh.process_count(),
-                    self.device)
+        LOGGER.info("rank %d of %d on %s; mesh data %d x model %d", mesh.process_index(),
+                    mesh.process_count(), self.device, self.mesh.data_count,
+                    self.mesh.model_count)
         LOGGER.info("experiment dir: %s", self.output_path)
         LOGGER.info("Training params:\n%s", pprint.pformat(params))
 
@@ -209,31 +218,41 @@ class TrainingRun:
         self.model: DenoisingModel = build_model(
             params, **build, generator=torch.Generator().manual_seed(seed))
         self.net = self.model.unet
-        if next(self.net.parameters()).dtype == torch.float32:
-            masters = master_params(self.net)
-        else:
+        whole = None  # the fp32 masters of a compute-dtype module, whole
+        if next(self.net.parameters()).dtype != torch.float32:
             fp32 = build_model(dict(params, compute_dtype="float32"), **build,
                                generator=torch.Generator().manual_seed(seed))
-            masters = master_params(fp32.unet)
+            whole = master_params(fp32.unet)
             with torch.no_grad():
                 for name, p in self.net.named_parameters():
-                    p.copy_(masters[name])
+                    p.copy_(whole[name])
+        # the EMA modules hold every leaf whole; the trained ones this rank's
+        # shares of the leaves the model axis splits
         self.ema_net = copy.deepcopy(self.net).eval()
-        LOGGER.info("UNet parameters: %.3fM", sum(p.numel() for p in masters.values()) / 1e6)
+        self._prefix = UNET if self.trainable_encoder else ""
+        split = shard_modules(self.net, self.mesh, self._prefix)
+        self.sharding = Sharding(split, self.mesh)
+        masters = master_params(self.net) if whole is None else {
+            name: self.sharding.share(self._prefix + name, v) for name, v in whole.items()}
+        LOGGER.info("UNet parameters: %.3fM",
+                    sum(p.numel() for p in self.ema_net.parameters()) / 1e6)
         # a trainable encoder's masters are its fp32 parameters themselves
-        self._prefix = ""
         if self.trainable_encoder:
+            self.ema_encoder = copy.deepcopy(self.encoder_net).requires_grad_(False)
+            split.update(shard_modules(self.encoder_net, self.mesh, ENCODER))
             masters = {**prefixed(UNET, masters),
                        **prefixed(ENCODER, master_params(self.encoder_net))}
-            self._prefix = UNET
+        if split:
+            LOGGER.info("model axis: %d leaves split over %d ranks", len(split),
+                        self.mesh.model_count)
         self.steps_per_launch = max(1, int(params.get("steps_per_launch", 1)))
 
         self.batch_size = int(params["batch_size"])
         # each rank loads its rows p::P of every global batch; with P > 1 an
         # epoch is trimmed to whole global batches, the same count on every rank
         self.loader = EpochLoader(self.train_ds, self.batch_size, seed=seed,
-                                  process_index=mesh.process_index(),
-                                  process_count=mesh.process_count(),
+                                  process_index=self.mesh.data_index,
+                                  process_count=self.mesh.data_count,
                                   num_workers=int(params.get("mp_loaders", 0)))
         self.steps_per_epoch = len(self.loader)
         if self.steps_per_epoch == 0:
@@ -241,7 +260,7 @@ class TrainingRun:
                              f"({len(self.train_ds)} images): zero steps per epoch")
         tx, self.lr_schedule = build_optimizer(params, self.steps_per_epoch)
         self.state: TrainState = create_train_state(
-            masters, tx, polyak_alpha=float(params["polyak_alpha"]))
+            masters, tx, polyak_alpha=float(params["polyak_alpha"]), sharding=self.sharding)
         self.checkpoints = CheckpointManagers(self.output_path)
         self.metrics = MetricsLogger(self.output_path, params) if self.is_main else None
         load_from = params.get("load_from")
@@ -253,9 +272,16 @@ class TrainingRun:
             self.model, _class_weights(self.module, self.num_classes, self.device),
             self.lr_schedule,
             feature_fn=None if self.trainable_encoder else self.encoder,
-            encoder_apply=self.encoder if self.trainable_encoder else None)
-        # on the card a step is a replay of a CUDA graph of it
-        self.step_fn = GraphedTrainStep(step) if self.device.type == "cuda" else step
+            encoder_apply=self.encoder if self.trainable_encoder else None,
+            sharding=self.sharding)
+        # on the card a step is a replay of a CUDA graph of it, except over a
+        # model axis, whose split layers hold collectives in the forward
+        self.step_fn = step
+        if self.device.type == "cuda" and self.mesh.model_count > 1:
+            LOGGER.info("model axis: the step runs eagerly (its forward holds collectives, "
+                        "which a CUDA graph under gloo cannot capture)")
+        elif self.device.type == "cuda":
+            self.step_fn = GraphedTrainStep(step)
         self._samplers = {}  # (num_samples, num_steps) -> batched sampler
         self._ema_step = None  # the step whose EMA `ema_net` holds
 
@@ -276,8 +302,6 @@ class TrainingRun:
             LOGGER.warning("DINO conditioning with RANDOM weights: provide "
                            "feature_cond_encoder.weights (a converted .npz)")
         self.trainable_encoder = self.encoder.trainable
-        if self.trainable_encoder:
-            self.ema_encoder = copy.deepcopy(self.encoder_net).requires_grad_(False)
         LOGGER.info("DINO feature conditioning: %s stride=%d ch=%d train=%s", self.encoder.name,
                     self.encoder.stride, self.encoder.channels, self.trainable_encoder)
 

@@ -105,10 +105,11 @@ without printing its result:
    convolutions in fp32 itself.
 13. eval_lidc: `eval_lidc_uncertainty` at the flagship's full width (bf16,
    T = 250, evaluations 1/4/8/16, batch 2) with the weights phase 11
-   saved, on 8 synthetic lesions that the phase writes as a PNG tree in the
-   LIDC crop release's layout (`datasets.lidc_orig`, 180x180, 4 masks).
-   Checks the count, GED in [0, 2], HM-IoU, Dice and IoU in [0, 1], the
-   results JSON, and launches of exactly 66 and 11 x 250 x 4 batches.
+   saved, on 4 of 8 synthetic lesions that the phase writes as a PNG tree
+   in the LIDC crop release's layout (`datasets.lidc_orig`, 180x180, 4
+   masks; cut from 8 for the script's time). Checks the count, GED in
+   [0, 2], HM-IoU, Dice and IoU in [0, 1], the results JSON, and launches
+   of exactly 66 and 11 x 250 x 2 batches.
    Prints the harness's samples/s against the bare sampler's of phase 5,
    the host seconds of PNG decode and of the metrics, and peak memory.
 14. eval_invariance: fp32 (TF32 off), T = 10, each of 4 images' 16 samples
@@ -180,8 +181,8 @@ without printing its result:
    `build/chip_smoke_quant_conv.json`; the kernel's time against an earlier
    commit's is `tools/time_quant_conv.py`'s.
 22. quant_eval: `eval_lidc_uncertainty(EVAL_LIDC_FAST_PARAMS)` (int8 on
-   calibrated static scales, encoder reuse 2, T = 250, batch 2) on phase
-   13's 8 PNG images with phase 11's weights; `quantized_inference: True`
+   calibrated static scales, encoder reuse 2, T = 250, batch 2) on 4 of
+   phase 13's 8 PNG images (cut from 8) with phase 11's weights; `quantized_inference: True`
    (dynamic) at R = 1 on 2 of them; `CityscapesEvaluator` at full width
    with static scales on phase 16's checkpoint, 2 images x 1 vote x 250
    steps at R = 1; between them `python -m ccdm_tpu_torch.cli.eval` on
@@ -235,17 +236,18 @@ without printing its result:
    `build/chip_smoke_serving/`, then loaded and served in one fresh process
    (`serving_child`) that imports only `torch` and the
    loader (no other port module, no jax), cuDNN deterministic in both
-   processes, TF32 at PyTorch's default: (a) the flagship 8 x 16 x 250 bf16,
-   (b) the same weights on calibrated static int8 scales, (c)
-   `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 250 with DINO ViT-S/8 (index state), (d)
+   processes, TF32 at PyTorch's default: (a) the flagship 8 x 16 x 50 bf16
+   (T cut from 250 to 50: the start, step and final programs are the same
+   at any T), (b) the same weights on calibrated static int8 scales, (c)
+   `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 50 with DINO ViT-S/8 (index state), (d)
    the flagship in fp32, 1 x 2 x 3. Each served run's maps bit-equal to the
    eager `make_prob_sampler` on the same seed, and its launches by kernel and
-   path equal the eager run's and (a-c) the sites x 250; (d) served without
+   path equal the eager run's and (a-c) the sites x 50; (d) served without
    the loader's `fp32_precision` must differ; a batch of 9 raises. First,
    the repair's check: the Cityscapes-DINO evaluator under PyTorch's default
    settings computes the DINO map `fp32_precision` gives. Prints per case
    the export seconds, artifact MB, load seconds and served against eager
-   rates (beside phases 5, 7 and 22's), and the host µs a call of each
+   rates (beside phases 5, 7 and 22's, which run T = 250), and the host µs a call of each
    kernel's registered op against its eager wrapper.
 26. remaining: the modules the port added last, each on the card, into
    `build/chip_smoke_remaining/`. (a) The native confusion counts
@@ -304,6 +306,31 @@ without printing its result:
    alone over the flagship's masters, the port's (device scalars) against
    the same update with host scalars: bit for bit, and each one's kernels
    and device ms an update in a profile of 5 updates.
+28. tensor_parallel: the mesh's `model` axis (`parallel/tensor.py`), gloo
+   ranks on cuda:0 (`--tensor-parallel-rank D M R`; NCCL refuses two ranks
+   on one card) laid out `{data 1, model 2}` and `{data 2, model 2}`, into
+   `build/chip_smoke_tp/`, against one process at the same global batch
+   (16 a data index). First `models/cross_attention.SpatialTransformer` in
+   fp32, card against CPU at one shape (1e-5 of the largest output). For
+   each layout: (a) the fp32 step of `DEMO_TRAIN_PARAMS` from phase 11's
+   masters under injected draws: the loss within 1e-5, `grad_norm` within
+   1e-5, the gathered gradients as phase 24 holds them (`grad_agreement`),
+   the masters after 3 Adam steps by phase 24's rule; (b) the bf16
+   `TrainingRun` of `DEMO_TRAIN_PARAMS` (K = 2), 4 eager steps: each
+   launch's loss within 1e-2 of one process's, the gathered masters within
+   4 x 2 lr of one process's and their update's cosine with one process's
+   at least 0.99, while two wrong updates fall below it (one process's
+   update at half the global batch, and the run's update with one model
+   rank's shares left at the start); on every rank the profiler's kernels a step in steps 3-4 =
+   the wrappers' counts = 66 K2 + 66 K2's backward + 11 K1; whole leaves'
+   masters bit-equal across ranks in (a) and (b); the TrainState's bytes a
+   rank with the split leaves' exactly halved; printed, the split leaves,
+   eager and device ms/step against one process's, the collectives' calls,
+   fp32 bytes and ms a step. At `{data 1, model 2}` also (c)
+   `CITYSCAPES_DINO_TRAIN_PARAMS` with DINO ViT-S/8 trainable on phase
+   18's tree, batch cut from 16 to 8, 2 eager steps: the encoder's leaves
+   split (`pos_embed` and `cls_token` on their last dim), 81 / 81 / 16
+   launches a step, the loss within 1e-2 of one process's.
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -1447,6 +1474,9 @@ def phase_train_reference(masters):
 
 EVAL_DIR = Path("build/chip_smoke_eval")
 EVAL_SEED = 13
+# phases 13 and 22: the harness's images at T = 250, 4 of the tree's 8 (cut
+# for the script's time; the rate is steady from the second batch)
+EVAL_IMAGES = 4
 
 
 def write_lidc_tree(root: Path, n: int) -> None:
@@ -1489,7 +1519,8 @@ def phase_eval_lidc(smi, bare_rate: float):
     shutil.rmtree(EVAL_DIR, ignore_errors=True)
     write_lidc_tree(EVAL_DIR / "lidc", 8)
     os.environ["CCDM_LIDC_ORIG_PATH"] = str(EVAL_DIR / "lidc")
-    params = lidc_eval_params(evaluation_path=str(EVAL_DIR / "lidc_out"))
+    params = lidc_eval_params(evaluation_path=str(EVAL_DIR / "lidc_out"),
+                              dataset_val_max_size=EVAL_IMAGES)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1498,7 +1529,7 @@ def phase_eval_lidc(smi, bare_rate: float):
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     launches, _ = read_counts()
-    batches = 4
+    batches = EVAL_IMAGES // 2
     want = {"group_norm": 66 * STEPS * batches, "flash_attention": 11 * STEPS * batches,
             "group_norm_backward": 0, "quant_conv": 0}
     if launches != want:
@@ -1507,13 +1538,13 @@ def phase_eval_lidc(smi, bare_rate: float):
     bad = [k for k in ("GED_1", "GED_4", "GED_8", "GED_16") if not 0 <= res[k] <= 2]
     bad += [k for k in ("HMIoU_1", "HMIoU_4", "HMIoU_8", "HMIoU_16") if not 0 <= res[k] <= 1]
     bad += [k for k in ("IoU", "Dice") if not all(0 <= v <= 1 for v in res[k])]
-    if res["count"] != 8 or bad:
+    if res["count"] != EVAL_IMAGES or bad:
         raise AssertionError(f"eval_lidc: count {res['count']}, out of range: {bad} in {res}")
     if not (EVAL_DIR / "lidc_out" / "lidc_uncertainty_full.json").is_file():
         raise AssertionError("eval_lidc: no results JSON")
-    log("eval_lidc", f"flagship bf16, 8 PNG images x 16 samples x {STEPS} steps at batch 2 "
-        f"({smi}): wall {wall:.2f} s, harness {res['samples_per_sec']:.2f} samples/s (steady, "
-        f"batches 2-4) against the bare sampler's {bare_rate:.2f} at 8 x 16 (phase 5); host "
+    log("eval_lidc", f"flagship bf16, {EVAL_IMAGES} of 8 PNG images x 16 samples x {STEPS} "
+        f"steps at batch 2 ({smi}): wall {wall:.2f} s, harness {res['samples_per_sec']:.2f} "
+        f"samples/s (steady, batches 2-{batches}) against the bare sampler's {bare_rate:.2f} at 8 x 16 (phase 5); host "
         f"seconds: generation {res['generation_seconds']:.2f}, PNG decode and crop "
         f"{res['data_seconds']:.3f}, metrics {res['metrics_seconds']:.2f}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; GED 1/4/8/16 "
@@ -2251,7 +2282,7 @@ def phase_quant_eval(smi, float_rate: float):
     base = dict(EVAL_LIDC_FAST_PARAMS, dataset_file="datasets.lidc_orig",
                 load_from="build/chip_smoke_train/run", seed=EVAL_SEED)
     for name, overrides, images in (
-            ("eval_lidc_fast", {}, 8),
+            ("eval_lidc_fast", {"dataset_val_max_size": EVAL_IMAGES}, EVAL_IMAGES),
             ("eval_lidc_dynamic", {"quantized_inference": True, "encoder_reuse": 1,
                                    "dataset_val_max_size": 2}, 2)):
         params = dict(base, evaluation_path=str(EVAL_DIR / f"{name}_out"), **overrides)
@@ -2617,38 +2648,47 @@ def spawn_ranks(n: int, argv, logs: Path = DP_DIR):
     """Start `n` copies of `argv` (the rank as the last argument), each
     with its output in `<logs>/rank<r>.log`; wait for all and raise, with
     their logs, if any exits non-zero."""
+    spawn_groups([(n, argv, "")], logs)
+
+
+def spawn_groups(groups, logs: Path) -> None:
+    """Start process groups side by side: for each `(n, argv, prefix)`, `n`
+    copies of `argv` (the rank as the last argument) sharing one rendezvous
+    port (`DP_PORT`), each with its output in `<logs>/<prefix>rank<r>.log`;
+    wait for all and raise, with their logs, if any exits non-zero."""
     import os
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     procs = []
     try:
-        for rank in range(n):
-            log = open(logs / f"rank{rank}.log", "w")
-            procs.append((subprocess.Popen([*argv, str(rank)], stdout=log,
-                                           stderr=subprocess.STDOUT,
-                                           env=dict(os.environ, DP_PORT=str(port))),
-                          log))
+        for n, argv, prefix in groups:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            for rank in range(n):
+                path = logs / f"{prefix}rank{rank}.log"
+                log = open(path, "w")
+                procs.append((subprocess.Popen([*argv, str(rank)], stdout=log,
+                                               stderr=subprocess.STDOUT,
+                                               env=dict(os.environ, DP_PORT=str(port))),
+                              log, path))
         # a rank that fails leaves the others waiting in a collective: stop
         # at the first failure
         deadline = time.monotonic() + 600
-        while any(proc.poll() is None for proc, _ in procs) and time.monotonic() < deadline \
-                and not any(proc.poll() for proc, _ in procs):
+        while any(proc.poll() is None for proc, _, _ in procs) and time.monotonic() < deadline \
+                and not any(proc.poll() for proc, _, _ in procs):
             time.sleep(0.5)
-        rcs = [proc.poll() for proc, _ in procs]
+        rcs = [proc.poll() for proc, _, _ in procs]
     finally:
-        for proc, log in procs:
+        for proc, log, _ in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
-    if rcs != [0] * n:
-        logs = "\n".join(f"--- rank {r} (exit {rc}):\n"
-                         + (logs / f"rank{r}.log").read_text()[-4000:]
-                         for r, rc in enumerate(rcs))
-        raise AssertionError(f"data_parallel: a rank failed: {rcs}\n{logs}")
+    if any(rc != 0 for rc in rcs):
+        text = "\n".join(f"--- {path.name} (exit {rc}):\n" + path.read_text()[-4000:]
+                         for (_, _, path), rc in zip(procs, rcs))
+        raise AssertionError(f"a rank failed: {rcs}\n{text}")
 
 
 def phase_data_parallel(smi, masters, one_rank_warm_ms: float):
@@ -2869,6 +2909,7 @@ def phase_data_parallel(smi, masters, one_rank_warm_ms: float):
 
 
 SERVE_DIR = Path("build/chip_smoke_serving")
+SERVE_STEPS = 50  # phase 25's T: the samplers' 250 cut to 50 (the programs are the same)
 SERVE_SEED = 2 ** 40 + 25  # both seed words non-zero
 # what a serving process may import of the port: the kernels' package and
 # the loader
@@ -2995,8 +3036,8 @@ def phase_serving(smi, eager_rates):
     on the card, loaded and served in a fresh process that imports only
     `torch` and the loader, against the eager `make_prob_sampler` on the same
     seed, cuDNN deterministic in both processes, TF32 at PyTorch's default:
-    (a) the flagship 8 x 16 x 250 bf16, (b) the same model with calibrated
-    static int8 scales, (c) `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 250 with DINO
+    (a) the flagship 8 x 16 x 50 bf16, (b) the same model with calibrated
+    static int8 scales, (c) `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 50 with DINO
     ViT-S/8 (the evaluator's own sampler; its DINO map must equal the one
     computed under `fp32_precision`), (d) the flagship in fp32, 1 x 2 x 3 at
     128x128, and its control served without the loader's `fp32_precision`."""
@@ -3080,15 +3121,16 @@ def phase_serving(smi, eager_rates):
     unzero_(model.unet, seed=1)
     gen = torch.Generator(device="cuda").manual_seed(2)
     images = torch.randn(IMAGES, 128, 128, 1, generator=gen, device="cuda")
-    add_case("flagship", model, model.unet, images, SAMPLES, STEPS, serves=2, wrong_batch=True)
+    add_case("flagship", model, model.unet, images, SAMPLES, SERVE_STEPS, serves=2,
+             wrong_batch=True)
     int8 = build_model(dict(params, quantized_inference="static"), 2, 1, 128)
     int8.unet.load_state_dict(model.unet.state_dict())
     int8 = quant.calibrate_static_scales(int8, int8.unet, images[:2])
-    add_case("flagship_int8", int8, int8.unet, images, SAMPLES, STEPS)
+    add_case("flagship_int8", int8, int8.unet, images, SAMPLES, SERVE_STEPS)
     del model, int8
 
     # (c) Cityscapes with DINO, the evaluator's model, encoder and sampler
-    add_case("cityscapes", ev.model, ev.model.unet, cs_images, 1, STEPS, ev.feature_fn,
+    add_case("cityscapes", ev.model, ev.model.unet, cs_images, 1, SERVE_STEPS, ev.feature_fn,
              ev.feature_net, serves=2)
     del ev
 
@@ -3160,19 +3202,20 @@ def phase_serving(smi, eager_rates):
         runs[f"serving_{name}"] = {"launches": res["launches"],
                                    "path_launches": res["path_launches"]}
 
-    # the expected counts: sites x 250 UNet calls, as phases 5, 7 and 22 count them
+    # the expected counts: sites x T UNet calls, as phases 5, 7 and 22 count them
     sites = {"flagship": (66, 11, 0), "flagship_int8": (66, 11, 81), "cityscapes": (81, 16, 0)}
     for name, (g, a, q) in sites.items():
         got = runs[f"serving_{name}"]["launches"]
-        want = {"group_norm": g * STEPS, "flash_attention": a * STEPS,
-                "group_norm_backward": 0, "quant_conv": q * STEPS}
+        want = {"group_norm": g * SERVE_STEPS, "flash_attention": a * SERVE_STEPS,
+                "group_norm_backward": 0, "quant_conv": q * SERVE_STEPS}
         if got != want:
-            raise AssertionError(f"serving {name}: launches {got} != sites x {STEPS} {want}")
+            raise AssertionError(f"serving {name}: launches {got} != sites x {SERVE_STEPS} "
+                                 f"{want}")
     units = {"flagship": "samples/s", "flagship_int8": "samples/s", "cityscapes": "images/s"}
-    earlier = {"flagship": f"phase 5 {eager_rates['flagship']:.2f}",
+    earlier = {"flagship": f"phase 5 {eager_rates['flagship']:.2f} at T 250",
                "flagship_int8": f"phase 22's harness (2 x 16, reuse 2) "
-                                f"{eager_rates['int8_harness']:.2f}",
-               "cityscapes": f"phase 7 {eager_rates['cityscapes']:.3f}"}
+                                f"{eager_rates['int8_harness']:.2f} at T 250",
+               "cityscapes": f"phase 7 {eager_rates['cityscapes']:.3f} at T 250"}
     for name, unit in units.items():
         r = rows[name]
         served = " then ".join(f"{v:.3f}" for v in r["served_per_s"])
@@ -3608,14 +3651,16 @@ def graph_drive(run, steps: int):
     return metrics, host, per_step, peak
 
 
-def device_profile(fn, what: str):
+def device_profile(fn, what: str, cpu: bool = True):
     """`fn()` under `torch.profiler`: `(fn's result, host seconds, device ms,
-    kernels launched by name)`."""
+    kernels launched by name)`. With `cpu=False` only the card's activity is
+    traced, which spares the host's cost of recording every op."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         start = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3737,6 +3782,47 @@ def graph_update_cost(state):
     return {form: (r["kernels"], r["ms"]) for form, r in out.items()}, len(state.params)
 
 
+def graph_dead_cycle() -> None:
+    """A capture during which a cycle that holds an earlier CUDA graph
+    becomes unreachable, with the collector set to run at every allocation:
+    `capture_graph` keeps the collector off during the capture (a graph
+    destroyed mid-capture breaks it, as a dropped run's step, freed by the
+    collector during a later capture, once did in this script)."""
+    import gc
+
+    import torch
+
+    from ccdm_tpu_torch.train.step import capture_graph
+
+    x = torch.ones(4, device="cuda")
+    stream = torch.cuda.Stream()
+    old, _ = capture_graph(lambda: x * 2, stream, torch.cuda.graph_pool_handle(), [], "the old")
+    holder = [old]
+    del old
+
+    def work():
+        # the old graph's last reference into a young cycle, unreachable at
+        # once: a collection, were the collector on, would free it here
+        cycle = [holder.pop()]
+        cycle.append(cycle)
+        del cycle
+        return [[x + i] for i in range(64)][-1][0] * 3
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        graph, y = capture_graph(work, stream, torch.cuda.graph_pool_handle(), [], "the new")
+    finally:
+        gc.set_threshold(*threshold)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not gc.isenabled() or not torch.equal(y, torch.full_like(x, 192.0)):
+        raise AssertionError(f"train_graphs: the capture beside a dead cycle gave {y.tolist()}"
+                             f" (collector on: {gc.isenabled()})")
+    log("train_graphs", "a capture during which a cycle that holds a CUDA graph becomes "
+        "unreachable, the collector at threshold 1: captured and replayed right")
+
+
 def graph_equal(name: str, eager, graph) -> int:
     """The eager and the graphed run's states (`TrainState.tree()`: masters,
     EMA, Adam moments, step and count) and every launch's metrics, bit for
@@ -3845,6 +3931,7 @@ def phase_train_graphs(smi):
     torch.backends.cudnn.deterministic = True
     runs = {}
     try:
+        graph_dead_cycle()
         # (a) the flagship, with its numbers
         flag = graph_pair(DEMO_TRAIN_PARAMS, "flagship", GRAPH_STEPS, GRAPH_TIMED_STEPS,
                           GRAPH_PROFILED_STEPS,
@@ -3951,6 +4038,545 @@ def phase_train_graphs(smi):
     return runs
 
 
+TP_DIR = Path("build/chip_smoke_tp")
+TP_LAYOUTS = ((1, 2), (2, 2))  # (data, model)
+# phase 28: the flagship's steps (a cold launch of 2, then a launch timed
+# under the profiler), the Cityscapes-DINO run's, the fp32 step's Adam steps
+TP_STEPS, TP_CS_STEPS, TP_ADAM, TP_SEED = 4, 2, 3, 9
+# phase 28: bf16 update's cosine with one process's, at least (sound runs
+# read 0.9993-0.9997; the wrong updates of the controls must fall below)
+TP_UPDATE_COS = 0.99
+TP_BF16_LOSS = 1e-2  # phase 28: bf16 losses, TP against one process (relative)
+
+
+def tp_params(base, name: str, data: int, mesh=None, **overrides):
+    """`base` at `data` times its batch (its batch a data index), over the
+    mesh `(data, model)` (default: one process), into
+    `build/chip_smoke_tp/<name>`, with no save, validation or log line
+    inside the run."""
+    never = 10 ** 9
+    d, m = mesh or (1, 1)
+    return dict(base, output_path=str(TP_DIR / name), batch_size=base["batch_size"] * data,
+                mesh={"data": d, "model": m}, save_freq=never, validation_freq=never,
+                display_freq=never, progress_bar=False, **overrides)
+
+
+def tp_fp32_step(masters, data: int = 1, layout=None):
+    """The fp32 step of `DEMO_TRAIN_PARAMS` on the card from `masters`, over
+    the mesh `layout` (None: one process), at a global batch of 16 a data
+    index: the loss and the gathered gradients of a first step under the
+    injected draws of the global batch (this rank's data rows of them),
+    then the masters after `TP_ADAM` Adam steps with the step's own draws,
+    gathered; and this rank's own masters (CPU tensors)."""
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.diffusion.categorical import (
+        gumbel_noise,
+        q_xt_given_x0_probs,
+        sample_onehot,
+    )
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.parallel.tensor import Sharding, shard_modules
+    from ccdm_tpu_torch.train.optimizer import build_optimizer
+    from ccdm_tpu_torch.train.state import create_train_state, master_params
+    from ccdm_tpu_torch.train.step import make_train_step
+
+    params = dict(DEMO_TRAIN_PARAMS, compute_dtype="float32")
+    model = build_model(params, 2, 1, 128)
+    with torch.no_grad():
+        for name, prm in model.unet.named_parameters():
+            prm.copy_(masters[name])
+    split = shard_modules(model.unet, layout) if layout is not None else {}
+    sharding = Sharding(split, layout) if layout is not None else None
+    d, n = (layout.data_index, layout.data_count) if layout is not None else (0, 1)
+    batch, _, _ = lesion_batch(16 * data, 128, seed=28)
+    gen = torch.Generator(device="cuda").manual_seed(TP_SEED)
+    x0 = batch["x0"].cuda()
+    t = torch.randint(1, model.diffusion.time_steps + 1, (16 * data,), generator=gen,
+                      device="cuda")
+    xt = sample_onehot(q_xt_given_x0_probs(model.diffusion, x0, t),
+                       gumbel=gumbel_noise(x0.shape, gen, x0.device))
+    rows = {k: v[d::n].cuda() for k, v in batch.items()}
+    tx, schedule = build_optimizer(params, steps_per_epoch=100)
+    state = create_train_state(master_params(model.unet), tx,
+                               polyak_alpha=params["polyak_alpha"], sharding=sharding)
+    step = make_train_step(model, torch.ones(2, device="cuda"), schedule, sharding=sharding)
+    grads, m = step.gradients(state, model.unet, rows, TP_SEED, t=t[d::n], xt=xt[d::n])
+    if sharding is not None:
+        grads = {**grads, **sharding.gather({k: grads[k] for k in split})}
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "grads": {k: g.cpu() for k, g in grads.items()}}
+    for _ in range(TP_ADAM):
+        step(state, model.unet, rows, TP_SEED)
+    out["masters"] = {k: v.cpu() for k, v in state.tree()["model"].items()}
+    out["local"] = {k: v.cpu() for k, v in state.params.items()}
+    return out
+
+
+def tp_state_bytes(state):
+    """The bytes a rank's `TrainState` holds (masters, EMA, Adam moments),
+    in all and in the leaves the model axis splits."""
+    split = state.sharding.dims if state.sharding is not None else {}
+    total = whole = 0
+    for d in (state.params, state.ema_params, state.opt_state["mu"], state.opt_state["nu"]):
+        for k, v in d.items():
+            total += v.numel() * v.element_size()
+            whole += 0 if k in split else v.numel() * v.element_size()
+    return total, total - whole
+
+
+def tp_recording_collectives():
+    """Time every tensor-parallel collective (`mesh.gather_channels`,
+    `mesh.all_reduce_sum` over a group of 2 or more) from now on, each
+    between host syncs (so each includes the wait for the kernels before
+    it): returns `(tally, restore)`, `tally` by kind `[calls, fp32 bytes on
+    this rank (the gathered whole, the reduced tensor), seconds]`."""
+    import torch
+
+    from ccdm_tpu_torch.parallel import mesh
+
+    tally = {"gather": [0, 0, 0.0], "all_reduce": [0, 0, 0.0]}
+    gather, reduce = mesh.gather_channels, mesh.all_reduce_sum
+
+    def timed(kind, fn, x, nbytes, *args):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(x, *args)
+        torch.cuda.synchronize()
+        t = tally[kind]
+        t[0], t[1], t[2] = t[0] + 1, t[1] + nbytes, t[2] + time.perf_counter() - start
+        return out
+
+    def gathered(x, dim, group):
+        if group is None:
+            return gather(x, dim, group)
+        n = torch.distributed.get_world_size(group)
+        return timed("gather", gather, x, x.numel() * 4 * n, dim, group)
+
+    def reduced(x, group):
+        if group is None:
+            return reduce(x, group)
+        return timed("all_reduce", reduce, x, x.numel() * 4, group)
+
+    def restore():
+        mesh.gather_channels, mesh.all_reduce_sum = gather, reduce
+
+    mesh.gather_channels, mesh.all_reduce_sum = gathered, reduced
+    return tally, restore
+
+
+def tp_wait(name: str) -> None:
+    """Wait for the marker `name` under `build/chip_smoke_tp/` (phase 28's
+    layouts run side by side and take turns at what is timed)."""
+    deadline = time.monotonic() + 600
+    while not (TP_DIR / name).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"tensor_parallel: no {name} after 600 s")
+        time.sleep(0.05)
+
+
+def tp_train(params, steps: int, timed: bool, before=None, after=None):
+    """A `TrainingRun` of `params` for `steps` eager steps: the launches
+    counted by the wrappers, and with `timed`, the masters at the start and
+    the steps after the first launch (2 steps) timed under the profiler
+    (tracing the card only),
+    each collective timed, `before()` and `after()` called around them.
+    Returns the run and its readings."""
+    import torch
+
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
+    from ccdm_tpu_torch.parallel import mesh
+    from ccdm_tpu_torch.train.trainer import TrainingRun
+
+    clock = [time.perf_counter()]
+    run = TrainingRun(params)
+    clock.append(time.perf_counter())
+    if hasattr(run.step_fn, "replays"):  # one process: its eager TrainStep
+        run.step_fn = run.step_fn.step
+    run.checkpoints.save_periodic = lambda state: None  # no final save at each stop
+    sites = (sum(isinstance(m, GroupNorm32) for m in run.net.modules()),
+             sum(isinstance(m, AttentionBlock) for m in run.net.modules()))
+    losses = []
+    launch = run._launch
+    run._launch = lambda batches: losses.append(launch(batches)) or losses[-1]
+    reset_counts()
+    res = {"sites": sites}
+    # one process's masters at the start (its run's updates are compared)
+    start_tree = run.state.tree()["model"] if timed and not run.state.sharded else None
+    if not timed:
+        run.run(max_steps=steps)
+    else:  # steps 1-2 cold, the rest timed under the profiler
+        run.run(max_steps=2)
+        clock.append(time.perf_counter())
+        if before is not None:
+            before()
+        clock.append(time.perf_counter())
+        tally, restore = tp_recording_collectives()
+        paths_before = read_counts()[1]
+        _, wall, device_ms, kernels = device_profile(lambda: run.run(max_steps=steps - 2),
+                                                     "tensor_parallel", cpu=False)
+        restore()
+        paths_after = read_counts()[1]
+        res["kernels"] = graph_launches_per_step(kernels, steps - 2, {
+            w: {p: paths_after[w][p] - paths_before[w][p] for p in paths_after[w]}
+            for w in GRAPH_KERNELS})
+        res["ms"] = wall / (steps - 2) * 1e3
+        res["device_ms"] = device_ms / (steps - 2)
+        res["collectives"] = {k: {"calls": c / (steps - 2), "bytes": b / (steps - 2),
+                                  "ms": t / (steps - 2) * 1e3}
+                              for k, (c, b, t) in tally.items() if c}
+        res["start"] = start_tree
+        if after is not None:
+            after()
+    clock.append(time.perf_counter())
+    # seconds: the run's set-up, then all steps (timed: the cold launch, the
+    # wait for the other layout, the timed launch under the profiler)
+    res["seconds"] = [round(b - a, 2) for a, b in zip(clock, clock[1:])]
+    res["launches"], res["paths"] = read_counts()
+    check_train_launches(f"tensor_parallel {params['output_path']}", res["launches"], steps, 0,
+                         *sites)
+    res["losses"] = [float(m["loss"]) for m in losses]
+    res["bytes"] = tp_state_bytes(run.state)
+    res["split"] = dict(run.sharding.dims)
+    res["local"] = {k: v.cpu() for k, v in run.state.params.items()}
+    return run, res
+
+
+def tp_child(data: int, model: int, rank: int) -> None:
+    """One rank of phase 28 (`chip_smoke.py --tensor-parallel-rank D M R`):
+    joins a gloo group of D x M ranks on cuda:0 (NCCL refuses two ranks on
+    one card), and runs the fp32 step, the flagship `TrainingRun` and, at
+    data 1, the Cityscapes-DINO-trainable one over the `data x model` mesh;
+    its results go to `build/chip_smoke_tp/<D>x<M>_rank<R>.pt`."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+    from ccdm_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=data * model,
+                            init_method=f"tcp://127.0.0.1:{os.environ['DP_PORT']}")
+    layout = mesh.make_mesh(mesh.MeshConfig(data=data, model=model))
+    start = time.perf_counter()
+    out = {"fp32": tp_fp32_step(torch.load(TP_DIR / "masters.pt"), data, layout)}
+    log("tensor_parallel", f"rank {rank}: fp32 step {time.perf_counter() - start:.1f} s")
+    # the two layouts run side by side; nothing of one runs while the
+    # other's steps are timed: {1,2} times its launch once {2,2}'s cold one
+    # is done, {2,2} once {1,2}'s timed one is, and {1,2} goes on once
+    # {2,2}'s is
+    tag = f"{data}x{model}"
+    other = "2x2" if tag == "1x2" else "1x2"
+
+    def mark(name):
+        mesh.barrier()
+        if rank == 0:
+            (TP_DIR / name).touch()
+
+    def before():
+        if tag == "1x2":
+            tp_wait("2x2_cold")
+        else:
+            mark("2x2_cold")
+            tp_wait("1x2_timed")
+
+    run, out["train"] = tp_train(tp_params(DEMO_TRAIN_PARAMS, f"flagship_{tag}", data,
+                                           (data, model)), TP_STEPS, timed=True,
+                                 before=before, after=lambda: mark(f"{tag}_timed"))
+    if tag == "1x2":
+        tp_wait(f"{other}_timed")
+    tree = run.state.tree()  # a gather: every rank
+    if rank == 0:
+        out["train"]["tree"] = tree
+    del run, tree
+    log("tensor_parallel", f"rank {rank}: flagship run {time.perf_counter() - start:.1f} s "
+        f"(set-up, cold launch, wait, timed launch: {out['train']['seconds']} s)")
+    if data == 1:
+        os.environ["CCDM_CITYSCAPES_PATH"] = str(CS_TRAIN_DIR / "tree")
+        run, out["cs"] = tp_train(tp_cs_params(data, model), TP_CS_STEPS, timed=False)
+        del run
+        log("tensor_parallel", f"rank {rank}: Cityscapes run {time.perf_counter() - start:.1f} s")
+    torch.save(out, TP_DIR / f"{data}x{model}_rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def tp_cs_params(data: int = 1, model: int = 1):
+    """`CITYSCAPES_DINO_TRAIN_PARAMS` with DINO trainable over the mesh."""
+    from ccdm_tpu_torch import CITYSCAPES_DINO_TRAIN_PARAMS
+
+    fce = dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"], train=True)
+    base = dict(CITYSCAPES_DINO_TRAIN_PARAMS, batch_size=8)  # cut from 16: phase 28's time
+    return tp_params(base, f"cs_dino_{data}x{model}", data, (data, model),
+                     feature_cond_encoder=fce, dataset_val_max_size=4)
+
+
+def tp_masters_close(ours, ref, steps: int, lr: float, rel: float, share: float, zero=()):
+    """Masters after `steps` Adam steps against a reference, as phase 24
+    holds them: every weight within steps x 2 lr (Adam moves a weight by up
+    to lr whatever its gradient's size, so a gradient at its rounding floor
+    moves by a share of lr that the order of the sums decides), and all but
+    `share` of the weights within `rel` of their tensor's largest, the
+    tensors whose gradients are zero in exact arithmetic (`zero`) and the
+    qkv biases' key rows left out. Returns the count past `rel`, the count
+    held and the largest move apart."""
+    import torch
+
+    beyond, total, moved = 0, 0, 0.0
+    for name, v in ref.items():
+        diff = (ours[name] - v).abs()
+        moved = max(moved, float(diff.max()))
+        if name in zero:
+            continue
+        if name.endswith("qkv.bias"):
+            diff = diff[(torch.arange(v.numel()) // 32) % 3 != 1]
+        beyond += int((diff > rel * float(v.abs().max())).sum())
+        total += diff.numel()
+    if not (moved <= steps * 2 * lr and beyond <= share * total):
+        raise AssertionError(f"tensor_parallel: masters after {steps} Adam steps: largest move "
+                             f"apart {moved:.3g} (limit {steps * 2 * lr:.3g}), {beyond} of "
+                             f"{total} weights past {rel} of their tensor's largest (limit "
+                             f"{share:.0e} of them); by tensor {tp_beyond(ours, ref, rel)}")
+    return beyond, total, moved
+
+
+def tp_update_cosine(ours, ref, start) -> float:
+    """The cosine between two runs' updates of every master from `start`."""
+    dot = a2 = b2 = 0.0
+    for name, v in start.items():
+        a, b = (ours[name] - v).double(), (ref[name] - v).double()
+        dot, a2, b2 = dot + float((a * b).sum()), a2 + float((a * a).sum()), b2 + float((b * b).sum())
+    return dot / math.sqrt(a2 * b2)
+
+
+def tp_beyond(ours, ref, rel: float, top: int = 8):
+    """The tensors with the most weights past `rel` of their largest."""
+    counts = {name: int(((ours[name] - v).abs() > rel * float(v.abs().max())).sum())
+              for name, v in ref.items()}
+    return sorted(((n, k, ref[k].numel()) for k, n in counts.items() if n), reverse=True)[:top]
+
+
+def tp_spatial_transformer(smi):
+    """`models/cross_attention.SpatialTransformer` in fp32 on the card (its
+    GroupNorm through K2) against the CPU (the plain version), one shape."""
+    import torch
+
+    from ccdm_tpu_torch.models.cross_attention import SpatialTransformer
+
+    torch.manual_seed(28)
+    cpu = SpatialTransformer(128, 4, 32, depth=2, context_dim=256)
+    with torch.no_grad():  # every leaf redrawn: the zero out-projection too
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape) * 0.05)
+    card = SpatialTransformer(128, 4, 32, depth=2, context_dim=256).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 128, 32, 32)
+    ctx = torch.randn(2, 77, 256)
+    with torch.no_grad():
+        ref = cpu(x, ctx)
+        reset_counts()
+        out = card(x.cuda(), ctx.cuda())
+        torch.cuda.synchronize()
+        launches, _ = read_counts()
+    err = float((out.cpu() - ref).abs().max()) / float(ref.abs().max())
+    if launches["group_norm"] != 1 or not err <= 1e-5:
+        raise AssertionError(f"tensor_parallel: SpatialTransformer card vs CPU err/max {err:.3g} "
+                             f"(limit 1e-5), K2 launches {launches['group_norm']} (want 1)")
+    log("tensor_parallel", f"SpatialTransformer (128 channels, 4 heads x 32, depth 2, context "
+        f"[2,77,256]) fp32 at [2,128,32,32], card against CPU ({smi}): err/max {err:.3g} "
+        f"(limit 1e-5), its GroupNorm through K2 (1 launch)")
+
+
+def phase_tensor_parallel(smi, masters):
+    """Phase 28: the mesh's model axis, gloo ranks on cuda:0 laid out
+    `{data 1, model 2}` and `{data 2, model 2}`, against one process (see
+    the docstring). Returns the ranks' launch counts."""
+    import os
+    import shutil
+
+    import torch
+
+    from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
+
+    phase_start = time.perf_counter()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    torch.save(masters, TP_DIR / "masters.pt")
+    tp_spatial_transformer(smi)
+    # the one-process references first, so the ranks later have the card
+    ref32 = {data: tp_fp32_step(masters, data) for data in (1, 2)}
+    refs = {}
+    for data in (1, 2):
+        run, refs[data] = tp_train(tp_params(DEMO_TRAIN_PARAMS, f"flagship_one_b{data}", data),
+                                   TP_STEPS, timed=True)
+        refs[data]["tree"] = run.state.tree()
+        del run
+    os.environ["CCDM_CITYSCAPES_PATH"] = str(CS_TRAIN_DIR / "tree")
+    run, ref_cs = tp_train(tp_cs_params(), TP_CS_STEPS, timed=False)
+    del run
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - phase_start
+    log("tensor_parallel", f"one-process references {ref_s:.1f} s")
+
+    lr = DEMO_TRAIN_PARAMS["optim"]["learning_rate"]
+    # a control of the bf16 update's cosine, a wrong update it must tell
+    # apart: one process's update at half the global batch (batch 16
+    # against 32, from the same start), near what a {data 2} run whose
+    # shares missed the data group's reduction would make
+    if any(not torch.equal(v, refs[2]["start"][k]) for k, v in refs[1]["start"].items()):
+        raise AssertionError("tensor_parallel: the one-process runs start apart")
+    half_cos = tp_update_cosine(refs[1]["tree"]["model"], refs[2]["tree"]["model"],
+                                refs[1]["start"])
+    if not half_cos < TP_UPDATE_COS:
+        raise AssertionError(f"tensor_parallel: the half-batch update's cosine {half_cos:.5f} "
+                             f"is not below the limit {TP_UPDATE_COS}")
+    runs = {}
+    start = time.perf_counter()
+    spawn_groups([(data * model, [sys.executable, str(Path(__file__).resolve()),
+                                  "--tensor-parallel-rank", str(data), str(model)],
+                   f"{data}x{model}_") for data, model in TP_LAYOUTS], TP_DIR)
+    ranks_s = time.perf_counter() - start
+    for data, model in TP_LAYOUTS:
+        r = [torch.load(TP_DIR / f"{data}x{model}_rank{i}.pt", weights_only=False)
+             for i in range(data * model)]
+        tag = f"{{data {data}, model {model}}}"
+        # (a) fp32: the loss at 1e-5, the gathered gradients as phase 24
+        # holds the data-parallel ones (grad_agreement), the masters after
+        # TP_ADAM Adam steps as phase 24 does (every weight within steps x
+        # 2 lr, all but 1e-4 within 1e-5 of their tensor's largest, the
+        # analytic zeros left out)
+        ref = ref32[data]
+        for i, ri in enumerate(r):
+            rel = abs(ri["fp32"]["loss"] - ref["loss"]) / abs(ref["loss"])
+            if not rel <= 1e-5:
+                raise AssertionError(f"tensor_parallel {tag} rank {i}: fp32 loss "
+                                     f"{ri['fp32']['loss']} vs one process's {ref['loss']}")
+            worst, worst_zero, zero = grad_agreement(ref["grads"], ri["fp32"]["grads"],
+                                                     f"tensor_parallel {tag} rank {i}")
+            beyond, total, moved = tp_masters_close(ri["fp32"]["masters"], ref["masters"],
+                                                    TP_ADAM, lr, 1e-5, 1e-4, zero)
+            norm_rel = abs(ri["fp32"]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+            if not norm_rel <= 1e-5:
+                raise AssertionError(f"tensor_parallel {tag}: grad_norm {ri['fp32']['grad_norm']}"
+                                     f" vs {ref['grad_norm']}")
+        split = r[0]["train"]["split"]
+        for what in ("fp32", "train"):  # whole leaves bit-equal on every rank
+            local = [ri[what]["local"] for ri in r]
+            for name in local[0]:
+                if name not in split and not all(torch.equal(local[0][name], l[name])
+                                                 for l in local[1:]):
+                    raise AssertionError(f"tensor_parallel {tag}: {what} master {name} differs "
+                                         f"between ranks")
+        log("tensor_parallel", f"{tag}, fp32 DEMO_TRAIN_PARAMS from phase 11's masters, global "
+            f"batch {16 * data} ({data * model} gloo ranks on cuda:0): loss {r[0]['fp32']['loss']:.7g} "
+            f"vs one process's {ref['loss']:.7g}, grad_norm {norm_rel:.2g} relative, gathered "
+            f"gradients worst err/max {worst[0]:.3g} ({worst[1]}), analytic zeros "
+            f"{worst_zero:.2g} of the largest; masters after {TP_ADAM} Adam steps: largest move "
+            f"apart {moved:.3g}, {beyond} of {total} past 1e-5 of their tensor's largest "
+            f"({len(zero)} analytic-zero tensors and the key rows left out); whole leaves "
+            f"bit-equal on every rank")
+        # (b) the bf16 TrainingRun: launches, losses, masters, memory, time
+        t = r[0]["train"]
+        want = refs[data]
+        for i, ri in enumerate(r):
+            got = ri["train"]["kernels"]
+            if got[0] != got[1] or got[0] != {"group_norm": 66, "group_norm_backward": 66,
+                                              "flash_attention": 11}:
+                raise AssertionError(f"tensor_parallel {tag} rank {i}: the profile's kernels a "
+                                     f"step {got[0]} != the wrappers' {got[1]} or the sites")
+            if ri["train"]["launches"] != t["launches"]:
+                raise AssertionError(f"tensor_parallel {tag}: ranks launched differently")
+            bad = [(a, b) for a, b in zip(ri["train"]["losses"], want["losses"])
+                   if not abs(a - b) <= TP_BF16_LOSS * abs(b)]
+            if bad or ri["train"]["losses"] != t["losses"]:
+                raise AssertionError(f"tensor_parallel {tag} rank {i}: bf16 losses "
+                                     f"{ri['train']['losses']} vs one process's "
+                                     f"{want['losses']} (limit {TP_BF16_LOSS} relative)")
+        # bf16's masters: every weight within Adam's TP_STEPS x 2 lr of one
+        # process's, and the update from the common start along one
+        # process's (a cosine); a per-weight bound cannot hold in bf16 at
+        # the zero-initialised convs, which Adam moves by about lr a step
+        # on gradients whose sign bf16's rounding decides. The second
+        # control: this run's update with model rank 1's shares left at
+        # the start, as if its updates never reached them
+        b_moved = float(max((t["tree"]["model"][k] - v).abs().max()
+                            for k, v in want["tree"]["model"].items()))
+        cos = tp_update_cosine(t["tree"]["model"], want["tree"]["model"], want["start"])
+        stale = dict(t["tree"]["model"])
+        for name, dim in split.items():
+            width = stale[name].shape[dim] // model
+            stale[name] = stale[name].clone()
+            stale[name].narrow(dim, width, width).copy_(
+                want["start"][name].narrow(dim, width, width))
+        stale_cos = tp_update_cosine(stale, want["tree"]["model"], want["start"])
+        if not (b_moved <= TP_STEPS * 2 * lr and cos >= TP_UPDATE_COS > stale_cos):
+            raise AssertionError(f"tensor_parallel {tag}: bf16 masters after {TP_STEPS} steps: "
+                                 f"largest move apart {b_moved:.3g} (limit "
+                                 f"{TP_STEPS * 2 * lr:.3g}), the update's cosine with one "
+                                 f"process's {cos:.5f} (limit {TP_UPDATE_COS}; a rank's shares "
+                                 f"left at the start {stale_cos:.5f}, half the batch "
+                                 f"{half_cos:.5f})")
+        total, split_bytes = t["bytes"]
+        one_total, _ = want["bytes"]
+        one_split = sum(4 * 4 * want["tree"]["model"][k].numel() for k in split)
+        if split_bytes * model != one_split or total - split_bytes != one_total - one_split:
+            raise AssertionError(f"tensor_parallel {tag}: state bytes {t['bytes']} per rank vs "
+                                 f"{one_total} at model 1 ({one_split} split)")
+        c = t["collectives"]
+        log("tensor_parallel", f"{tag}, bf16 TrainingRun(DEMO_TRAIN_PARAMS), batch 16 a data "
+            f"index, {TP_STEPS} eager steps ({smi}): {len(split)} leaves split on dim 0; kernels "
+            f"a step on every rank, profiler = wrappers = sites: {t['kernels'][0]}; launches per "
+            f"rank {t['launches']}; losses {[round(v, 6) for v in t['losses']]} vs one process's "
+            f"{[round(v, 6) for v in want['losses']]} (limit {TP_BF16_LOSS} relative); masters "
+            f"after {TP_STEPS} steps: largest move apart {b_moved:.3g} (limit "
+            f"{TP_STEPS * 2 * lr:.3g}), the update's cosine with one process's {cos:.5f} (limit "
+            f"{TP_UPDATE_COS}; the controls, wrong updates: model rank 1's shares left at the "
+            f"start {stale_cos:.5f}, one process at half the global batch {half_cos:.5f}); whole "
+            f"leaves bit-equal on every rank")
+        log("tensor_parallel", f"{tag} ({smi}): TrainState per rank {total / 2**30:.4f} GiB "
+            f"({split_bytes / 2**30:.4f} in split leaves) against {one_total / 2**30:.4f} GiB at "
+            f"model 1 ({one_split / 2**30:.4f} in those leaves, halved exactly); eager ms/step "
+            f"{t['ms']:.2f} against one process's {want['ms']:.2f} at the same batch, device "
+            f"ms/step {t['device_ms']:.3f} against {want['device_ms']:.3f} (steps 3-4 under the "
+            f"profiler, the card's activity only, each collective timed between syncs); collectives a step on rank 0, "
+            f"gloo through the host: "
+            + ", ".join(f"{k} {v['calls']:.0f} calls, {v['bytes'] / 1e6:.2f} MB fp32, "
+                        f"{v['ms']:.2f} ms" for k, v in c.items())
+            + " (the layouts' processes side by side, each timed while the other waits)")
+        runs[f"tensor_parallel_{data}x{model}_r0"] = {"launches": t["launches"],
+                                                      "path_launches": t["paths"]}
+        if data == 1:  # (c) Cityscapes with DINO trainable
+            cs = r[0]["cs"]
+            enc = sorted(k for k in cs["split"] if k.startswith("encoder."))
+            if cs["split"].get("encoder.pos_embed") != 2 or not enc:
+                raise AssertionError(f"tensor_parallel: the DINO encoder's split leaves {enc}")
+            local = [ri["cs"]["local"] for ri in r]
+            for name in local[0]:
+                if name not in cs["split"] and not all(torch.equal(local[0][name], l[name])
+                                                       for l in local[1:]):
+                    raise AssertionError(f"tensor_parallel Cityscapes: {name} differs between "
+                                         f"ranks")
+            bad = [(a, b) for a, b in zip(cs["losses"], ref_cs["losses"])
+                   if not abs(a - b) <= TP_BF16_LOSS * abs(b)]
+            if bad or len(cs["losses"]) != 1:
+                raise AssertionError(f"tensor_parallel Cityscapes: losses {cs['losses']} vs one "
+                                     f"process's {ref_cs['losses']}")
+            log("tensor_parallel", f"{tag}, CITYSCAPES_DINO_TRAIN_PARAMS with DINO ViT-S/8 "
+                f"trainable, batch 8 (cut from 16), {TP_CS_STEPS} eager steps on phase 18's tree: "
+                f"{len(cs['split'])} leaves split ({len(enc)} of the encoder, pos_embed and "
+                f"cls_token on their last dim); launches per rank {cs['launches']} (81 / 81 / 16 "
+                f"a step); loss {cs['losses']} vs one process's {ref_cs['losses']}; whole leaves "
+                f"bit-equal on every rank")
+            runs[f"tensor_parallel_cs_{data}x{model}_r0"] = {"launches": cs["launches"],
+                                                             "path_launches": cs["paths"]}
+    log("tensor_parallel", f"phase {time.perf_counter() - phase_start:.1f} s (one-process "
+        f"references {ref_s:.1f} s, both layouts' ranks {ranks_s:.1f} s)")
+    return runs
+
+
 def _dp_train_params():
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
 
@@ -3966,42 +4592,59 @@ def main() -> None:
     if sys.argv[1:2] == ["--train-graphs-rank"]:  # one of phase 27's ranks
         graphs_child(int(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--tensor-parallel-rank"]:  # one of phase 28's ranks
+        tp_child(*(int(a) for a in sys.argv[2:5]))
+        return
     import torch
 
-    smi = phase_device()
-    phase_build()
+    clock = []  # (phase, seconds)
+
+    def timed(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        clock.append((name, time.perf_counter() - start))
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gn_err, gn_row, gn_cs_row, gn_train_row = phase_group_norm(gen)
-    attn_err, attn_row, attn_cs_row, attn_train_row = phase_attention(gen)
+    gn_err, gn_row, gn_cs_row, gn_train_row = timed("group_norm", phase_group_norm, gen)
+    attn_err, attn_row, attn_cs_row, attn_train_row = timed("attention", phase_attention, gen)
     runs = {}
-    runs["flagship"], bare_rate = phase_slice(smi)
-    phase_reference()
+    runs["flagship"], bare_rate = timed("slice", phase_slice, smi)
+    timed("reference", phase_reference)
     for reuse in (1, 3):
-        runs[f"cityscapes_r{reuse}"] = phase_cityscapes(smi, reuse)
-    phase_cityscapes_reference()
-    gnb_err, gnb_row, gnb_train_row = phase_group_norm_backward(gen)
-    phase_attention_backward(gen)
-    runs["train"], trained = phase_train(smi)
-    phase_train_reference(trained)
-    runs["eval_lidc"], harness_rate = phase_eval_lidc(smi, bare_rate)
-    phase_eval_invariance()
-    runs["sampling_speed"] = phase_sampling_speed(smi)
-    runs["cityscapes_eval"] = phase_cityscapes_eval(smi)
-    phase_eval_cli()
-    runs["cityscapes_train"] = phase_cityscapes_train(smi)
-    runs.update(phase_cityscapes_train_dino(smi))
-    phase_cityscapes_train_reference()
-    q_err, q_row, q_cs_row, q_per_call, q_host = phase_quant_conv(gen)
-    quant_runs, quant_rates = phase_quant_eval(smi, harness_rate)
+        runs[f"cityscapes_r{reuse}"] = timed(f"cityscapes_r{reuse}", phase_cityscapes, smi,
+                                             reuse)
+    timed("cityscapes_reference", phase_cityscapes_reference)
+    gnb_err, gnb_row, gnb_train_row = timed("group_norm_backward", phase_group_norm_backward,
+                                            gen)
+    timed("attention_backward", phase_attention_backward, gen)
+    runs["train"], trained = timed("train", phase_train, smi)
+    timed("train_reference", phase_train_reference, trained)
+    runs["eval_lidc"], harness_rate = timed("eval_lidc", phase_eval_lidc, smi, bare_rate)
+    timed("eval_invariance", phase_eval_invariance)
+    runs["sampling_speed"] = timed("sampling_speed", phase_sampling_speed, smi)
+    runs["cityscapes_eval"] = timed("cityscapes_eval", phase_cityscapes_eval, smi)
+    timed("eval_cli", phase_eval_cli)
+    runs["cityscapes_train"] = timed("cityscapes_train", phase_cityscapes_train, smi)
+    runs.update(timed("cityscapes_train_dino", phase_cityscapes_train_dino, smi))
+    timed("cityscapes_train_reference", phase_cityscapes_train_reference)
+    q_err, q_row, q_cs_row, q_per_call, q_host = timed("quant_conv", phase_quant_conv, gen)
+    quant_runs, quant_rates = timed("quant_eval", phase_quant_eval, smi, harness_rate)
     runs.update(quant_runs)
-    phase_quant_reference()
-    runs.update(phase_data_parallel(smi, trained, runs["train"]["warm_ms"]))
-    serving_runs, host_us = phase_serving(smi, {
+    timed("quant_reference", phase_quant_reference)
+    runs.update(timed("data_parallel", phase_data_parallel, smi, trained,
+                      runs["train"]["warm_ms"]))
+    serving_runs, host_us = timed("serving", phase_serving, smi, {
         "flagship": bare_rate, "cityscapes": runs["cityscapes_r1"]["images_per_s"],
         "int8_harness": quant_rates["eval_lidc_fast"]})
     runs.update(serving_runs)
-    runs.update(phase_remaining(smi))
-    runs.update(phase_train_graphs(smi))
+    runs.update(timed("remaining", phase_remaining, smi))
+    runs.update(timed("train_graphs", phase_train_graphs, smi))
+    runs.update(timed("tensor_parallel", phase_tensor_parallel, smi, trained))
+    log("timing", "seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in clock)
+        + f"; all {sum(v for _, v in clock):.1f}")
 
     def by_run(kernel):
         return {run: {"launches": r["launches"][kernel],

@@ -658,6 +658,37 @@ def test_a_capture_that_meets_a_host_sync_raises(cuda):
     assert float(x.sum()) == 4  # the card still works
 
 
+def test_a_capture_survives_a_dead_cycle_that_holds_a_graph(cuda):
+    import gc
+
+    from ccdm_tpu_torch.train.step import capture_graph
+
+    x = torch.ones(4, device="cuda")
+    stream = torch.cuda.Stream()
+    old, _ = capture_graph(lambda: x * 2, stream, torch.cuda.graph_pool_handle(), [], "the old")
+    holder = [old]
+    del old
+
+    def work():
+        # the old graph's last reference into a young cycle, unreachable at
+        # once: a collection, were the collector on, would free it here
+        cycle = [holder.pop()]
+        cycle.append(cycle)
+        del cycle
+        return [[x + i] for i in range(64)][-1][0] * 3
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)  # a young collection at every allocation
+    try:
+        graph, y = capture_graph(work, stream, torch.cuda.graph_pool_handle(), [], "the new")
+    finally:
+        gc.set_threshold(*threshold)
+    assert gc.isenabled()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, torch.full_like(x, 192.0))
+
+
 def test_the_graphs_group_norm_counter_is_its_own_and_zero_after_a_replay(cuda):
     params, model, masters, batches = _graph_setup(seed=4)
     step, state, net, *_ = _graph_run(params, model, masters, batches, graphed=True)

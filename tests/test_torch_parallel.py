@@ -377,12 +377,13 @@ def test_two_rank_harness_equals_jax_under_stubbed_probabilities(ranks, small_se
         np.testing.assert_allclose(r0["lidc_stub"][k], ref[k], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("layout,error", [({"model": 2}, NotImplementedError),
+@pytest.mark.parametrize("layout,error", [({"model": 2}, ValueError),
                                           ({"data": 2}, ValueError),
                                           ({"data": 4, "model": 1}, ValueError)])
 def test_meshes_the_port_does_not_run_are_refused(layout, error, tmp_path, small_sets):
-    """Tensor parallelism, and a data axis other than the world size (1
-    here: no process group)."""
+    """A mesh whose data x model is not the world size (1 here: no process
+    group): a model axis the one-process world cannot hold, and a data
+    axis other than the world size."""
     with pytest.raises(error, match="mesh"):
         TrainingRun(dict(RUN_PARAMS, mesh=layout, output_path=str(tmp_path)), device="cpu")
 

@@ -208,6 +208,63 @@ def test_quantized_conv_matches_jax(dtype, static, cin, cout, k, stride):
         assert (np.abs(ours - ref) <= _bf16_ulp(ref)).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_static_activation_scale_matches_jax(dtype, monkeypatch):
+    """`STATIC_ACTIVATION_SCALE` set to the same constant in both packages:
+    a `QuantConv2d` with no static scale of its own quantizes its input with
+    it, as JAX's `quantized_conv` does without an `act_scale` (the codes
+    equal, the outputs as the conv parity above holds them); a site's own
+    static scale still wins; unset, the scale is dynamic again."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((2, 9, 11, 8)) * 2).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 8, 16)) * 0.3).astype(np.float32)
+    b = (rng.standard_normal(16) * 0.1).astype(np.float32)
+    jx = jnp.asarray(x).astype(jdt)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(tdt)
+    conv = tq.QuantConv2d(8, 16, 3, padding=1)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(w).permute(3, 2, 0, 1))
+        conv.bias.copy_(torch.from_numpy(b))
+
+    def both():
+        ref = jq.quantized_conv(jx, jnp.asarray(w), jnp.asarray(b))
+        with torch.no_grad():
+            ours = conv(tx)
+        assert ours.dtype == tdt
+        return np.asarray(ref.astype(jnp.float32)), ours.float().permute(0, 2, 3, 1).numpy()
+
+    def close(ours, ref):
+        if dtype == "float32":
+            np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+        else:
+            assert (np.abs(ours - ref) <= _bf16_ulp(ref)).all()
+
+    dynamic = both()
+    scale = 0.0213  # clips the largest inputs (max|x| / 127 is about 0.05)
+    monkeypatch.setattr(jq, "STATIC_ACTIVATION_SCALE", scale)
+    monkeypatch.setattr(tq, "STATIC_ACTIVATION_SCALE", scale)
+    ref, ours = both()
+    close(ours, ref)
+    assert not np.allclose(ref, dynamic[0])  # the constant changed JAX's result
+    j_q = np.asarray(jq.quantize_symmetric(jx, jnp.float32(scale)))
+    t_q = tq.quantize_symmetric(tx, torch.tensor(scale, dtype=torch.float32))
+    np.testing.assert_array_equal(t_q.permute(0, 2, 3, 1).numpy(), j_q)
+    # a site's own static scale wins over the constant, in both packages
+    own = np.float32(np.abs(x).max() * 0.5)
+    j_own = jq.quantized_conv(jx, jnp.asarray(w), jnp.asarray(b),
+                              act_scale=jnp.maximum(jnp.float32(own), 1e-8) / 127.0)
+    conv.act_scale = tq.static_act_scale(torch.tensor(own))
+    with torch.no_grad():
+        close(conv(tx).float().permute(0, 2, 3, 1).numpy(), np.asarray(j_own.astype(jnp.float32)))
+    conv.act_scale = None
+    monkeypatch.setattr(jq, "STATIC_ACTIVATION_SCALE", None)
+    monkeypatch.setattr(tq, "STATIC_ACTIVATION_SCALE", None)
+    ref, ours = both()
+    close(ours, ref)
+    np.testing.assert_array_equal(ref, dynamic[0])
+
+
 def test_quant_conv_wrapper_rejects_bad_inputs():
     x = torch.randn(1, 4, 5, 5)
     w_q, s_w = tq.weight_codes(torch.randn(8, 4, 3, 3))

@@ -181,9 +181,10 @@ def test_run_train_refuses_what_is_not_ported(tmp_path, tiny_synthetic):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_train(dict(SMOKE_PARAMS, output_path=str(tmp_path / "r")))
-    # a data axis other than the world size (1 here), and tensor parallelism
+    # a data axis other than the world size (1 here), and a model axis the
+    # one-process world cannot hold: both a mesh that is not the world size
     for extra, error in (({"mesh": {"data": 2}}, ValueError),
-                         ({"mesh": {"model": 2}}, NotImplementedError)):
+                         ({"mesh": {"model": 2}}, ValueError)):
         with pytest.raises(error, match="mesh"):
             TrainingRun(dict(SMOKE_PARAMS, output_path=str(tmp_path / "r"), **extra),
                         device="cpu")
