@@ -31,14 +31,17 @@ LOGGER = logging.getLogger(__name__)
 def make_batched_sampler(model: DenoisingModel, num_samples: int,
                          num_steps: Optional[int] = None, feature_fn=None):
     """`(net, images [B,H,W,Ci], key=0, indices=None, feature_net=None) ->
-    [B,S,H,W]` int64 class maps: the argmax of `make_prob_sampler`'s maps,
-    conditioned on `feature_fn(feature_net, images)` where it is given."""
+    [B,S,H,W]` int64 class maps: the argmax of `make_prob_sampler`'s maps
+    (CUDA graphs on the card), conditioned on `feature_fn(feature_net,
+    images)` where it is given. Its `graphed` attribute is the prob
+    sampler's."""
     prob_sampler = make_prob_sampler(model, num_samples, num_steps, feature_fn=feature_fn)
 
     def run(net, images, key: int = 0, indices=None, feature_net=None):
         return prob_sampler(net, images, key, indices,
                             feature_net=feature_net).argmax(dim=-1)
 
+    run.graphed = prob_sampler.graphed
     return run
 
 

@@ -37,6 +37,7 @@ import torch
 from ccdm_tpu_torch.config import expanduservars, with_defaults
 from ccdm_tpu_torch.diffusion import random
 from ccdm_tpu_torch.diffusion.sampling import (
+    GraphedSampler,
     ReverseStep,
     SamplerConfig,
     _resolve_state,
@@ -45,8 +46,10 @@ from ccdm_tpu_torch.diffusion.sampling import (
     subsampled_t_values,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
+from ccdm_tpu_torch.ops import quant
 from ccdm_tpu_torch.ops.precision import fp32_precision
 from ccdm_tpu_torch.parallel import mesh
+from ccdm_tpu_torch.parallel.tensor import is_split
 from ccdm_tpu_torch.parallel.mesh import pad_chunk  # noqa: F401  (re-exported)
 
 LOGGER = logging.getLogger(__name__)
@@ -54,7 +57,7 @@ LOGGER = logging.getLogger(__name__)
 
 def make_prob_sampler(model: DenoisingModel, num_samples: int,
                       num_steps: Optional[int] = None, feature_fn=None,
-                      encoder_reuse: int = 1):
+                      encoder_reuse: int = 1, graphs: bool = True):
     """`(net, images [B,H,W,Ci], key=0, indices=None) -> probs [B,S,H,W,C]`.
 
     Each image is repeated S times, image-major (as `jnp.repeat`), the prior
@@ -62,6 +65,18 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     with the model's `step_T_sample` mode for the final step ("confidence"
     yields probability maps). `net` is the module holding the weights (the
     JAX version's `params`).
+
+    On the card the reverse process replays CUDA graphs of its step
+    (`diffusion/sampling.GraphedSampler`, the JAX version's `lax.scan`
+    inside `jax.jit`), cached per shape and weights, bit-equal to the eager
+    loop where the card repeats its sums. The eager loop
+    (`ancestral_sampler`) runs on the CPU, for injected noise, for a net
+    whose layers are split over a model axis (`parallel/tensor.py`: their
+    forwards hold collectives, which no capture permits; logged), for a
+    net whose int8 sites are recording (a calibration), and with
+    `graphs=False`. The run's `graphed` attribute is the `GraphedSampler`
+    (None with `graphs=False`), whose counts say what was captured and
+    replayed. A capture that fails raises.
 
     Noise: `key` is the run's integer seed; element `index * S + sample`,
     with `indices` `[B]` the images' global dataset positions (default
@@ -75,7 +90,8 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     once, in fp32 whatever the process's TF32 settings (as the train step
     and the calibration compute it), which is then repeated S times;
     `feature_net` (the encoder's weights, the JAX version's
-    `feature_params`) is passed to each call.
+    `feature_params`) is passed to each call. The prior, the keys and the
+    conditioning are made for each call outside the graphs.
     `encoder_reuse` R > 1 replays the UNet encoder's activations on the
     steps between every R-th.
     """
@@ -83,6 +99,13 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
                         step_T_sample=model.step_T_sample,
                         encoder_reuse=int(encoder_reuse))
     c = model.diffusion.num_classes
+    graphed = GraphedSampler(model.diffusion, cfg) if graphs else None
+    logged = False
+
+    def denoisers(net, inputs):
+        cond, fc = inputs["cond"], inputs.get("fc")
+        return (model.denoise_fn(net, cond, fc),
+                model.denoise_fns_cached(net, cond, fc) if cfg.encoder_reuse > 1 else None)
 
     def run(net, images: torch.Tensor, key: int = 0, indices=None, *,
             feature_net=None, prior: Optional[torch.Tensor] = None,
@@ -93,18 +116,49 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
             indices = torch.arange(b)
         indices = torch.as_tensor(indices, dtype=torch.int64).to(images.device)
         ids = _element_ids(indices, num_samples)
+        nonlocal logged
         with torch.inference_mode():
             cond, fc = _conditioning(images, num_samples, feature_fn, feature_net)
             xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
                   if prior is None else prior)
-            pair = (model.denoise_fns_cached(net, cond, fc)
-                    if cfg.encoder_reuse > 1 else None)
-            out = ancestral_sampler(model.diffusion, model.denoise_fn(net, cond, fc), xt,
-                                    cfg, element_keys=random.element_keys(key, ids, random.CHAIN),
-                                    gumbel=gumbel, uniforms=uniforms, denoise_pair=pair)
+            keys = random.element_keys(key, ids, random.CHAIN)
+            inputs = {"cond": cond} if fc is None else {"cond": cond, "fc": fc}
+            route = sampler_route(net, images.device, graphed is not None,
+                                  any(v is not None for v in (prior, gumbel, uniforms)))
+            if route == "model axis" and not logged:
+                logged = True
+                LOGGER.info("model axis: the sampler runs eagerly (the split layers' forwards "
+                            "hold collectives, which a CUDA graph cannot capture)")
+            if route != "graphs":
+                fn, pair = denoisers(net, inputs)
+                out = ancestral_sampler(model.diffusion, fn, xt, cfg, element_keys=keys,
+                                        gumbel=gumbel, uniforms=uniforms, denoise_pair=pair)
+            else:
+                quant.prepare_capture(net, images.device)
+                out = graphed(net, xt, keys, inputs, lambda static: denoisers(net, static))
         return out.reshape(b, num_samples, h, w, c)
 
+    run.graphed = graphed
     return run
+
+
+def sampler_route(net: torch.nn.Module, device: torch.device, graphs: bool,
+                  injected: bool) -> str:
+    """How `make_prob_sampler` runs a call on `device`: "graphs", or why the
+    eager loop runs: "asked" (`graphs=False`), "cpu" (not a CUDA device),
+    "injected noise", "model axis" (a split layer's forward holds
+    collectives) or "calibration" (recording int8 sites)."""
+    if not graphs:
+        return "asked"
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if injected:
+        return "injected noise"
+    if is_split(net):
+        return "model axis"
+    if any(m.recording for _, m in quant.quant_sites(net)):
+        return "calibration"
+    return "graphs"
 
 
 def _element_ids(indices: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -282,7 +336,7 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
 
 
 def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = None, *,
-                          device=None) -> Dict[str, Any]:
+                          device=None, graphs: bool = True) -> Dict[str, Any]:
     """The LIDC uncertainty protocol over the config's test set (see the
     module docstring): a dict of `count`, `nonzero_fraction`, `mIoU`, `IoU`,
     `Dice`, `diversity_experts`, `GED_s`, `diversity_s`, `HMIoU_s` per
@@ -294,7 +348,8 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     steady seconds).
 
     The model builds on `device` (default: the CUDA card) and samples with
-    the EMA weights of `load_from`."""
+    the EMA weights of `load_from`, replaying CUDA graphs on the card
+    (`make_prob_sampler`; `graphs=False` runs the eager loop)."""
     from ccdm_tpu_torch.data.registry import resolve_dataset_module
     from ccdm_tpu_torch.eval.metrics import (
         ConfusionMatrix,
@@ -329,8 +384,6 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
     n = len(dataset)
     calibration_seconds = 0.0
     if str(params.get("quantized_inference", "")).lower() == "static":
-        from ccdm_tpu_torch.ops import quant
-
         t0 = time.perf_counter()
         cal_images = torch.from_numpy(
             np.stack([dataset.get(i)["image"] for i in range(min(n, 2))])).to(device)
@@ -341,7 +394,7 @@ def eval_lidc_uncertainty(params: Dict[str, Any], num_steps: Optional[int] = Non
         calibration_seconds = time.perf_counter() - t0
     batch_size = min(max(1, int(params.get("batch_size", 2))), max(n, 1))
     sampler = make_prob_sampler(model, max_samples, num_steps, feature_fn,
-                                encoder_reuse=int(params.get("encoder_reuse", 1)))
+                                encoder_reuse=int(params.get("encoder_reuse", 1)), graphs=graphs)
 
     geds = np.zeros(len(evaluations))
     div_samples = np.zeros(len(evaluations))

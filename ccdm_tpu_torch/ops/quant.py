@@ -409,6 +409,26 @@ class QuantConv2d(nn.Conv2d):
                           self.padding[0])
 
 
+def prepare_capture(net: nn.Module, device: torch.device) -> None:
+    """Make, before a CUDA graph captures `net`, what its int8 sites would
+    otherwise make inside the capture (where a copy from the host, or a
+    buffer made there and kept, breaks or outlives it): every site's codes
+    for its current weights, `STATIC_ACTIVATION_SCALE`'s device scalar and
+    the divisor of `_over_127`. Recording sites (a calibration) are never
+    captured: they raise here."""
+    sites = quant_sites(net)
+    if not sites:
+        return
+    if any(m.recording for _, m in sites):
+        raise RuntimeError("quant: a net whose sites are recording (a calibration) runs "
+                           "eagerly, never in a CUDA graph")
+    for _, m in sites:
+        m.codes()
+    if STATIC_ACTIVATION_SCALE is not None:
+        _fixed_scale(STATIC_ACTIVATION_SCALE, device)
+    _over_127(torch.ones((), device=device))
+
+
 def quant_sites(net: nn.Module):
     """`[(name, QuantConv2d)]` of `net`, found once and kept on the net."""
     sites = net.__dict__.get("_quant_sites")

@@ -164,6 +164,12 @@ def shard_modules(net: nn.Module, layout: mesh.Mesh, prefix: str = "") -> Dict[s
     return dims
 
 
+def is_split(net: nn.Module) -> bool:
+    """Whether `shard_modules` split any leaf of `net` (its forward then
+    holds collectives over the model group)."""
+    return any("tp_group" in m.__dict__ or "tp_leaves" in m.__dict__ for m in net.modules())
+
+
 @dataclasses.dataclass
 class Sharding:
     """The model axis's split of a train state: master name -> dim."""

@@ -4,6 +4,7 @@
     python3 ccdm_tpu_torch/tools/profile_sampler.py [--config flagship|cityscapes]
                                                     [--encoder-reuse R] [--root DIR]
                                                     [--quant off|dynamic|static]
+                                                    [--sampler both|graphs|eager]
 
 `--config flagship` (the default): the model `chip_smoke.py` runs (flagship
 LIDC config, bf16, seeded random weights with the zero-initialised leaves
@@ -24,9 +25,16 @@ kernel, beside `conv_compute` (cuDNN) of `--quant off`, the default.
 - `cold`, `warm`: wall time of 250-step runs (the process's first, then
   `WARM_RUNS` more), samples or images per second, and the SM clock after
   each;
-- `profile`: one 10-step run under `torch.profiler`: device time by kernel
-  family per step, the device's busy share of the wall, and the
-  `aten::add` calls per step.
+- `profile`: one 10-step run under `torch.profiler` (after a warm one):
+  device time by kernel family per step, the device's busy share of the
+  wall, and the `aten::add` calls per step.
+
+`--sampler` picks how the sampler runs: `graphs`, the default of
+`make_prob_sampler` on the card (CUDA graphs of the step, replayed; the
+cold run captures them), `eager` (`graphs=False`, the loop that launches
+every op from the host), or `both` (the default here: eager, then graphs,
+each on its own sampler); every line says which in `sampler`, so each
+mode's busy share is its `profile` line's.
 
 `--root DIR` imports `ccdm_tpu_torch` from another checkout (an earlier
 commit unpacked with `git archive`, say), so two versions are measured by
@@ -84,8 +92,14 @@ class Workload(NamedTuple):
     unet: object          # the UNet module, for the site hooks
     unit: str             # what a run yields: "samples" or "images"
     count: int            # how many of them a run yields
-    make_run: Callable    # steps -> a callable that runs the sampler once
+    make_run: Callable    # (steps, graphs) -> a callable that runs the sampler once
     forward: Callable     # one UNet call at the run's shapes
+
+
+def sampler_kwargs(graphs: bool) -> dict:
+    """`make_prob_sampler`'s keywords for the mode: none for the graphs (the
+    default, and the only form an earlier checkout under `--root` takes)."""
+    return {} if graphs else {"graphs": False}
 
 
 def quant_params(quant: str) -> dict:
@@ -112,8 +126,8 @@ def flagship(smoke, reuse: int, quant: str = "off") -> Workload:
         model = q.calibrate_static_scales(model, model.unet, images[:2])
     n = smoke.IMAGES * smoke.SAMPLES
 
-    def make_run(steps):
-        kw = {"encoder_reuse": reuse} if reuse > 1 else {}
+    def make_run(steps, graphs):
+        kw = ({"encoder_reuse": reuse} if reuse > 1 else {}) | sampler_kwargs(graphs)
         run = make_prob_sampler(model, num_samples=smoke.SAMPLES, num_steps=steps, **kw)
         return lambda: run(model.unet, images, 2)
 
@@ -143,17 +157,14 @@ def cityscapes(smoke, reuse: int, quant: str = "off") -> Workload:
 
         ev.model = q.calibrate_static_scales(ev.model, ev.model.unet, images,
                                              feature_fn=ev.feature_fn, feature_net=ev.feature_net)
-        ev.sampler = make_prob_sampler(ev.model, ev.num_evaluations, feature_fn=ev.feature_fn,
-                                       encoder_reuse=reuse)
     with torch.inference_mode():
         emit("dino", ms=smoke.time_ms(lambda: ev.feature_fn(ev.feature_net, images),
                                       reps=3, calls=5), shape=[smoke.CS_IMAGES, *smoke.CS_HW, 3])
 
-    def make_run(steps):
-        if steps == ev.model.time_steps:
-            return lambda: ev.predict_batch(images, 6)
+    def make_run(steps, graphs):
+        # predict_batch's sampler, built here so that eager can be asked for
         run = make_prob_sampler(ev.model, ev.num_evaluations, steps, feature_fn=ev.feature_fn,
-                                encoder_reuse=reuse)
+                                encoder_reuse=reuse, **sampler_kwargs(graphs))
         return lambda: run(ev.model.unet, images, 6, feature_net=ev.feature_net).mean(1)
 
     def forward():
@@ -229,26 +240,30 @@ def sites(work: Workload, smoke) -> None:
          attention_sites=sum(c for k, c in calls.items() if k[0] == "attn"))
 
 
-def runs(work: Workload, smoke, warm: int) -> None:
+def runs(work: Workload, smoke, warm: int, graphs: bool) -> None:
     import torch
 
-    run = work.make_run(smoke.STEPS)
+    run = work.make_run(smoke.STEPS, graphs)
     for i in range(warm + 1):
         torch.cuda.synchronize()
         start = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        emit("cold" if i == 0 else "warm", wall_s=wall, unit=work.unit,
-             per_s=work.count / wall, ms_per_step=wall / smoke.STEPS * 1e3,
+        emit("cold" if i == 0 else "warm", sampler=mode_name(graphs), wall_s=wall,
+             unit=work.unit, per_s=work.count / wall, ms_per_step=wall / smoke.STEPS * 1e3,
              clock_temp=smi("clocks.sm,temperature.gpu"))
 
 
-def profile(work: Workload, steps: int) -> None:
+def mode_name(graphs: bool) -> str:
+    return "graphs" if graphs else "eager"
+
+
+def profile(work: Workload, steps: int, graphs: bool) -> None:
     import torch
     from torch.profiler import ProfilerActivity
 
-    run = work.make_run(steps)
+    run = work.make_run(steps, graphs)
     run()  # warm
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -273,11 +288,13 @@ def profile(work: Workload, steps: int) -> None:
             device_ms += ms
             by_family[family(evt.key)] += ms / steps
             by_kernel[evt.key] += ms / steps
-    emit("profile", steps=steps, wall_ms=wall * 1e3, device_ms=device_ms,
+    emit("profile", sampler=mode_name(graphs), steps=steps, wall_ms=wall * 1e3,
+         device_ms=device_ms,
          busy_share=device_ms / (wall * 1e3), ms_per_step_by_family=dict(by_family),
          adds=adds)
     for name, ms in by_kernel.most_common(25):
-        emit("profile_kernel", name=name[:160], ms_per_step=ms, family=family(name))
+        emit("profile_kernel", sampler=mode_name(graphs), name=name[:160], ms_per_step=ms,
+             family=family(name))
 
 
 def main() -> None:
@@ -289,6 +306,9 @@ def main() -> None:
                     help="checkout whose ccdm_tpu_torch to measure (default: this one)")
     ap.add_argument("--quant", choices=("off", "dynamic", "static"), default="off",
                     help="int8 convs: dynamic or calibrated static scales (default off)")
+    ap.add_argument("--sampler", choices=("both", "graphs", "eager"), default="both",
+                    help="the sampler's CUDA graphs, its eager loop, or both in turn "
+                         "(default both)")
     args = ap.parse_args()
 
     root = args.root.resolve()
@@ -309,14 +329,16 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", root=str(root), card=smi("name,power.limit"), torch=torch.__version__,
-         config=args.config, encoder_reuse=args.encoder_reuse, quant=args.quant)
+         config=args.config, encoder_reuse=args.encoder_reuse, quant=args.quant,
+         sampler=args.sampler)
     from ccdm_tpu_torch.ops import _build
 
     emit("build", seconds=_build.build())
     workload = {"flagship": flagship, "cityscapes": cityscapes}[args.config]
     work = workload(smoke, args.encoder_reuse, args.quant)
-    runs(work, smoke, WARM_RUNS)
-    profile(work, PROFILE_STEPS)
+    for graphs in {"both": (False, True), "graphs": (True,), "eager": (False,)}[args.sampler]:
+        runs(work, smoke, WARM_RUNS, graphs)
+        profile(work, PROFILE_STEPS, graphs)
     sites(work, smoke)
     print(json.dumps({"done": True}), flush=True)
 

@@ -65,7 +65,6 @@ holds collectives, so this step runs eagerly (`trainer.py`).
 from __future__ import annotations
 
 import contextlib
-import gc
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -81,8 +80,15 @@ from ccdm_tpu_torch.diffusion.categorical import (
     theta_post_prob,
 )
 from ccdm_tpu_torch.models.builder import DenoisingModel
-from ccdm_tpu_torch.ops import flash_attention as fa
 from ccdm_tpu_torch.ops import group_norm as gn
+# WARMUP_STEPS and capture_graph are re-exported: the tools and tests import them here
+from ccdm_tpu_torch.ops.graphs import (  # noqa: F401
+    WARMUP_STEPS,
+    capture_graph,
+    captured_launches,
+    count_launches,
+    launch_counts,
+)
 from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.train.state import ENCODER, UNET, TrainState
 from ccdm_tpu_torch.ops.precision import fp32_precision
@@ -355,67 +361,6 @@ def make_multi_step(step_fn: Callable) -> Callable:
     return multi
 
 
-WARMUP_STEPS = 2  # eager steps on the capture stream before the capture
-
-# The kernel wrappers' launch counts on the step's path, by module: a capture
-# records launches, which run only at a replay, so the counts move there
-_COUNTED = ((gn, ("launches", "path_launches", "launches_bwd", "path_launches_bwd")),
-            (fa, ("launches", "path_launches")))
-
-
-def _launch_counts() -> Dict:
-    counts = {}
-    for module, names in _COUNTED:
-        for name in names:
-            value = getattr(module, name)
-            counts[module, name] = dict(value) if isinstance(value, dict) else value
-    return counts
-
-
-def _count_launches(delta: Dict, sign: int = 1) -> None:
-    """Add `sign` times `delta` (as `_launch_counts` gives, differences) to
-    the wrappers' counts."""
-    for (module, name), d in delta.items():
-        value = getattr(module, name)
-        if isinstance(value, dict):
-            for key in d:
-                value[key] += sign * d[key]
-        else:
-            setattr(module, name, value + sign * d)
-
-
-def capture_graph(fn: Callable, stream: torch.cuda.Stream, pool, generators, what: str):
-    """`(graph, fn())` with `fn`'s device work captured into a new CUDA graph
-    on `stream` and memory `pool`, `generators` registered with the graph.
-    A capture that fails (a host sync, a copy from pageable memory, an
-    unregistered generator) raises a RuntimeError that names `what` and the
-    cause; nothing runs eagerly in its place.
-
-    Python's cyclic garbage collector is kept off during the capture: it
-    could free an unreachable cycle that holds an earlier CUDA graph (a
-    dropped run's step), and a graph's destructor makes a call that no
-    capture permits, which would break this capture."""
-    graph = torch.cuda.CUDAGraph()
-    for g in generators:
-        graph.register_generator_state(g)
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            out = fn()
-    except Exception as e:
-        # the capture's end reports a capture that an error inside it broke:
-        # name that first error too
-        first = e.__context__
-        cause = f"{type(e).__name__}: {e}" + (
-            f" (after {type(first).__name__}: {first})" if first is not None else "")
-        raise RuntimeError(f"CUDA graph capture of {what} failed: {cause}") from e
-    finally:
-        if collecting:
-            gc.enable()
-    return graph, out
-
-
 class GraphedTrainStep:
     """`step` (a `TrainStep`) on the card as replays of CUDA graphs of it,
     called as the eager step is (`t` and `xt` are not injected).
@@ -498,7 +443,7 @@ class GraphedTrainStep:
             return grads, _flatten(grads, loss, aux)
 
         generators = [step.generator(device)]
-        before = _launch_counts()
+        before = launch_counts()
         if step.ranks == 1:
             graph, self._outputs = capture_graph(lambda: finish(*gradients()), self.stream,
                                                  pool, generators, "the train step")
@@ -510,11 +455,7 @@ class GraphedTrainStep:
                 lambda: finish(*_unflatten(*self._between, grads, step.ranks)), self.stream,
                 pool, [], "the train step's update")
             self.graphs = [first, second]
-        after = _launch_counts()
-        self._launches = {key: ({k: after[key][k] - v for k, v in before[key].items()}
-                                if isinstance(v, dict) else after[key] - v)
-                          for key, v in before.items()}
-        _count_launches(self._launches, -1)
+        self._launches = captured_launches(before)
         torch.cuda.current_stream(device).wait_stream(self.stream)
         self.captures += 1
         self.capture_s = time.perf_counter() - start
@@ -535,7 +476,7 @@ class GraphedTrainStep:
         if len(self.graphs) > 1:
             _all_reduce(*self._between)
             self.graphs[1].replay()
-        _count_launches(self._launches)
+        count_launches(self._launches)
         state.advance()
         self.replays += 1
         metrics = {k: v.clone() if torch.is_tensor(v) else v for k, v in self._outputs.items()}

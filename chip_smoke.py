@@ -331,6 +331,30 @@ without printing its result:
    18's tree, batch cut from 16 to 8, 2 eager steps: the encoder's leaves
    split (`pos_embed` and `cls_token` on their last dim), 81 / 81 / 16
    launches a step, the loss within 1e-2 of one process's.
+29. sampler_graphs: the sampler as CUDA graphs (`diffusion/sampling.
+   GraphedSampler`, what `make_prob_sampler` runs on the card by default,
+   so every sampler phase above replays graphs too) against its eager loop
+   (`graphs=False`), under cuDNN's deterministic algorithms: (a) the
+   flagship float sampler, 8 x 16 x 250, (b) the flagship int8 sampler on
+   calibrated static scales, 8 x 16, K 50 of T 250, (c) Cityscapes 2 x 1
+   with DINO ViT-S/8 at R = 1 (K 250) and R = 3 (K 50), (d) the LIDC
+   harness's sampler at 2 x 16 with phase 11's weights. Each: the eager run
+   and two graphed calls (the first runs 2 eager steps, captures and
+   replays the rest; the second replays all K), the maps bit for bit and
+   the launches equal to the sites x steps (K1, K2, K3), then a 10-step call
+   of each under the profiler (tracing the card): device ms a step, busy
+   share, and the kernels a step by name equal to the wrappers' counts by
+   path (K3 included). A short batch (7 of 8 images) captures a second
+   key and keeps the first; a weight written in place between two calls
+   (float, and int8, whose codes must move) captures anew, drops the stale
+   key and gives the eager loop's maps on the new weights. The harness
+   itself (phase 13's tree and weights, 4 images at 2 x 16, K 50) runs
+   eagerly and graphed: results equal, steady samples/s of each. Printed
+   per case, eager against graphed: samples or images/s, the first call's,
+   capture seconds and graphs, device ms a step, busy share, peak memory
+   above the start (a graphed first call's covers the capture's pool).
+   Phase 22's dynamic harness and Cityscapes static run take K 50 of T
+   250 (cut for the script's time).
 
 The last lines are the card's `nvidia-smi` name and power limit, one JSON
 line of per-kernel results, and `{"ok": true, "device": {...}}`.
@@ -1078,7 +1102,8 @@ def run_training(run, steps: int, marks_at):
     before; returns the step metrics, the host clock after each step in
     `marks_at` (after a sync), the (start, seconds) of every validation,
     grid and save, the validation's and the grid's results, the number of
-    UNet calls of the EMA module (validation and grid), and the launches
+    UNet calls of the EMA module (validation and grid: the Python forwards
+    its hook saw, less the captures', plus the graphs' replays), and the launches
     and launches by path. The GroupNorm backward's launches by path must
     equal `_plan_backward`'s path of every GroupNorm call that autograd
     records (hooks on the trained module's sites count them; a replay of
@@ -1134,6 +1159,10 @@ def run_training(run, steps: int, marks_at):
     state = run.run(max_steps=steps)
     torch.cuda.synchronize()
     launches, paths = read_counts()
+    # the EMA module's UNet calls that ran: a replay of the samplers' graphs
+    # runs no Python forward, a capture runs one that launches nothing
+    unet_calls = len(calls) + sum(s.graphed.replays - s.graphed.graphs_captured
+                                  for s in run._samplers.values())
     run.step_fn = step_fn
     for h in hooks:
         h.remove()
@@ -1152,7 +1181,7 @@ def run_training(run, steps: int, marks_at):
     losses = [float(m["loss"]) for m in metrics]
     if not all(np.isfinite(losses)) or any(bool(m["invalid"]) for m in metrics):
         raise AssertionError(f"a non-finite loss or an invalid step: {losses}")
-    return metrics, marks, pauses, results, len(calls), launches, paths
+    return metrics, marks, pauses, results, unet_calls, launches, paths
 
 
 def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
@@ -2002,6 +2031,9 @@ def phase_cityscapes_train_reference():
 
 
 QUANT_MAPS = 0.97  # phase 23: the least share of the maps card and CPU agree on
+# phase 22: the dynamic harness's and the Cityscapes static run's K, cut from
+# T = 250 for the script's time (phase 29 holds int8 graphs at K 50)
+QUANT_SHORT_STEPS = 50
 
 
 def quant_site_shapes(unet, *inputs):
@@ -2272,7 +2304,7 @@ def phase_quant_eval(smi, float_rate: float):
 
     from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, EVAL_LIDC_FAST_PARAMS
     from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
-    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty
+    from ccdm_tpu_torch.eval.lidc_uncertainty import eval_lidc_uncertainty, make_prob_sampler
     from ccdm_tpu_torch.models.builder import build_model
 
     full_sites, replay_sites = unet_sites(build_model(EVAL_LIDC_FAST_PARAMS, 2, 1, 128).unet)
@@ -2281,32 +2313,32 @@ def phase_quant_eval(smi, float_rate: float):
     runs, rates = {}, {}
     base = dict(EVAL_LIDC_FAST_PARAMS, dataset_file="datasets.lidc_orig",
                 load_from="build/chip_smoke_train/run", seed=EVAL_SEED)
-    for name, overrides, images in (
-            ("eval_lidc_fast", {"dataset_val_max_size": EVAL_IMAGES}, EVAL_IMAGES),
+    for name, overrides, images, steps in (
+            ("eval_lidc_fast", {"dataset_val_max_size": EVAL_IMAGES}, EVAL_IMAGES, STEPS),
             ("eval_lidc_dynamic", {"quantized_inference": True, "encoder_reuse": 1,
-                                   "dataset_val_max_size": 2}, 2)):
+                                   "dataset_val_max_size": 2}, 2, QUANT_SHORT_STEPS)):
         params = dict(base, evaluation_path=str(EVAL_DIR / f"{name}_out"), **overrides)
         reuse = int(params["encoder_reuse"])
         torch.cuda.synchronize()
         reset_counts()
         start = time.perf_counter()
-        res = eval_lidc_uncertainty(params)
+        res = eval_lidc_uncertainty(params, None if steps == STEPS else steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         launches, _ = read_counts()
         batches = images // 2
-        full = len(range(0, STEPS, reuse))
+        full = len(range(0, steps, reuse))
         calib = 8 if str(params["quantized_inference"]) == "static" else 0
         want = expected_launches(full_sites, replay_sites, batches * full,
-                                 batches * (STEPS - full), calib)
+                                 batches * (steps - full), calib)
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} != {want} ({batches} batches x "
-                                 f"({full} full UNet calls, {STEPS - full} replays), {calib} "
+                                 f"({full} full UNet calls, {steps - full} replays), {calib} "
                                  f"calibration calls)")
         check_lidc_results(name, res, images)
         rates[name] = res["samples_per_sec"]
         log("quant_eval", f"{name}: quantized_inference {params['quantized_inference']!r}, "
-            f"encoder reuse {reuse}, {images} PNG images x 16 samples x {STEPS} steps at batch 2 "
+            f"encoder reuse {reuse}, {images} PNG images x 16 samples x {steps} steps at batch 2 "
             f"({smi}): wall {wall:.2f} s, calibration {res['calibration_seconds']:.2f} s, harness "
             f"{res['samples_per_sec']:.2f} samples/s against the float harness's "
             f"{float_rate:.2f} (phase 13); GED 1/4/8/16 "
@@ -2350,6 +2382,9 @@ def phase_quant_eval(smi, float_rate: float):
     gen = torch.Generator(device="cuda").manual_seed(6)
     images = torch.randn(CS_IMAGES, *CS_HW, 3, generator=gen, device="cuda")
     ev.build((*CS_HW, 3), CS_IMAGES, calibration_images=images)
+    # K cut to QUANT_SHORT_STEPS of T 250 (phase 29 runs int8 at that K too)
+    ev.sampler = make_prob_sampler(ev.model, ev.num_evaluations, QUANT_SHORT_STEPS,
+                                   feature_fn=ev.feature_fn)
     cs_full, _ = unet_sites(ev.model.unet)
     if cs_full["quant_conv"] != 96 or len(ev.model.quant_scales) != 96:
         raise AssertionError(f"Cityscapes int8 sites {cs_full}, {len(ev.model.quant_scales)} "
@@ -2362,7 +2397,7 @@ def phase_quant_eval(smi, float_rate: float):
     wall = time.perf_counter() - start
     launches, _ = read_counts()
     labels = ev.predict_labels(mean, CS_LABEL_HW)
-    want = expected_launches(cs_full, cs_full, STEPS, 0)
+    want = expected_launches(cs_full, cs_full, QUANT_SHORT_STEPS, 0)
     if launches != want:
         raise AssertionError(f"cityscapes_quant: launches {launches} != {want}")
     sum_err = float((mean.sum(-1) - 1).abs().max())
@@ -2371,9 +2406,10 @@ def phase_quant_eval(smi, float_rate: float):
         raise AssertionError(f"cityscapes_quant: probabilities {tuple(mean.shape)} sum err "
                              f"{sum_err}, labels in [{int(labels.min())}, {int(labels.max())}]")
     log("quant_eval", f"cityscapes_quant: CITYSCAPES_EVAL_PARAMS with quantized_inference "
-        f"'static', {CS_IMAGES} images x 1 vote x {STEPS} steps at 256x512, R=1 ({smi}): "
-        f"calibration {ev.calibration_seconds:.2f} s (8 float steps with DINO), wall "
-        f"{wall:.2f} s, {CS_IMAGES / wall:.3f} images/s, {wall / STEPS * 1e3:.2f} ms per step; "
+        f"'static', {CS_IMAGES} images x 1 vote x {QUANT_SHORT_STEPS} steps at 256x512, R=1 "
+        f"({smi}): calibration {ev.calibration_seconds:.2f} s (8 float steps with DINO), wall "
+        f"{wall:.2f} s, {CS_IMAGES / wall:.3f} images/s, "
+        f"{wall / QUANT_SHORT_STEPS * 1e3:.2f} ms per step; "
         f"labels in [{int(labels.min())}, {int(labels.max())}]; launches {launches}")
     runs["cityscapes_quant"] = {"launches": launches, "path_launches": {}}
     return runs, rates
@@ -3690,12 +3726,13 @@ def graph_profile(run, steps: int):
     return device_ms / steps, device_ms / (wall * 1e3), kernels, read_counts()[1]
 
 
-def graph_launches_per_step(kernels, steps: int, paths):
+def graph_launches_per_step(kernels, steps: int, paths, table=None):
     """The hand-written kernels' launches a step in a profile of `steps`
     steps, by wrapper, against what the wrappers counted by path in those
-    steps (a path's calls times its kernels)."""
+    steps (a path's calls times its kernels); `table` (default
+    `GRAPH_KERNELS`) names each wrapper's kernels by path."""
     got, want = {}, {}
-    for wrapper, by_path in GRAPH_KERNELS.items():
+    for wrapper, by_path in (table or GRAPH_KERNELS).items():
         names = {n for ns in by_path.values() for n in ns}
         got[wrapper] = sum(c for key, c in kernels.items() if any(n in key for n in names)) / steps
         want[wrapper] = sum(paths[wrapper][path] * len(ns) for path, ns in by_path.items()
@@ -4577,6 +4614,294 @@ def phase_tensor_parallel(smi, masters):
     return runs
 
 
+SG_SHORT_STEPS = 50      # phase 29: the int8 and Cityscapes R = 3 samplers' K (of T = 250)
+SG_PROFILED_STEPS = 10   # phase 29: the steps of each profiled sampler call
+# a sampler step's kernels in a profile, by the wrapper whose calls launch
+# them (K3's tile path adds an epilogue launch where it splits K)
+SAMPLER_KERNELS = {
+    "group_norm": GRAPH_KERNELS["group_norm"],
+    "flash_attention": GRAPH_KERNELS["flash_attention"],
+    "quant_conv": {"ring": ("quant_conv_ring<",), "tile": ("quant_conv_tile<",)},
+}
+
+
+def sg_run(fn):
+    """`fn()` timed: `(out, wall s, peak bytes allocated above the start)`.
+    A capture allocates the graphs' pool, so a graphed sampler's first call
+    shows it; a replay allocates nothing."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start, torch.cuda.max_memory_allocated() - base
+
+
+def sg_profile(name: str, run, steps: int):
+    """One call of `run` (a `steps`-step sampler, warm) under the profiler,
+    tracing the card: `(device ms a step, busy share, kernels a step by
+    wrapper)`, the profile's kernels checked against the wrappers' counts
+    in the same call."""
+    reset_counts()
+    _, wall, device_ms, kernels = device_profile(run, f"sampler_graphs {name}", cpu=False)
+    got, want = graph_launches_per_step(kernels, steps, read_counts()[1], SAMPLER_KERNELS)
+    if got != want:
+        raise AssertionError(f"sampler_graphs {name}: the profile's kernel launches a step "
+                             f"{got} != the wrappers' counts {want}")
+    return device_ms / steps, device_ms / (wall * 1e3), got
+
+
+def sg_case(name: str, make, args, steps: int, count: int, unit: str, sites, **kwargs):
+    """The eager loop and the graphed sampler of one case, `make(graphs,
+    num_steps)` -> a `make_prob_sampler` run called as `run(*args,
+    **kwargs)`, under cuDNN's deterministic algorithms: the eager run, the
+    graphed run's first call (warm-up, capture, replays) and second
+    (replays), maps bit for bit and launches equal to `sites(steps)`
+    (kernel -> count); then a `SG_PROFILED_STEPS` call of each under the
+    profiler. Returns `(readings, graphed run, eager run)`, the runs those of
+    the profile."""
+    eager, graphed = make(False, steps), make(True, steps)
+    want = sites(steps)
+    res, maps = {}, {}
+    launches, paths = collections.Counter(), {}
+    for mode, run, calls in (("eager", eager, 1), ("graph", graphed, 2)):
+        for call in range(calls):
+            reset_counts()
+            out, wall, peak = sg_run(lambda: run(*args, **kwargs))
+            counted, by_path = read_counts()
+            got = {k: v for k, v in counted.items() if k != "group_norm_backward"}
+            if got != want:
+                raise AssertionError(f"sampler_graphs {name} {mode} call {call + 1}: launches "
+                                     f"{got} != sites x steps {want}")
+            launches.update(counted)
+            for kernel, counts in by_path.items():
+                paths.setdefault(kernel, collections.Counter()).update(counts)
+            maps[mode, call] = out
+            res[mode if call == calls - 1 else "graph_first"] = {
+                "wall_s": wall, "rate": count / wall, "peak_gib": peak / 2 ** 30}
+    for call in (0, 1):
+        if not maps["graph", call].equal(maps["eager", 0]):
+            diff = (maps["graph", call].float() - maps["eager", 0].float()).abs()
+            raise AssertionError(f"sampler_graphs {name}: graphed call {call + 1} differs from "
+                                 f"the eager loop at {int((diff > 0).sum())} elements (max "
+                                 f"{float(diff.max()):.3g})")
+    g = graphed.graphed
+    res["graph"].update(captures=g.captures, capture_s=sum(g.capture_s), graphs=len(
+        next(iter(g._cache.values())).graphs))
+    p_eager, p_graph = make(False, SG_PROFILED_STEPS), make(True, SG_PROFILED_STEPS)
+    for mode, run in (("eager", p_eager), ("graph", p_graph)):
+        run(*args, **kwargs)  # warm (the graphed sampler captures here)
+        res[mode]["device_ms"], res[mode]["busy"], res[mode]["kernels"] = sg_profile(
+            f"{name} {mode}", lambda: run(*args, **kwargs), SG_PROFILED_STEPS)
+    if res["eager"]["kernels"] != res["graph"]["kernels"]:
+        raise AssertionError(f"sampler_graphs {name}: kernels a step eager "
+                             f"{res['eager']['kernels']} != graphed {res['graph']['kernels']}")
+    res.update(steps=steps, count=count, unit=unit, launches=dict(launches),
+               paths={k: dict(v) for k, v in paths.items()})
+    log("sampler_graphs", f"{name}: {count} {unit} x {steps} steps, graphed bit-equal to eager "
+        f"(calls 1 and 2); eager {res['eager']['rate']:.3f} {unit}/s, graphed "
+        f"{res['graph']['rate']:.3f} (first call {res['graph_first']['rate']:.3f}: 2 eager "
+        f"steps, {res['graph']['graphs']} graphs captured in {res['graph']['capture_s']:.3f} s); "
+        f"device ms a step ({SG_PROFILED_STEPS}-step profile) eager "
+        f"{res['eager']['device_ms']:.3f} busy {res['eager']['busy']:.3f}, graphed "
+        f"{res['graph']['device_ms']:.3f} busy {res['graph']['busy']:.3f}; peak GiB above the "
+        f"start eager {res['eager']['peak_gib']:.3f}, graphed {res['graph']['peak_gib']:.3f} "
+        f"(first call, with the capture {res['graph_first']['peak_gib']:.3f}); kernels a step "
+        f"(profile = wrappers) "
+        f"{res['graph']['kernels']}; launches {dict(launches)}")
+    return res, p_graph, p_eager
+
+
+def sg_flagship_model(quantized=None):
+    import torch
+
+    from ccdm_tpu_torch import FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+
+    params = dict(FLAGSHIP_PARAMS, step_T_sample="confidence")
+    if quantized:
+        params["quantized_inference"] = quantized
+    model = build_model(params, num_classes=2, image_channels=1, image_size=128,
+                        device="cuda", generator=torch.Generator().manual_seed(0))
+    unzero_(model.unet, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    return model, torch.randn(IMAGES, 128, 128, 1, generator=gen, device="cuda")
+
+
+def sg_sites(gn_full: int, attn_full: int, q_full: int = 0, reuse: int = 1,
+             gn_replay: int = 0, attn_replay: int = 0, q_replay: int = 0):
+    """`steps -> {kernel: launches}`: the sites of a whole UNet call on
+    steps with `step % R == 0`, of a replay on the others."""
+    def sites(steps):
+        full = len(range(0, steps, reuse))
+        return {"group_norm": full * gn_full + (steps - full) * gn_replay,
+                "flash_attention": full * attn_full + (steps - full) * attn_replay,
+                "quant_conv": full * q_full + (steps - full) * q_replay}
+    return sites
+
+
+def sg_weight_written(name: str, model, images, site, steps: int):
+    """A weight written in place between two graphed calls: the second call
+    captures a new key, drops the stale one, and gives the eager loop's maps
+    on the new weights (int8: with new codes)."""
+    import torch
+
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    graphed = make_prob_sampler(model, SAMPLES, steps)
+    eager = make_prob_sampler(model, SAMPLES, steps, graphs=False)
+    before = graphed(model.unet, images, 2)
+    codes = site.w_q.clone() if getattr(site, "w_q", None) is not None else None
+    with torch.no_grad():
+        site.weight.mul_(-1.5)
+    after = graphed(model.unet, images, 2)
+    ref = eager(model.unet, images, 2)
+    g = graphed.graphed
+    if not (after.equal(ref) and not after.equal(before) and g.captures == 2
+            and len(g._cache) == 1):
+        raise AssertionError(f"sampler_graphs {name}: after a weight written in place the "
+                             f"graphed maps equal eager {after.equal(ref)}, moved "
+                             f"{not after.equal(before)}, captures {g.captures}, keys "
+                             f"{len(g._cache)}")
+    if codes is not None and site.w_q.equal(codes):
+        raise AssertionError(f"sampler_graphs {name}: the int8 codes did not follow the weight")
+    return "codes moved" if codes is not None else "float"
+
+
+def phase_sampler_graphs(smi, harness_rate: float):
+    """Phase 29: the graphed sampler against its eager loop (see the
+    docstring). Returns the runs' launch counts and the readings."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS
+    from ccdm_tpu_torch.eval.cityscapes_eval import CityscapesEvaluator
+    from ccdm_tpu_torch.eval.lidc_uncertainty import (
+        eval_lidc_uncertainty,
+        load_eval_params,
+        make_prob_sampler,
+    )
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.ops import quant
+
+    phase_start = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, readings = {}, {}
+    try:
+        # (a) the flagship float sampler at full depth, 8 x 16 x 250
+        model, images = sg_flagship_model()
+
+        def flagship(graphs, steps, m=model):
+            return make_prob_sampler(m, SAMPLES, steps, graphs=graphs)
+
+        res, p_graph, p_eager = sg_case("flagship float", flagship, (model.unet, images, 2),
+                                        STEPS, IMAGES * SAMPLES, "samples", sg_sites(66, 11))
+        readings["flagship"] = res
+        runs["sampler_graphs_flagship"] = {"launches": res["launches"],
+                                           "path_launches": res["paths"]}
+        # a short batch is a second key, the first is kept and replayed
+        g = p_graph.graphed
+        short, ref = p_graph(model.unet, images[:IMAGES - 1], 2), p_eager(
+            model.unet, images[:IMAGES - 1], 2)
+        again = p_graph(model.unet, images, 2)
+        if not (short.equal(ref) and g.captures == 2 and len(g._cache) == 2
+                and again.equal(p_eager(model.unet, images, 2)) and g.captures == 2):
+            raise AssertionError(f"sampler_graphs: short batch {IMAGES - 1}: equal to eager "
+                                 f"{short.equal(ref)}, captures {g.captures}, keys "
+                                 f"{len(g._cache)}")
+        conv = next(m for m in model.unet.modules() if isinstance(m, torch.nn.Conv2d))
+        written = [sg_weight_written("flagship float", model, images, conv, SG_PROFILED_STEPS)]
+        del model, p_graph, p_eager, g
+        torch.cuda.empty_cache()
+
+        # (b) the flagship int8 sampler on calibrated static scales, K 50
+        model, images = sg_flagship_model("static")
+        model = quant.calibrate_static_scales(model, model.unet, images[:2])
+
+        def int8(graphs, steps, m=model):
+            return make_prob_sampler(m, SAMPLES, steps, graphs=graphs)
+
+        res, _, _ = sg_case("flagship int8 static", int8, (model.unet, images, 2),
+                            SG_SHORT_STEPS, IMAGES * SAMPLES, "samples", sg_sites(66, 11, 81))
+        readings["flagship_int8"] = res
+        runs["sampler_graphs_int8"] = {"launches": res["launches"],
+                                       "path_launches": res["paths"]}
+        written.append(sg_weight_written("flagship int8 static", model, images,
+                                         quant.quant_sites(model.unet)[0][1], SG_PROFILED_STEPS))
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) Cityscapes 2 x 1 at R = 1 (K 250) and R = 3 (K 50)
+        ev = CityscapesEvaluator(CITYSCAPES_EVAL_PARAMS)
+        ev.build((*CS_HW, 3), CS_IMAGES)
+        unzero_(ev.model.unet, seed=5)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        cs_images = torch.randn(CS_IMAGES, *CS_HW, 3, generator=gen, device="cuda")
+        for reuse, steps in ((1, STEPS), (3, SG_SHORT_STEPS)):
+            def cityscapes(graphs, k, r=reuse):
+                return make_prob_sampler(ev.model, 1, k, ev.feature_fn, encoder_reuse=r,
+                                         graphs=graphs)
+
+            res, _, _ = sg_case(f"Cityscapes R={reuse}", cityscapes, (ev.model.unet, cs_images, 6),
+                                steps, CS_IMAGES, "images",
+                                sg_sites(81, 16, reuse=reuse, gn_replay=51, attn_replay=10),
+                                feature_net=ev.feature_net)
+            readings[f"cityscapes_r{reuse}"] = res
+            runs[f"sampler_graphs_cityscapes_r{reuse}"] = {"launches": res["launches"],
+                                                           "path_launches": res["paths"]}
+        del ev
+        torch.cuda.empty_cache()
+
+        # (d) the LIDC harness at 2 x 16 (phase 13's tree and phase 11's
+        # weights, K 50), eager against graphed, and its sampler's step
+        # profiled at 2 x 16
+        harness = {}
+        for mode, graphs in (("eager", False), ("graph", True)):
+            params = lidc_eval_params(evaluation_path=str(EVAL_DIR / f"lidc_out_{mode}"),
+                                      dataset_val_max_size=EVAL_IMAGES)
+            reset_counts()
+            harness[mode] = eval_lidc_uncertainty(params, SG_SHORT_STEPS, graphs=graphs)
+            runs[f"sampler_graphs_harness_{mode}"] = dict(zip(("launches", "path_launches"),
+                                                              read_counts()))
+        timing = ("samples_per_sec", "generation_seconds", "data_seconds", "metrics_seconds",
+                  "calibration_seconds")
+        scores = [{k: v for k, v in harness[m].items() if k not in timing}
+                  for m in ("eager", "graph")]
+        if scores[0] != scores[1]:
+            raise AssertionError(f"sampler_graphs: the harness's results, eager {scores[0]} "
+                                 f"!= graphed {scores[1]}")
+        model = build_model(params, 2, 1, 128, generator=torch.Generator().manual_seed(0))
+        load_eval_params(params, model.unet)
+        h_images = images[:2]
+
+        def harness_sampler(graphs, steps, m=model):
+            return make_prob_sampler(m, SAMPLES, steps, graphs=graphs)
+
+        res, _, _ = sg_case("LIDC harness sampler 2 x 16", harness_sampler,
+                            (model.unet, h_images, EVAL_SEED), SG_PROFILED_STEPS, 2 * SAMPLES,
+                            "samples", sg_sites(66, 11))
+        for mode in ("eager", "graph"):
+            res[mode]["harness_rate"] = harness[mode]["samples_per_sec"]
+        readings["harness"] = res
+        runs["sampler_graphs_harness"] = {"launches": res["launches"],
+                                          "path_launches": res["paths"]}
+        log("sampler_graphs", f"LIDC harness, {EVAL_IMAGES} images at 2 x 16 x "
+            f"{SG_SHORT_STEPS} steps ({smi}): results equal; eager "
+            f"{harness['eager']['samples_per_sec']:.3f} samples/s, graphed "
+            f"{harness['graph']['samples_per_sec']:.3f} (steady, the second batch; phase 13's "
+            f"graphed at {STEPS} steps {harness_rate:.3f}); in-place weights: {written}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("sampler_graphs", f"phase {time.perf_counter() - phase_start:.1f} s; readings "
+        + json.dumps({case: {mode: {k: v for k, v in r[mode].items() if k != "kernels"}
+                             for mode in ("eager", "graph_first", "graph")}
+                      for case, r in readings.items()}))
+    return runs
+
+
 def _dp_train_params():
     from ccdm_tpu_torch import DEMO_TRAIN_PARAMS
 
@@ -4643,6 +4968,7 @@ def main() -> None:
     runs.update(timed("remaining", phase_remaining, smi))
     runs.update(timed("train_graphs", phase_train_graphs, smi))
     runs.update(timed("tensor_parallel", phase_tensor_parallel, smi, trained))
+    runs.update(timed("sampler_graphs", phase_sampler_graphs, smi, harness_rate))
     log("timing", "seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in clock)
         + f"; all {sum(v for _, v in clock):.1f}")
 

@@ -754,3 +754,160 @@ def test_the_optimizers_device_scalars_keep_the_host_scalar_updates_bits(cuda, k
             torch._foreach_add_(step, p, alpha=tx.weight_decay)
         torch._foreach_add_(p, step, alpha=-lr)
     assert all(torch.equal(ours[k], ref[k]) for k in ref)
+
+
+# the graphed sampler (diffusion/sampling.GraphedSampler) against its eager
+# loop, under cuDNN's deterministic algorithms: bit for bit
+SAMPLER_T = 8
+
+
+def _sampler_model(c: int, seed: int, **params):
+    """A bf16 UNet at smoke size (32x32, base 32, attention at ds 2 with
+    32-channel heads, T 8) on the card, its zero leaves redrawn."""
+    from ccdm_tpu_torch import FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+
+    p = dict(FLAGSHIP_PARAMS, time_steps=SAMPLER_T, step_T_sample="confidence", **params,
+             unet_openai=dict(FLAGSHIP_PARAMS["unet_openai"], channel_mult=[1, 2],
+                              attention_resolutions=[2]))
+    model = build_model(p, c, 1, 32, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for q in model.unet.parameters():
+            if not q.any():
+                q.copy_(torch.randn(q.shape, generator=gen) * 0.05)
+    return model
+
+
+def _sampler_images(b: int, seed: int = 1):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(b, 32, 32, 1, generator=gen, device="cuda")
+
+
+def _launches():
+    return (gn.launches, fa.launches, quant.launches, dict(gn.path_launches),
+            dict(quant.path_launches))
+
+
+def _sampled(run, net, images, key: int = 3):
+    """`run`'s maps and the launches the wrappers counted for them."""
+    before = _launches()
+    out = run(net, images, key)
+    torch.cuda.synchronize()
+    after = _launches()
+    counted = tuple(a - b for a, b in zip(after[:3], before[:3])) + tuple(
+        {k: a[k] - b[k] for k in a} for a, b in zip(after[3:], before[3:]))
+    return out, counted
+
+
+@pytest.fixture
+def deterministic(cuda):
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = saved
+
+
+@pytest.mark.parametrize("c,reuse", [(2, 1), (2, 3), (9, 1), (9, 3)],
+                         ids=["onehot", "onehot-r3", "index", "index-r3"])
+def test_graphed_sampler_is_bit_equal_to_the_eager_loop(deterministic, c, reuse):
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    model = _sampler_model(c, seed=c + reuse)
+    images = _sampler_images(2)
+    eager = make_prob_sampler(model, 4, encoder_reuse=reuse, graphs=False)
+    graphed = make_prob_sampler(model, 4, encoder_reuse=reuse)
+    ref, ref_launches = _sampled(eager, model.unet, images)
+    first, first_launches = _sampled(graphed, model.unet, images)   # 2 eager steps, capture
+    second, second_launches = _sampled(graphed, model.unet, images)  # all replays
+    g = graphed.graphed
+    assert (g.captures, g.eager_steps, g.replays) == (1, 2, 2 * SAMPLER_T - 2)
+    assert len(next(iter(g._cache.values())).graphs) == (2 if reuse == 1 else 3)
+    assert torch.equal(first, ref) and torch.equal(second, ref)
+    # the wrappers count each replay's launches, none at the capture
+    assert first_launches == second_launches == ref_launches and ref_launches[0] > 0
+    other, _ = _sampled(graphed, model.unet, images, key=4)
+    assert not torch.equal(other, ref)  # the keys reach the graphs' static buffers
+    assert torch.equal(other, _sampled(eager, model.unet, images, key=4)[0])
+
+
+def test_graphed_int8_static_sampler_is_bit_equal_to_the_eager_loop(deterministic):
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    model = _sampler_model(2, seed=5, quantized_inference="static")
+    images = _sampler_images(2)
+    model = quant.calibrate_static_scales(model, model.unet, images)
+    eager = make_prob_sampler(model, 4, encoder_reuse=2, graphs=False)
+    graphed = make_prob_sampler(model, 4, encoder_reuse=2)
+    ref, ref_launches = _sampled(eager, model.unet, images)
+    assert ref_launches[2] > 0  # K3 ran
+    for _ in range(2):
+        out, launches = _sampled(graphed, model.unet, images)
+        assert torch.equal(out, ref) and launches == ref_launches
+    assert graphed.graphed.captures == 1
+
+
+def test_graphed_sampler_captures_a_short_batch_as_a_second_key(deterministic):
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    model = _sampler_model(2, seed=7)
+    images = _sampler_images(2)
+    eager = make_prob_sampler(model, 4, graphs=False)
+    graphed = make_prob_sampler(model, 4)
+    assert torch.equal(_sampled(graphed, model.unet, images)[0],
+                       _sampled(eager, model.unet, images)[0])
+    short = images[:1].clone()
+    out, launches = _sampled(graphed, model.unet, short)
+    ref, ref_launches = _sampled(eager, model.unet, short)
+    assert graphed.graphed.captures == 2 and len(graphed.graphed._cache) == 2
+    assert torch.equal(out, ref) and launches == ref_launches
+    again, _ = _sampled(graphed, model.unet, images)  # the first key, replayed
+    assert graphed.graphed.captures == 2
+    assert torch.equal(again, _sampled(eager, model.unet, images)[0])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+def test_graphed_sampler_follows_a_weight_written_in_place(deterministic, int8):
+    """A weight written in place between calls (as the trainer writes its
+    EMA for validation) is a new key: the next call captures anew and its
+    maps are the eager loop's on the new weights; int8 codes follow."""
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    model = _sampler_model(2, seed=9, **({"quantized_inference": True} if int8 else {}))
+    images = _sampler_images(2)
+    eager = make_prob_sampler(model, 4, graphs=False)
+    graphed = make_prob_sampler(model, 4)
+    before, _ = _sampled(graphed, model.unet, images)
+    site = (quant.quant_sites(model.unet)[0][1] if int8 else
+            next(m for m in model.unet.modules() if isinstance(m, torch.nn.Conv2d)))
+    codes = site.w_q.clone() if int8 else None
+    with torch.no_grad():
+        site.weight.mul_(-2.0)
+    after, _ = _sampled(graphed, model.unet, images)
+    ref, _ = _sampled(eager, model.unet, images)
+    assert torch.equal(after, ref) and not torch.equal(after, before)
+    assert graphed.graphed.captures == 2 and len(graphed.graphed._cache) == 1
+    if int8:
+        assert not torch.equal(site.w_q, codes)
+
+
+def test_a_sampler_capture_that_fails_raises_and_keeps_no_graphs(deterministic):
+    """A host sync inside the step (here a hook reading a value) breaks the
+    capture: the call raises naming the step, nothing runs eagerly in its
+    place, and the next call captures afresh."""
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+
+    model = _sampler_model(2, seed=11)
+    images = _sampler_images(2)
+    graphed = make_prob_sampler(model, 4)
+    def read_a_value(mod, args):
+        float(args[0].sum())
+
+    hook = model.unet.register_forward_pre_hook(read_a_value)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the sampler's drawing step"):
+        graphed(model.unet, images, 3)
+    hook.remove()
+    assert not graphed.graphed._cache and graphed.graphed.captures == 0
+    out, _ = _sampled(graphed, model.unet, images)
+    ref, _ = _sampled(make_prob_sampler(model, 4, graphs=False), model.unet, images)
+    assert torch.equal(out, ref) and graphed.graphed.captures == 1
