@@ -4,7 +4,12 @@
 `in_channels = num_classes + image_channels` (the UNet consumes
 `concat([x_t, condition])`), `out_channels = num_classes`. `compute_dtype`
 sets the torso's dtype; GroupNorm parameters and the output heads stay fp32,
-as the JAX package's `param_dtype=float32` and `norm_fp32=True` keep them.
+as the JAX package's `param_dtype=float32` keeps them. Of `unet_openai`'s
+memory and norm keys, `use_checkpoint` (default false) and
+`remat_attention` (default true, as in the JAX package) rematerialise the
+ResBlocks and the attention blocks in training (`models/unet.TimestepBlock`);
+`norm_fp32` takes either value and changes no bit, as in the JAX package
+(`models/layers.GroupNorm32`), so the port's norm does not read it.
 
 Modules are constructed on the meta device and their weights drawn from an
 explicit CPU `torch.Generator`, so building a model touches no global RNG
@@ -210,6 +215,9 @@ def build_model(
             feature_channels=feature_channels,
             dtype=dtype,
             quantize_convs=bool(params.get("quantized_inference", False)),
+            remat_resblocks=bool(bb.get("use_checkpoint", False)),
+            # the JAX package's default, as the reference checkpoints attention
+            remat_attention=bool(bb.get("remat_attention", True)),
         )
     unet = unet.to_empty(device=device)
     init_weights_(unet, generator or torch.Generator().manual_seed(0))

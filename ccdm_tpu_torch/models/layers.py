@@ -3,7 +3,8 @@
 Activations inside the UNet are NCHW (attention tokens `[B, C, T]`), as
 PyTorch's convolutions expect. The torso runs in the compute dtype (bf16 on
 the card); GroupNorm parameters are fp32 and its statistics and normalise
-run in fp32 (the JAX package's `norm_fp32=True`).
+run in fp32 (the JAX package's `norm_fp32`, either value: see
+`GroupNorm32`).
 
 Submodule names follow the reference torch UNet (`in_layers.0/2`,
 `emb_layers.1`, `out_layers.0/3`, `skip_connection`, `norm`, `qkv`,
@@ -65,7 +66,14 @@ def zero_init(module: nn.Module) -> nn.Module:
 class GroupNorm32(nn.Module):
     """GroupNorm with the largest group count <= 32 dividing C, eps 1e-5,
     fp32 parameters and statistics; output in the input dtype. `silu=True`
-    fuses the following SiLU into the same kernel."""
+    fuses the following SiLU into the same kernel.
+
+    This is the JAX package's norm under either value of `norm_fp32`
+    (`ccdm_tpu/models/layers.py:GroupNorm32`): with `norm_fp32: false` it
+    hands flax's `nn.GroupNorm` the activations' dtype, but flax computes
+    the statistics and the normalise in fp32 whatever that dtype and casts
+    only the result, so the two values give the same bits (bf16 included),
+    and the port has one norm for both."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -121,29 +129,60 @@ class Downsample(nn.Module):
         return self.op(x)
 
 
+class Dropout(nn.Dropout):
+    """`nn.Dropout` whose kept units are drawn (`keep`) apart from where
+    they are applied (`forward`). A ResBlock that `use_checkpoint`
+    rematerialises is handed the units drawn in front of it, so its forward
+    recomputed in the backward applies the same ones without restoring a
+    generator's state, which no CUDA graph capture permits
+    (`models/unet.TimestepBlock`). The kept units are scaled by 1/(1-p) and
+    rounded to the input's dtype once, as `F.dropout` rounds them."""
+
+    def keep(self, shape, device) -> Optional[torch.Tensor]:
+        """The kept units of an output of `shape` (bool), drawn from the
+        default generator; None where nothing drops (eval mode, or p 0)."""
+        if not self.training or self.p == 0:
+            return None
+        return torch.rand(shape, device=device) >= self.p
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep is None:
+            keep = self.keep(x.shape, x.device)
+            if keep is None:
+                return x
+        return x * keep * (1.0 / (1.0 - self.p) if self.p < 1 else 0.0)
+
+
 class ResBlock(nn.Module):
     """Timestep-conditioned residual block: `norm→SiLU→conv3x3`, add the
     projected time embedding (or FiLM it with `use_scale_shift_norm`), then
     `norm→SiLU→dropout→zero-conv3x3`, plus a 1x1 skip projection when the
-    channel count changes. `quant`: its three convs are int8 `QuantConv2d`s."""
+    channel count changes. `quant`: its three convs are int8 `QuantConv2d`s.
+    `keep`: the dropout's kept units (`dropout_keep`), drawn inside when not
+    given."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int,
                  dropout: float = 0.0, use_scale_shift_norm: bool = False,
                  dtype=torch.bfloat16, quant: bool = False):
         super().__init__()
-        self.use_scale_shift_norm = use_scale_shift_norm
+        self.use_scale_shift_norm, self.out_channels = use_scale_shift_norm, out_channels
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(), conv3x3(channels, out_channels, dtype, quant=quant))
         emb_width = 2 * out_channels if use_scale_shift_norm else out_channels
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_channels, emb_width, dtype=dtype))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(dropout),
+            GroupNorm32(out_channels), nn.SiLU(), Dropout(dropout),
             zero_init(conv3x3(out_channels, out_channels, dtype, quant=quant)))
         self.skip_connection = (conv1x1(channels, out_channels, dtype, quant=quant)
                                 if channels != out_channels else nn.Identity())
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def dropout_keep(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The dropout's kept units for input `x` (None where nothing drops)."""
+        return self.out_layers[2].keep((x.shape[0], self.out_channels, *x.shape[2:]), x.device)
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         norm_in, _, conv_in = self.in_layers
         h = conv_in(norm_in(x, silu=True))
         emb_out = self.emb_layers(emb).to(h.dtype)  # [B, C] or [B, 2C]
@@ -154,7 +193,7 @@ class ResBlock(nn.Module):
         else:
             # h + emb_out, GroupNorm and SiLU in one kernel call
             h = norm_out(h, silu=True, add=emb_out)
-        h = conv_out(dropout(h))
+        h = conv_out(dropout(h, keep))
         return self.skip_connection(x) + h
 
 

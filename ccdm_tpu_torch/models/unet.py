@@ -26,7 +26,8 @@ decoder with the current step's time embedding. `quantize_convs` (the
 `quantized_inference` mode) makes exactly the JAX package's sites int8
 `QuantConv2d`s: the input conv, every ResBlock's two 3x3 convs and 1x1 skip,
 and every Downsample and Upsample conv; the fp32 heads, attention's qkv and
-projection and the time MLP stay float.
+projection and the time MLP stay float. `remat_resblocks` and
+`remat_attention` rematerialise the blocks in training (`TimestepBlock`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ccdm_tpu_torch.models.layers import (
     AttentionBlock,
@@ -61,12 +63,39 @@ def default_channel_mult(image_size: int) -> Tuple[float, ...]:
     return table[image_size]
 
 
+def _remat(fn, *args):
+    """`fn(*args)` with its activations dropped after the forward and
+    recomputed in the backward (`nn.remat`). No generator's state is stashed
+    or restored, which a CUDA graph capture would refuse: a rematerialised
+    ResBlock is handed its dropout's kept units instead."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class TimestepBlock(nn.Sequential):
-    """A container whose ResBlocks also take the time embedding."""
+    """A container whose ResBlocks also take the time embedding.
+
+    `remat_resblocks` and `remat_attention` (the UNet's `use_checkpoint`
+    and `remat_attention` keys) rematerialise each ResBlock and each
+    AttentionBlock call in it, the boundary of the JAX package's `nn.remat`
+    (`ccdm_tpu/models/unet.py:98-113`), only where autograd records a
+    training forward: sampling, evaluation and `torch.export` run the
+    blocks as they are."""
+
+    remat_resblocks = False
+    remat_attention = False
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        remat = self.training and torch.is_grad_enabled()
         for layer in self:
-            x = layer(x, emb) if isinstance(layer, ResBlock) else layer(x)
+            if isinstance(layer, ResBlock):
+                if remat and self.remat_resblocks:
+                    x = _remat(layer, x, emb, layer.dropout_keep(x))
+                else:
+                    x = layer(x, emb)
+            elif remat and self.remat_attention and isinstance(layer, AttentionBlock):
+                x = _remat(layer, x)
+            else:
+                x = layer(x)
         return x
 
 
@@ -81,7 +110,8 @@ class UNetModel(nn.Module):
                  use_scale_shift_norm: bool = False, softmax_output: bool = True,
                  ce_head: bool = False, feature_cond_block_idx: int = -1,
                  feature_cond_stride: int = 8, feature_channels: int = 0,
-                 dtype=torch.bfloat16, quantize_convs: bool = False):
+                 dtype=torch.bfloat16, quantize_convs: bool = False,
+                 remat_resblocks: bool = False, remat_attention: bool = True):
         super().__init__()
         self.dtype = dtype
         q = quantize_convs
@@ -145,6 +175,9 @@ class UNetModel(nn.Module):
         self.out_ce = (nn.Sequential(
             GroupNorm32(ch), nn.SiLU(),
             zero_init(conv3x3(ch, out_channels - 1, torch.float32))) if ce_head else None)
+        for block in self.modules():
+            if isinstance(block, TimestepBlock):
+                block.remat_resblocks, block.remat_attention = remat_resblocks, remat_attention
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor, t: torch.Tensor,
                 feature_condition: Optional[torch.Tensor] = None, *,
@@ -209,6 +242,8 @@ def create_unet(
     feature_channels: int = 0,
     dtype=torch.bfloat16,
     quantize_convs: bool = False,
+    remat_resblocks: bool = False,
+    remat_attention: bool = True,
 ) -> UNetModel:
     """Factory with the JAX `create_unet`'s arguments. `in_channels`
     defaults to `out_channels + 1` (the one-hot state plus one image
@@ -234,4 +269,6 @@ def create_unet(
         feature_channels=feature_channels,
         dtype=dtype,
         quantize_convs=quantize_convs,
+        remat_resblocks=remat_resblocks,
+        remat_attention=remat_attention,
     )

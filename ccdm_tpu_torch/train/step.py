@@ -240,7 +240,7 @@ class TrainStep:
         modules = ({"": net} if self.encoder_apply is None
                    else {UNET: net, ENCODER: encoder_net})
         device = batch["x0"].device
-        net.train(self.dropout_on)
+        net.train()  # dropout where the UNet has any; remat where its keys ask
         for m in modules.values():
             m.zero_grad(set_to_none=True)
         # forward and backward in fp32 where the model computes in fp32 (the

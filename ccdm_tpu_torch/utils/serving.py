@@ -37,14 +37,33 @@ artifact needs the runtime of its custom calls; nothing of the model,
 diffusion or config code. Backend flags are not part of a graph, so
 `serve` runs every program under `ops.precision.fp32_precision`.
 Encoder reuse is not in the artifact (nor in the JAX package's).
+
+The JAX artifact's T steps are one compiled program. Here one step of the
+loop is a `StepBody` over device buffers (`t = t_grid[k]`, the `step`
+program, the state written back, `k` advanced), which serves two ways:
+
+- an artifact exported on the card replays CUDA graphs of it
+  (`_GraphedSteps`): captured once per loaded `serve` (its batch shape is
+  fixed), after `ops.graphs.WARMUP_STEPS` eager steps of the first call,
+  then all K steps replayed back to back with no host sync between them;
+  `start` and `final` run eagerly once a call, their inputs and outputs
+  copied in and out of the graph's static buffers. A capture that fails
+  raises; nothing falls back to the loop. `serve(..., graphs=False)` walks
+  the loop on the card instead;
+- an artifact exported on the CPU walks the loop from Python, the plain
+  version, calling the same body.
+
+The graphs are made when the artifact is loaded and first served, never
+stored: the artifact's format does not change with them.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import time
 import zipfile
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,9 +126,113 @@ def save_sampler(path: str, *args, **kwargs) -> str:
     return path
 
 
+class StepBody:
+    """One served step over device buffers, the unit the CPU's loop calls
+    and `_GraphedSteps` captures:
+
+        t = t_grid[k], (x', probs) = step(x, seed, k, t, *cond), x <- x', k <- k + 1
+
+    `x`, `seed`, `k` and `cond` are the body's own buffers (the loop's
+    outputs of `start`, or a graph's static copies) and `t_grid` is the
+    manifest's on the device, so the host passes no number into a step.
+    Returns the step's posterior probabilities."""
+
+    def __init__(self, step, t_grid: torch.Tensor, x: torch.Tensor, seed: torch.Tensor,
+                 cond):
+        self.step, self.t_grid = step, t_grid
+        self.x, self.seed, self.cond = x, seed, tuple(cond)
+        self.k = torch.zeros((), dtype=torch.int64, device=x.device)
+
+    def __call__(self) -> torch.Tensor:
+        t = self.t_grid.index_select(0, self.k.reshape(1)).reshape(())
+        x, probs = self.step(self.x, self.seed, self.k, t, *self.cond)
+        self.x.copy_(x)
+        self.k.add_(1)
+        return probs
+
+
+class _GraphedSteps:
+    """The K steps of a card artifact as replays of one CUDA graph of its
+    `StepBody` (see the module docstring). `captures`, `capture_s`,
+    `eager_steps` and `replays` count what ran; the kernel wrappers' launch
+    counts move at the eager steps and by the captured sites at each
+    replay, never at the capture (`ops.graphs`), so they read sites x K.
+
+    The weights, the int8 codes and the static scales are constants of the
+    loaded step program, which holds the only reference to them: nothing
+    writes them after the load, so unlike `diffusion/sampling.GraphedSampler`
+    the graph needs no key over their versions."""
+
+    def __init__(self, step, t_grid: torch.Tensor):
+        self.step, self.t_grid = step, t_grid
+        self.body: Optional[StepBody] = None
+        self.graph = self.probs = self.stream = None
+        self.launches: Dict = {}
+        self.captures = self.eager_steps = self.replays = 0
+        self.capture_s = 0.0
+
+    def __call__(self, x: torch.Tensor, seed: torch.Tensor,
+                 cond) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The K steps from `start`'s outputs: `(state, last probs)`, the
+        graph's static buffers (read them before the next call)."""
+        from ccdm_tpu_torch.ops import graphs
+
+        if self.body is None:
+            self.body = StepBody(self.step, self.t_grid, torch.empty_like(x),
+                                 torch.empty_like(seed), [torch.empty_like(c) for c in cond])
+        body = self.body
+        body.x.copy_(x)
+        body.seed.copy_(seed)
+        for static, c in zip(body.cond, cond):
+            static.copy_(c)
+        body.k.zero_()
+        k, done, probs = len(self.t_grid), 0, None
+        if self.graph is None:
+            done = min(graphs.WARMUP_STEPS, k)
+            try:
+                probs = self._warm_and_capture(done)
+            except BaseException:
+                self.graph = self.probs = None  # a failed capture leaves no graph behind
+                raise
+        for _ in range(k - done):
+            self.graph.replay()
+            graphs.count_launches(self.launches)
+        self.replays += k - done
+        return body.x, (probs if done == k else self.probs)
+
+    def _warm_and_capture(self, steps: int) -> torch.Tensor:
+        """`steps` eager steps on the capture stream (they build the kernels
+        and the cuDNN and cuBLAS handles), then the capture; returns the last
+        eager step's probabilities."""
+        from ccdm_tpu_torch.ops import graphs
+
+        device = self.body.x.device
+        current = torch.cuda.current_stream(device)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            for _ in range(steps):
+                probs = self.body()
+            self.eager_steps += steps
+            start = time.perf_counter()
+            before = graphs.launch_counts()
+            self.graph, self.probs = graphs.capture_graph(
+                self.body, self.stream, torch.cuda.graph_pool_handle(), [],
+                "the served sampler's step")
+            self.launches = graphs.captured_launches(before)
+            self.capture_s = time.perf_counter() - start
+            self.captures += 1
+        current.wait_stream(self.stream)
+        return probs
+
+
 def load_sampler(path_or_bytes):
-    """Load an artifact -> `serve(images, seed) -> probs [B,S,H,W,C]`, on the
-    device it was exported on (a card's artifact raises without a card)."""
+    """Load an artifact -> `serve(images, seed, *, graphs=True) -> probs
+    [B,S,H,W,C]`, on the device it was exported on (a card's artifact raises
+    without a card). A card's artifact replays CUDA graphs of its step
+    (`serve.graphed`, a `_GraphedSteps`, counts them); `graphs=False` walks
+    the loop from Python there, as the CPU does."""
     from ccdm_tpu_torch.ops.precision import fp32_precision  # also registers ccdm::*
 
     src = io.BytesIO(path_or_bytes) if isinstance(path_or_bytes, bytes) else path_or_bytes
@@ -123,20 +246,27 @@ def load_sampler(path_or_bytes):
                               for name in _PROGRAMS)
     device = torch.device(m["device"])
     shape = (m["batch"], *m["image_shape"])
-    steps = list(zip(torch.arange(len(m["t_grid"]), device=device),
-                     torch.tensor(m["t_grid"], dtype=torch.int64, device=device)))
+    t_grid = torch.tensor(m["t_grid"], dtype=torch.int64, device=device)
+    graphed = _GraphedSteps(step, t_grid) if device.type == "cuda" else None
 
-    def serve(images: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    def loop(x, seed, cond):
+        body = StepBody(step, t_grid, x, seed, cond)
+        for _ in range(len(t_grid)):
+            probs = body()
+        return body.x, probs
+
+    def serve(images: torch.Tensor, seed: torch.Tensor, *, graphs: bool = True) -> torch.Tensor:
         if tuple(images.shape) != shape:
             raise ValueError(f"images {tuple(images.shape)}: this artifact serves {shape}")
         images = images.to(device, torch.float32)
         seed = seed.to(device, torch.int64)
+        # the capture too: cuDNN reads the TF32 flags when a graph is recorded
         with torch.inference_mode(), fp32_precision():
             x, *cond = start(images, seed)
-            for k, t in steps:
-                x, probs = step(x, seed, k, t, *cond)
+            x, probs = (graphed if graphs and graphed else loop)(x, seed, cond)
             maps = final(x, probs)
         return maps.reshape(m["batch"], m["num_samples"], *maps.shape[1:])
 
     serve.manifest = m
+    serve.graphed = graphed
     return serve

@@ -74,7 +74,10 @@ without printing its result:
    step after the first two a replay of the trainer's CUDA graph (captured
    at step 3). Checks a finite loss and no invalid flag at every step,
    launches of exactly 66 GroupNorm forward + 66 backward + 11 attention a
-   step (the wrappers count a replay's launches at the replay, none at the
+   step, and 11 GroupNorm forward + 11 attention more for the attention
+   blocks that `remat_attention` (the JAX package's default, on in every
+   train phase) recomputes in the backward (`recomputed_sites`; the
+   wrappers count a replay's launches at the replay, none at the
    capture) plus the validation sampler's sites x UNet calls, the
    backward's launches by path equal to `_plan_backward`'s path of every
    GroupNorm call that autograd recorded (as in 18 and 19), GED
@@ -234,20 +237,28 @@ without printing its result:
    (`ccdm_tpu_torch/utils/serving.py`: start, step and final programs, the
    three kernels as the registered ops `ccdm::*`) into
    `build/chip_smoke_serving/`, then loaded and served in one fresh process
-   (`serving_child`) that imports only `torch` and the
-   loader (no other port module, no jax), cuDNN deterministic in both
-   processes, TF32 at PyTorch's default: (a) the flagship 8 x 16 x 50 bf16
+   (`serving_child`, started from `python -c`) that imports only `torch`
+   and the loader (no other port module, no jax), cuDNN deterministic in
+   both processes, TF32 at PyTorch's default; the loader replays CUDA graphs
+   of the step program (a first call runs 2 eager steps, captures and
+   replays the rest; a second replays all), then walks the step loop once
+   (`graphs=False`), then replays once under the profiler: (a) the flagship 8 x 16 x 50 bf16
    (T cut from 250 to 50: the start, step and final programs are the same
    at any T), (b) the same weights on calibrated static int8 scales, (c)
    `CITYSCAPES_EVAL_PARAMS` 2 x 1 x 50 with DINO ViT-S/8 (index state), (d)
-   the flagship in fp32, 1 x 2 x 3. Each served run's maps bit-equal to the
-   eager `make_prob_sampler` on the same seed, and its launches by kernel and
-   path equal the eager run's and (a-c) the sites x 50; (d) served without
-   the loader's `fp32_precision` must differ; a batch of 9 raises. First,
-   the repair's check: the Cityscapes-DINO evaluator under PyTorch's default
-   settings computes the DINO map `fp32_precision` gives. Prints per case
-   the export seconds, artifact MB, load seconds and served against eager
-   rates (beside phases 5, 7 and 22's, which run T = 250), and the host µs a call of each
+   the flagship in fp32, 1 x 2 x 3. Each served run's maps (graphs and loop)
+   bit-equal to `make_prob_sampler`'s on the same seed, its launches by
+   kernel and path equal that run's and the sites x steps, and the
+   profile's kernels a step equal the wrappers' counts; (d) served without
+   the loader's `fp32_precision` must differ; a batch of 9 raises. The
+   flagship's job runs again in a process started as `python3 chip_smoke.py
+   --serving-child` (its maps equal; both processes' rates and facts
+   printed). First, the repair's check: the Cityscapes-DINO evaluator under
+   PyTorch's default settings computes the DINO map `fp32_precision` gives.
+   Prints per case the export seconds, artifact MB, load and capture
+   seconds, served rates (graphs, first call and warm; the loop) against
+   `make_prob_sampler`'s (first call and warm; phases 5, 7 and 22 run T =
+   250), the served device ms a step, and the host µs a call of each
    kernel's registered op against its eager wrapper.
 26. remaining: the modules the port added last, each on the card, into
    `build/chip_smoke_remaining/`. (a) The native confusion counts
@@ -286,7 +297,11 @@ without printing its result:
    replayed K = 2 a launch by `make_multi_step`) against its eager step
    (the `TrainStep` the graph wraps), each a `TrainingRun` built from the
    same seed, with cuDNN's deterministic algorithms, into
-   `build/chip_smoke_graphs/`: (a) `DEMO_TRAIN_PARAMS` at full width,
+   `build/chip_smoke_graphs/`, (a)-(c) each with the UNet's remat keys
+   off and then on (`use_checkpoint` and `remat_attention`: every ResBlock
+   and attention block recomputed in the backward), the graphed run with
+   them on bit-equal to the one with them off, its peak memory and device
+   ms/step printed beside: (a) `DEMO_TRAIN_PARAMS` at full width,
    batch 16, 6 steps (2 eager warm-up steps, the capture at step 3, 4
    replays); (b) `CITYSCAPES_DINO_TRAIN_PARAMS` with DINO ViT-S/8 trainable
    on phase 18's tree, 4 steps; (c) (a) with dropout 0.1, and the last
@@ -298,8 +313,9 @@ without printing its result:
    the kernels a step launches by name in a `torch.profiler` trace of 4
    (a) or 2 (b) more steps, eager and graph, equal the wrappers' counts by
    path in those steps and the sites (66 K2 + 66 K2's backward + 11 K1 a
-   flagship step, 81 + 81 + 16 a Cityscapes step; a path-L call launches
-   2 or 3 kernels); printed, eager against graph: capture seconds, peak
+   flagship step, 81 + 81 + 16 a Cityscapes step, and with remat on K2 and
+   K1 again at each recomputed site: 65 + 11 flagship, 80 + 16 Cityscapes;
+   a path-L call launches 2 or 3 kernels); printed, eager against graph: capture seconds, peak
    memory above the run's start, (a) warm ms/step and host ms a launch
    over 10 more steps, the profile's device ms/step and busy share (the
    profiler's own host cost included). For (a) also the Adam update
@@ -335,9 +351,10 @@ without printing its result:
    GraphedSampler`, what `make_prob_sampler` runs on the card by default,
    so every sampler phase above replays graphs too) against its eager loop
    (`graphs=False`), under cuDNN's deterministic algorithms: (a) the
-   flagship float sampler, 8 x 16 x 250, (b) the flagship int8 sampler on
-   calibrated static scales, 8 x 16, K 50 of T 250, (c) Cityscapes 2 x 1
-   with DINO ViT-S/8 at R = 1 (K 250) and R = 3 (K 50), (d) the LIDC
+   flagship float sampler, 8 x 16, (b) the flagship int8 sampler on
+   calibrated static scales, 8 x 16, (c) Cityscapes 2 x 1 with DINO
+   ViT-S/8 at R = 1 and R = 3, each at K 50 of T 250 ((a) and R = 1 ran
+   K 250 until PR 15: cut for the script's time), (d) the LIDC
    harness's sampler at 2 x 16 with phase 11's weights. Each: the eager run
    and two graphed calls (the first runs 2 eager steps, captures and
    replays the rest; the second replays all K), the maps bit for bit and
@@ -1120,7 +1137,7 @@ def run_training(run, steps: int, marks_at):
     want_bwd = collections.Counter()
 
     def on_norm(mod, args, kwargs):
-        if torch.is_grad_enabled() and mod.weight.requires_grad:
+        if torch.is_grad_enabled() and mod.weight.requires_grad and not in_backward():
             x = args[0]
             want_bwd[gn._plan_backward(x.shape, x.dtype, mod.groups,
                                        x.data_ptr() % 16 == 0).path] += 1
@@ -1184,19 +1201,48 @@ def run_training(run, steps: int, marks_at):
     return metrics, marks, pauses, results, unet_calls, launches, paths
 
 
+def recomputed_sites(net):
+    """`(GroupNorm, attention)` forwards that a training step of `net` runs
+    again in its backward: the sites of every block that `use_checkpoint`
+    (ResBlocks) or `remat_attention` (attention blocks, on by default)
+    rematerialises (`models/unet.TimestepBlock`)."""
+    from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32, ResBlock
+    from ccdm_tpu_torch.models.unet import TimestepBlock
+
+    gn = attn = 0
+    for block in net.modules():
+        if isinstance(block, TimestepBlock):
+            for layer in block:
+                if (isinstance(layer, ResBlock) and block.remat_resblocks) or (
+                        isinstance(layer, AttentionBlock) and block.remat_attention):
+                    gn += sum(isinstance(m, GroupNorm32) for m in layer.modules())
+                    attn += isinstance(layer, AttentionBlock)
+    return gn, attn
+
+
+def in_backward() -> bool:
+    """Whether autograd's engine is running a backward on this thread (a
+    rematerialised block's forward, recomputed)."""
+    import torch
+
+    return torch._C._current_graph_task_id() != -1
+
+
 def check_train_launches(name: str, launches, steps: int, calls: int, gn: int = 81,
-                         attn: int = 16, graph=None):
+                         attn: int = 16, graph=None, *, again):
     """The wrappers' counts of a run of `steps` train steps and `calls`
-    validation UNet calls. With the trainer's graphed step (`graph`, a
-    `GraphedTrainStep`), the steps must be its eager warm-up steps and its
-    replays, after one capture: the wrappers count a replay's launches when
-    it runs, and none at the capture, which launches nothing."""
+    validation UNet calls; `again` (`recomputed_sites`) the forwards a
+    step runs again in its backward. With the trainer's graphed step
+    (`graph`, a `GraphedTrainStep`), the steps must be its eager warm-up
+    steps and its replays, after one capture: the wrappers count a replay's
+    launches when it runs, and none at the capture, which launches nothing."""
     if graph is not None and (graph.captures != 1
                               or graph.eager_steps + graph.replays != steps):
         raise AssertionError(f"{name}: {graph.eager_steps} eager steps, {graph.captures} "
                              f"captures and {graph.replays} replays for {steps} steps")
-    want = {"group_norm": gn * (steps + calls), "group_norm_backward": gn * steps,
-            "flash_attention": attn * (steps + calls), "quant_conv": 0}
+    want = {"group_norm": gn * (steps + calls) + again[0] * steps,
+            "group_norm_backward": gn * steps,
+            "flash_attention": attn * (steps + calls) + again[1] * steps, "quant_conv": 0}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} != {want} ({steps} steps, "
                              f"{calls} validation UNet calls)")
@@ -1255,7 +1301,7 @@ def phase_train(smi):
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     check_train_launches("train", launches, TRAIN_STEPS, calls, gn_sites, attn_sites,
-                         run.step_fn)
+                         run.step_fn, again=recomputed_sites(run.net))
     scores, val_s = val["validate"]
     if not (0 <= scores["GED"] <= 2 and 0 <= scores["HMIoU"] <= 1):
         raise AssertionError(f"validation scores out of range: {scores}")
@@ -1430,6 +1476,8 @@ def phase_train_reference(masters):
         m_paths = {}
 
         def on_norm(mod, args, kwargs):
+            if in_backward():  # a rematerialised block's forward again
+                return
             x = args[0]
             path = gn._plan_backward(x.shape, x.dtype, mod.groups, x.data_ptr() % 16 == 0).path
             m_paths[path] = m_paths.get(path, 0) + 1
@@ -1442,12 +1490,13 @@ def phase_train_reference(masters):
         for h in hooks:
             h.remove()
         want_m = {"float32": 24, "bfloat16": 15}[dtype]  # slabs of 16 KB and up
-        if (fa.launches - before[0], gn.launches_bwd - before[1]) != (11, 66) or \
+        attn = 11 + recomputed_sites(models["cuda"].unet)[1]
+        if (fa.launches - before[0], gn.launches_bwd - before[1]) != (attn, 66) or \
                 m_paths.get("M") != want_m:
             raise AssertionError(f"train_reference {dtype}: attention launches "
                                  f"{fa.launches - before[0]}, backward launches "
                                  f"{gn.launches_bwd - before[1]}, backward paths {m_paths}: "
-                                 f"not 11, 66 and {want_m} on path M")
+                                 f"not {attn}, 66 and {want_m} on path M")
         rel = abs(loss - ref_loss) / abs(ref_loss)
         if dtype == "float32":
             if not rel <= 1e-5:
@@ -1844,7 +1893,8 @@ def phase_cityscapes_train(smi):
     metrics, marks, pauses, results, calls, launches, paths = run_training(
         run, TRAIN_STEPS, (1, 10, TRAIN_STEPS))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls, graph=run.step_fn)
+    check_train_launches("cityscapes_train", launches, TRAIN_STEPS, calls, graph=run.step_fn,
+                         again=recomputed_sites(run.net))
     scores, val_s, grid_s = check_miou("cityscapes_train", results)
     if not (CS_TRAIN_DIR / "run" / "best_miou" / str(TRAIN_EVENT) / "state.pt").is_file():
         raise AssertionError(f"cityscapes_train: no best_miou/{TRAIN_EVENT} checkpoint")
@@ -1897,7 +1947,7 @@ def phase_cityscapes_train_dino(smi):
         metrics, marks, pauses, results, calls, launches, paths = run_training(
             run, DINO_STEPS, (1, 4, DINO_STEPS))
         check_train_launches(f"cityscapes_train_dino {mode}", launches, DINO_STEPS, calls,
-                             graph=run.step_fn)
+                             graph=run.step_fn, again=recomputed_sites(run.net))
         scores, val_s, _ = check_miou(f"cityscapes_train_dino {mode}", results)
         # steps 5-10, replays of the graph captured at step 3; no pause inside
         warm = (marks[DINO_STEPS] - marks[4]) / (DINO_STEPS - 4)
@@ -2639,7 +2689,7 @@ def dp_child(rank: int) -> None:
     metrics, marks, pauses, _, calls, launches, paths = run_training(
         run, DP_STEPS, (1, 10, DP_STEPS))
     check_train_launches(f"data_parallel rank {rank}", launches, DP_STEPS, calls, *sites,
-                         run.step_fn)
+                         run.step_fn, again=recomputed_sites(run.net))
     inside = sum(d for t0, d in pauses if marks[10] <= t0 <= marks[DP_STEPS])
     out["train"] = {"launches": launches, "path_launches": paths, "calls": calls,
                     "writes": writes, "steps_per_epoch": run.steps_per_epoch,
@@ -2947,6 +2997,7 @@ def phase_data_parallel(smi, masters, one_rank_warm_ms: float):
 SERVE_DIR = Path("build/chip_smoke_serving")
 SERVE_STEPS = 50  # phase 25's T: the samplers' 250 cut to 50 (the programs are the same)
 SERVE_SEED = 2 ** 40 + 25  # both seed words non-zero
+SERVE_PROFILED_STEPS = 10  # the steps of a profiled served call
 # what a serving process may import of the port: the kernels' package and
 # the loader
 SERVE_MODULES = {"ccdm_tpu_torch", "ccdm_tpu_torch.ops", "ccdm_tpu_torch.utils",
@@ -2955,13 +3006,22 @@ SERVE_MODULES = {"ccdm_tpu_torch", "ccdm_tpu_torch.ops", "ccdm_tpu_torch.utils",
 
 def serving_child(jobs_file: Path) -> None:
     """Phase 25's serving process: imports `torch` and the loader only, then
-    per job loads an artifact, serves it `serves` times (the first call's
-    maps and launches are the job's; a second is timed warm) and writes the
-    maps.
+    per job loads an artifact and serves it `serves` times, replaying CUDA
+    graphs of its step (the first call captures them: its maps, launches
+    and capture seconds are the job's; a second is timed warm), then once
+    walking the step loop from Python (`graphs=False`), whose maps must
+    equal the graphs'; after every job, each artifact replays once more,
+    cut to 10 steps, under the profiler (tracing the card): the kernels a
+    step by name against the wrappers' counts by path in that call. Writes
+    the maps; prints one JSON line, the facts of
+    the process among it (how it was started, its threads, tracing hooks,
+    collector and backend flags).
     cuDNN is held to its deterministic algorithms, as in the parent; the
     TF32 settings are PyTorch's defaults. A job with `no_fp32` serves with
-    the loader's `fp32_precision` taken out (the control of case d)."""
+    the loader's `fp32_precision` taken out (the control of case d), once."""
     import contextlib
+    import gc
+    import os
 
     import torch
 
@@ -2971,48 +3031,107 @@ def serving_child(jobs_file: Path) -> None:
     from ccdm_tpu_torch.ops import quant
     from ccdm_tpu_torch.utils.serving import load_sampler
 
+    def counts():
+        return ({"group_norm": gn.launches, "flash_attention": fa.launches,
+                 "group_norm_backward": 0, "quant_conv": quant.launches},
+                {"group_norm": dict(gn.path_launches), "flash_attention": dict(fa.path_launches),
+                 "quant_conv": dict(quant.path_launches)})
+
+    def zero():
+        gn.launches = fa.launches = quant.launches = 0
+        for c in (gn.path_launches, fa.path_launches, quant.path_launches):
+            c.update(dict.fromkeys(c, 0))
+
     torch.backends.cudnn.deterministic = True
     fp32 = ccdm_tpu_torch.ops.precision.fp32_precision
-    results = []
+    results, served = [], []
     for job in json.loads(jobs_file.read_text()):
         ccdm_tpu_torch.ops.precision.fp32_precision = (
             contextlib.nullcontext if job.get("no_fp32") else fp32)
-        start = time.perf_counter()
+        job_start = start = time.perf_counter()
         serve = load_sampler(job["artifact"])
         load_s = time.perf_counter() - start
         images = torch.from_numpy(np.load(job["images"])).cuda()
         seed = torch.tensor(job["seed"], dtype=torch.int64, device="cuda")
-        walls, counts = [], None
-        for _ in range(job.get("serves", 1)):
+        walls, first, allocator = [], None, []
+
+        def timed(**kwargs):
             torch.cuda.synchronize()
-            gn.launches = fa.launches = quant.launches = 0
-            for c in (gn.path_launches, fa.path_launches, quant.path_launches):
-                c.update(dict.fromkeys(c, 0))
+            zero()
+            before = torch.cuda.memory_stats()
             start = time.perf_counter()
-            maps = serve(images, seed)
+            maps = serve(images, seed, **kwargs)
             torch.cuda.synchronize()
-            walls.append(time.perf_counter() - start)
-            if counts is None:
-                counts = ({"group_norm": gn.launches, "flash_attention": fa.launches,
-                           "group_norm_backward": 0, "quant_conv": quant.launches},
-                          {"group_norm": dict(gn.path_launches),
-                           "flash_attention": dict(fa.path_launches),
-                           "quant_conv": dict(quant.path_launches)})
+            wall = time.perf_counter() - start
+            after = torch.cuda.memory_stats()
+            # the caching allocator's cudaMalloc calls and retries in the call
+            allocator.append({k: after.get(k, 0) - before.get(k, 0)
+                              for k in ("num_device_alloc", "num_alloc_retries")})
+            return maps, wall
+
+        for _ in range(job.get("serves", 1)):
+            maps, wall = timed()
+            walls.append(wall)
+            if first is None:
+                first = counts()
                 np.save(job["out"], maps.cpu().numpy())
+        res = {"load_s": load_s, "serve_s": walls, "launches": first[0],
+               "path_launches": first[1], "capture_s": serve.graphed.capture_s,
+               "captures": serve.graphed.captures, "eager_steps": serve.graphed.eager_steps,
+               "replays": serve.graphed.replays, "steps": len(serve.manifest["t_grid"])}
+        if not job.get("no_fp32"):
+            loop, res["loop_s"] = timed(graphs=False)
+            res["loop_equal"] = bool(torch.equal(loop, maps))
+            res["allocator"] = allocator
+            res["free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+            del loop
+            served.append((serve, images, seed, res))
         del maps
-        wrong = None
         if job.get("wrong_batch"):
             try:
                 serve(torch.zeros(images.shape[0] + 1, *images.shape[1:], device="cuda"), seed)
-                wrong = "served"
+                res["wrong_batch"] = "served"
             except ValueError as e:
-                wrong = str(e)
-        results.append({"load_s": load_s, "serve_s": walls, "launches": counts[0],
-                        "path_launches": counts[1], "wrong_batch": wrong})
+                res["wrong_batch"] = str(e)
+        res["job_s"] = time.perf_counter() - job_start
+        results.append(res)
         del serve
-        torch.cuda.empty_cache()
+    # then each artifact under the profiler, after every timed call (a
+    # profiler session can leave the host slower for the calls after it):
+    # calls of the first SERVE_PROFILED_STEPS steps, then half as many (a
+    # 50-step Cityscapes call's trace dropped records). The graph replays
+    # `len(t_grid)` times, so a shorter grid cuts the call; the difference
+    # of the two calls' device ms is the steps' alone
+    for serve, images, seed, res in served:
+        start = time.perf_counter()
+        g, device = serve.graphed, {}
+        grid = g.t_grid
+        steps = min(SERVE_PROFILED_STEPS, len(grid))
+        try:
+            for n in (steps, steps // 2):
+                g.t_grid = grid[:n]
+                zero()
+                _, _, device[n], kernels = device_profile(lambda: serve(images, seed),
+                                                          "serving", cpu=False)
+                if n == steps:
+                    got, want = graph_launches_per_step(kernels, n, counts()[1],
+                                                        SAMPLER_KERNELS)
+        finally:
+            g.t_grid = grid
+        res.update(profile_per_step=got, wrappers_per_step=want,
+                   device_ms_per_step=(device[steps] - device[steps // 2])
+                   / (steps - steps // 2), profile_s=time.perf_counter() - start)
+    served.clear()
     modules = sorted(m for m in sys.modules if m.startswith(("ccdm", "jax", "flax")))
-    print(json.dumps({"modules": modules, "jobs": results}), flush=True)
+    facts = {"main": Path(sys.argv[0]).name, "this_module": __name__,
+             "threads": torch.get_num_threads(), "interop": torch.get_num_interop_threads(),
+             "cores": len(os.sched_getaffinity(0)), "trace": sys.gettrace() is not None,
+             "profile": sys.getprofile() is not None, "gc": [gc.isenabled(), *gc.get_threshold()],
+             "flags": [sys.flags.optimize, sys.flags.dev_mode, sys.flags.no_site],
+             "cudnn": [torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic],
+             "env": sorted(k for k in os.environ if k.startswith(("CUDA", "TORCH", "OMP",
+                                                                  "PYTHON")))}
+    print(json.dumps({"modules": modules, "facts": facts, "jobs": results}), flush=True)
 
 
 def host_us_per_call(fn, calls: int = 2000) -> float:
@@ -3129,15 +3248,20 @@ def phase_serving(smi, eager_rates):
 
     def add_case(name, model, net, images, samples, steps, feature_fn=None, feature_net=None,
                  **job):
-        """The eager maps, the export, and the serving process's job."""
-        torch.cuda.synchronize()
-        reset_counts()
-        start = time.perf_counter()
-        eager = make_prob_sampler(model, samples, steps, feature_fn=feature_fn)(
-            net, images, key=SERVE_SEED, feature_net=feature_net)
-        torch.cuda.synchronize()
-        eager_s = time.perf_counter() - start
-        launches = read_counts()
+        """`make_prob_sampler`'s maps (a first call, which captures its
+        graphs, then a warm one), the export, and the serving process's
+        job."""
+        sampler = make_prob_sampler(model, samples, steps, feature_fn=feature_fn)
+        eager_s = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            reset_counts()
+            start = time.perf_counter()
+            eager = sampler(net, images, key=SERVE_SEED, feature_net=feature_net)
+            torch.cuda.synchronize()
+            eager_s.append(time.perf_counter() - start)
+            if len(eager_s) == 1:
+                launches, first = read_counts(), eager
         start = time.perf_counter()
         path = save_sampler(str(SERVE_DIR / f"{name}.ccdm"), model, net,
                             tuple(images.shape[1:]), num_samples=samples, num_steps=steps,
@@ -3145,6 +3269,8 @@ def phase_serving(smi, eager_rates):
                             feature_net=feature_net)
         export_s = time.perf_counter() - start
         np.save(SERVE_DIR / f"{name}_images.npy", images.cpu().numpy())
+        if not torch.equal(first, eager):
+            raise AssertionError(f"serving {name}: make_prob_sampler's two calls differ")
         cases[name] = {"eager": eager.cpu(), "eager_s": eager_s, "launches": launches,
                        "export_s": export_s, "mb": Path(path).stat().st_size / 1e6,
                        "images": images.shape[0], "samples": samples}
@@ -3162,7 +3288,7 @@ def phase_serving(smi, eager_rates):
     int8 = build_model(dict(params, quantized_inference="static"), 2, 1, 128)
     int8.unet.load_state_dict(model.unet.state_dict())
     int8 = quant.calibrate_static_scales(int8, int8.unet, images[:2])
-    add_case("flagship_int8", int8, int8.unet, images, SAMPLES, SERVE_STEPS)
+    add_case("flagship_int8", int8, int8.unet, images, SAMPLES, SERVE_STEPS, serves=2)
     del model, int8
 
     # (c) Cityscapes with DINO, the evaluator's model, encoder and sampler
@@ -3184,33 +3310,53 @@ def phase_serving(smi, eager_rates):
         torch.backends.cuda.matmul.allow_tf32 = saved_flags
     torch.cuda.empty_cache()
 
-    # one fresh process serves every artifact
+    parent_s = time.perf_counter() - phase_start
+    parent_gib = torch.cuda.memory_reserved() / 2**30  # what this process holds meanwhile
+    # one fresh process serves every artifact, started from a two-line
+    # entry; then the flagship's job once more in a process started as
+    # `python3 chip_smoke.py --serving-child` (run as the script's
+    # `__main__`, PR 11's served several times slower: PERF.md §7)
     jobs_file = SERVE_DIR / "jobs.json"
     jobs_file.write_text(json.dumps(jobs))
-    start = time.perf_counter()
-    # started from a two-line entry, not as `python3 chip_smoke.py <flag>`: run
-    # as this script's `__main__` the same function served several times slower, its
-    # host busy for the whole wall (PERF.md §6)
     entry = ("import sys; from pathlib import Path; sys.path.insert(0, '.'); import chip_smoke; "
              "chip_smoke.serving_child(Path(sys.argv[1]))")
-    proc = subprocess.run([sys.executable, "-c", entry, str(jobs_file)],
-                          cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
-                          timeout=600)
-    child_s = time.perf_counter() - start
-    if proc.returncode != 0:
-        raise AssertionError(f"serving process exit {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                             f"{proc.stderr[-3000:]}")
-    child = json.loads(proc.stdout.strip().splitlines()[-1])
-    port = {m for m in child["modules"] if not m.startswith("ccdm_tpu_torch.ops.")}
-    if not port <= SERVE_MODULES or any(m.split(".")[0] in ("jax", "flax", "ccdm_tpu")
-                                        for m in child["modules"]):
-        raise AssertionError(f"the serving process imported {child['modules']}")
+    flag_file = SERVE_DIR / "jobs_script.json"
+    flag_file.write_text(json.dumps([dict(jobs[0], out=str(SERVE_DIR / "script_maps.npy"),
+                                          wrong_batch=False)]))
+    children, child_s = {}, {}
+    for how, argv in (("-c", [sys.executable, "-c", entry, str(jobs_file)]),
+                      ("script", [sys.executable, str(Path(__file__).resolve()),
+                                  "--serving-child", str(flag_file)])):
+        start = time.perf_counter()
+        proc = subprocess.run(argv, cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=600)
+        child_s[how] = time.perf_counter() - start
+        if proc.returncode != 0:
+            raise AssertionError(f"serving process ({how}) exit {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        children[how] = json.loads(proc.stdout.strip().splitlines()[-1])
+        port = {m for m in children[how]["modules"] if not m.startswith("ccdm_tpu_torch.ops.")}
+        if not port <= SERVE_MODULES or any(m.split(".")[0] in ("jax", "flax", "ccdm_tpu")
+                                            for m in children[how]["modules"]):
+            raise AssertionError(f"the serving process ({how}) imported "
+                                 f"{children[how]['modules']}")
+    child = children["-c"]
 
+    # the expected counts: sites x T UNet calls, as phases 5, 7 and 22 count them
+    sites = {"flagship": (66, 11, 0), "flagship_int8": (66, 11, 81), "cityscapes": (81, 16, 0),
+             "flagship_fp32": (66, 11, 0)}
     runs, rows = {}, {}
     for job, res in zip(jobs, child["jobs"]):
         name = job["name"]
         case = cases["flagship_fp32" if job.get("no_fp32") else name]
         maps = torch.from_numpy(np.load(job["out"]))
+        k = res["steps"]
+        warm = min(2, k)  # ops.graphs.WARMUP_STEPS
+        if (res["captures"], res["eager_steps"], res["replays"]) != (
+                1, warm, len(res["serve_s"]) * k - warm):
+            raise AssertionError(f"serving {name}: {res['captures']} captures, "
+                                 f"{res['eager_steps']} eager steps and {res['replays']} "
+                                 f"replays for {len(res['serve_s'])} calls of {k} steps")
         if job.get("no_fp32"):
             if torch.equal(maps, case["eager"]):
                 raise AssertionError("control: served without fp32_precision under the TF32 "
@@ -3222,55 +3368,91 @@ def phase_serving(smi, eager_rates):
             diff = (float((maps - case["eager"]).abs().max())
                     if maps.shape == case["eager"].shape else None)
             raise AssertionError(f"serving {name}: served maps {tuple(maps.shape)} not bit-equal "
-                                 f"to eager {tuple(case['eager'].shape)} (max diff {diff})")
+                                 f"to make_prob_sampler's {tuple(case['eager'].shape)} (max "
+                                 f"diff {diff})")
+        if not res["loop_equal"]:
+            raise AssertionError(f"serving {name}: the served step loop's maps differ from the "
+                                 f"served graphs'")
         want, want_paths = case["launches"]
         if res["launches"] != want or any(res["path_launches"][k] != want_paths[k]
                                           for k in res["path_launches"]):
             raise AssertionError(f"serving {name}: launches {res['launches']} by path "
-                                 f"{res['path_launches']} != eager's {want} {want_paths}")
+                                 f"{res['path_launches']} != make_prob_sampler's {want} "
+                                 f"{want_paths}")
+        g, a, q = sites[name]
+        per_step = {"group_norm": g, "flash_attention": a, "quant_conv": q}
+        if res["launches"] != {**{kk: v * k for kk, v in per_step.items()},
+                               "group_norm_backward": 0}:
+            raise AssertionError(f"serving {name}: launches {res['launches']} != sites x {k} "
+                                 f"{per_step}")
+        if res["profile_per_step"] != res["wrappers_per_step"]:
+            raise AssertionError(f"serving {name}: the profile's kernels a step "
+                                 f"{res['profile_per_step']} != the wrappers' "
+                                 f"{res['wrappers_per_step']} (kernels of their paths)")
         if job.get("wrong_batch") and "this artifact serves" not in (res["wrong_batch"] or ""):
             raise AssertionError(f"serving {name}: a batch of the wrong size gave "
                                  f"{res['wrong_batch']!r}")
         n = case["images"] * case["samples"]  # Cityscapes: 1 vote, so images
         rows[name] = {"export_s": case["export_s"], "mb": case["mb"], "load_s": res["load_s"],
-                      "served_per_s": [n / s for s in res["serve_s"]],
-                      "eager_per_s": n / case["eager_s"]}
+                      "served_per_s": [n / v for v in res["serve_s"]],
+                      "loop_per_s": n / res["loop_s"], "capture_s": res["capture_s"],
+                      "device_ms": res["device_ms_per_step"],
+                      "profile": res["profile_per_step"],
+                      "eager_per_s": [n / v for v in case["eager_s"]]}
         runs[f"serving_{name}"] = {"launches": res["launches"],
                                    "path_launches": res["path_launches"]}
 
-    # the expected counts: sites x T UNet calls, as phases 5, 7 and 22 count them
-    sites = {"flagship": (66, 11, 0), "flagship_int8": (66, 11, 81), "cityscapes": (81, 16, 0)}
-    for name, (g, a, q) in sites.items():
-        got = runs[f"serving_{name}"]["launches"]
-        want = {"group_norm": g * SERVE_STEPS, "flash_attention": a * SERVE_STEPS,
-                "group_norm_backward": 0, "quant_conv": q * SERVE_STEPS}
-        if got != want:
-            raise AssertionError(f"serving {name}: launches {got} != sites x {SERVE_STEPS} "
-                                 f"{want}")
-    units = {"flagship": "samples/s", "flagship_int8": "samples/s", "cityscapes": "images/s"}
+    # the same job started as the script: its maps, and its rates beside -c's
+    script = children["script"]["jobs"][0]
+    if not np.array_equal(np.load(SERVE_DIR / "script_maps.npy"), np.load(jobs[0]["out"])) \
+            or not script["loop_equal"]:
+        raise AssertionError("serving: the process started as the script served other maps")
+    n = cases["flagship"]["images"] * cases["flagship"]["samples"]
+    facts = {how: c["facts"] for how, c in children.items()}
+    units = {"flagship": "samples/s", "flagship_int8": "samples/s", "cityscapes": "images/s",
+             "flagship_fp32": "samples/s"}
     earlier = {"flagship": f"phase 5 {eager_rates['flagship']:.2f} at T 250",
                "flagship_int8": f"phase 22's harness (2 x 16, reuse 2) "
                                 f"{eager_rates['int8_harness']:.2f} at T 250",
-               "cityscapes": f"phase 7 {eager_rates['cityscapes']:.3f} at T 250"}
+               "cityscapes": f"phase 7 {eager_rates['cityscapes']:.3f} at T 250",
+               "flagship_fp32": "1 x 2 x 3 at 128x128 under the TF32 default"}
     for name, unit in units.items():
         r = rows[name]
         served = " then ".join(f"{v:.3f}" for v in r["served_per_s"])
         log("serving", f"{name}: export {r['export_s']:.1f} s, artifact {r['mb']:.1f} MB, load "
-            f"{r['load_s']:.2f} s, served {served} {unit} (first call, then warm) against eager "
-            f"{r['eager_per_s']:.3f} "
-            f"(deterministic cuDNN; {earlier[name]}) ({smi}); launches "
-            f"{runs[f'serving_{name}']['launches']}, by path "
-            f"{runs[f'serving_{name}']['path_launches']}, bit-equal to eager")
-    log("serving", f"fp32 1 x 2 x 3 at 128x128 under the TF32 default: served bit-equal to "
-        f"eager; without the loader's fp32_precision it differs by "
-        f"{rows['flagship_fp32_no_fp32']['max_abs_diff']:.3g}; the Cityscapes evaluator's DINO "
-        f"map under PyTorch's defaults equals the fp32 one (the evaluator at "
-        f"{ev_rate:.3f} images/s; TF32 on moves the map by {tf32_err:.3g}); a "
-        f"batch of {IMAGES + 1} raised; the serving process imported {sorted(port)} and the "
-        f"ops modules, no jax")
+            f"{r['load_s']:.2f} s, capture {r['capture_s']:.3f} s; served, graphs, {served} "
+            f"{unit} (first call, then warm), the step loop {r['loop_per_s']:.3f}, against "
+            f"make_prob_sampler {r['eager_per_s'][0]:.3f} then {r['eager_per_s'][1]:.3f} "
+            f"(deterministic cuDNN; {earlier[name]}) ({smi}); served device ms a step "
+            f"{r['device_ms']:.3f}; launches {runs[f'serving_{name}']['launches']}, by path "
+            f"{runs[f'serving_{name}']['path_launches']} = sites x steps, the profile's "
+            f"kernels a step {r['profile']} = the wrappers'; graphs, loop and "
+            f"make_prob_sampler bit-equal")
+    log("serving", f"fp32 under the TF32 default: without the loader's fp32_precision it "
+        f"differs by {rows['flagship_fp32_no_fp32']['max_abs_diff']:.3g}; the Cityscapes "
+        f"evaluator's DINO map under PyTorch's defaults equals the fp32 one (the evaluator at "
+        f"{ev_rate:.3f} images/s; TF32 on moves the map by {tf32_err:.3g}); a batch of "
+        f"{IMAGES + 1} raised; the serving process imported {sorted(port)} and the ops "
+        f"modules, no jax")
+    log("serving", f"flagship served by a process started as `python3 chip_smoke.py "
+        f"--serving-child` ({child_s['script']:.1f} s of process): load "
+        f"{script['load_s']:.2f} s, graphs "
+        + " then ".join(f"{n / v:.3f}" for v in script["serve_s"])
+        + f", the step loop {n / script['loop_s']:.3f} samples/s, against the `-c` entry's "
+        + " then ".join(f"{v:.3f}" for v in rows["flagship"]["served_per_s"])
+        + f", loop {rows['flagship']['loop_per_s']:.3f} ({smi}); bit-equal; the processes' "
+        f"facts: -c {facts['-c']}, script {facts['script']}")
     log("serving", "host µs a call, eager wrapper / registered op: " + ", ".join(
         f"{k} {v['wrapper_us']:.1f} / {v['op_us']:.1f}" for k, v in host_us.items())
-        + f"; serving process {child_s:.1f} s; phase {time.perf_counter() - phase_start:.1f} s")
+        + "; the serving process's cudaMalloc calls and retries by call (graphs..., loop): "
+        + ", ".join(f"{j['name']} {r['allocator']} ({r['free_gib']:.1f} GiB free)"
+                    for j, r in zip(jobs, child["jobs"]) if "allocator" in r)
+        + f"; this process reserved {parent_gib:.2f} GiB meanwhile"
+        + f"; the parent's evaluator, samplers and exports {parent_s:.1f} s; serving processes "
+        f"{child_s['-c']:.1f} s (-c; jobs "
+        + ", ".join(f"{j['job_s']:.1f}" for j in child["jobs"])
+        + f" s) and {child_s['script']:.1f} s (script); phase "
+        f"{time.perf_counter() - phase_start:.1f} s")
     return runs, host_us
 
 
@@ -3454,7 +3636,8 @@ def remaining_lidc_npz(smi):
     run = TrainingRun(params)
     metrics, marks, _, _, calls, launches, paths = run_training(run, NPZ_STEPS,
                                                                 (1, 4, NPZ_STEPS))
-    check_train_launches("lidc_npz_train", launches, NPZ_STEPS, calls, 66, 11, run.step_fn)
+    check_train_launches("lidc_npz_train", launches, NPZ_STEPS, calls, 66, 11, run.step_fn,
+                         again=recomputed_sites(run.net))
     runs = {"lidc_npz_train": {"launches": launches, "path_launches": paths}}
     warm = (marks[NPZ_STEPS] - marks[4]) / (NPZ_STEPS - 4)  # replays of the graph
     log("remaining", f"LIDC .npy directory: a synthesised pickle of 48 crops (128x128, 4 "
@@ -3743,16 +3926,18 @@ def graph_launches_per_step(kernels, steps: int, paths, table=None):
 def check_profiled_launches(name: str, res, steps: int):
     """A profile's kernels a step (`graph_pair`'s `kernels`, eager and graph)
     equal the wrappers' counts in those steps and the model's sites (K2 and
-    its backward at every GroupNorm, K1 at every attention block)."""
-    gn, attn = res["eager"]["sites"]
+    its backward at every GroupNorm, K1 at every attention block, and K2 and
+    K1 again at every site the step rematerialises)."""
+    (gn, attn), (gn_again, attn_again) = res["eager"]["sites"], res["eager"]["again"]
+    sites = {"group_norm": gn + gn_again, "group_norm_backward": gn,
+             "flash_attention": attn + attn_again}
     for mode in ("eager", "graph"):
         got, want = graph_launches_per_step(res[mode]["kernels"], steps,
                                             res[mode]["profiled_paths"])
-        if got != want or want != {"group_norm": gn, "group_norm_backward": gn,
-                                   "flash_attention": attn}:
+        if got != want or want != sites:
             raise AssertionError(f"train_graphs {name} {mode}: the profile's kernel launches a "
                                  f"step {got} != the wrappers' counts {want} or the sites "
-                                 f"({gn} / {gn} / {attn})")
+                                 f"{sites}")
     return got
 
 
@@ -3903,14 +4088,16 @@ def graph_pair(params, name: str, steps: int, timed: int = 0, profiled: int = 0,
             run.step_fn = graph.step
         sites = (sum(isinstance(m, GroupNorm32) for m in run.net.modules()),
                  sum(isinstance(m, AttentionBlock) for m in run.net.modules()))
+        again = recomputed_sites(run.net)
         read = hook(run) if hook else None
         reset_counts()
         metrics, _, _, peak = graph_drive(run, steps)
         launches, paths = read_counts()
         check_train_launches(f"train_graphs {name} {mode}", launches, steps, 0, *sites,
-                             graph if mode == "graph" else None)
+                             graph if mode == "graph" else None, again=again)
         res = {"tree": run.state.tree(), "metrics": metrics, "peak": peak, "sites": sites,
-               "launches": launches, "paths": paths, "hooked": read() if read else None}
+               "again": again, "launches": launches, "paths": paths,
+               "hooked": read() if read else None}
         if mode == "graph":
             res["capture_s"] = graph.capture_s
         if timed:
@@ -3951,9 +4138,30 @@ def graphs_child(rank: int) -> None:
     dist.destroy_process_group()
 
 
+# phase 27's remat keys (`unet_openai`): both off, and both on (every
+# ResBlock and attention block rematerialised); the configs' default is
+# attention only
+REMAT_OFF = {"use_checkpoint": False, "remat_attention": False}
+REMAT_ON = {"use_checkpoint": True, "remat_attention": True}
+
+
+def with_unet(params, **unet):
+    """`params` with `unet_openai` entries replaced."""
+    return dict(params, unet_openai=dict(params["unet_openai"], **unet))
+
+
+def remat_equal(name: str, off, on) -> int:
+    """The graphed runs with the remat keys off and on, bit for bit
+    (`graph_equal` of their states and metrics); returns the tensors."""
+    return graph_equal(f"{name} remat on against off", (off["graph"]["tree"],
+                                                        off["graph"]["metrics"]),
+                       (on["graph"]["tree"], on["graph"]["metrics"]))
+
+
 def phase_train_graphs(smi):
     """Phase 27: the trainer's CUDA graphs against its eager step (see the
-    docstring). Returns the graphed runs' launch counts."""
+    docstring), with the UNet's remat keys off and on. Returns the graphed
+    runs' launch counts."""
     import os
     import shutil
 
@@ -3969,22 +4177,22 @@ def phase_train_graphs(smi):
     runs = {}
     try:
         graph_dead_cycle()
-        # (a) the flagship, with its numbers
-        flag = graph_pair(DEMO_TRAIN_PARAMS, "flagship", GRAPH_STEPS, GRAPH_TIMED_STEPS,
-                          GRAPH_PROFILED_STEPS,
+        # (a) the flagship, with its numbers, remat off, then on
+        flag = graph_pair(with_unet(DEMO_TRAIN_PARAMS, **REMAT_OFF), "flagship", GRAPH_STEPS,
+                          GRAPH_TIMED_STEPS, GRAPH_PROFILED_STEPS,
                           hook=lambda run: (lambda: graph_update_cost(run.state))
                           if hasattr(run.step_fn, "replays") else None)
         e, g = flag["eager"], flag["graph"]
-        if g["sites"] != (66, 11):
+        if g["sites"] != (66, 11) or g["again"] != (0, 0):
             raise AssertionError(f"train_graphs: the flagship has {g['sites']} GroupNorm and "
-                                 f"attention sites, not (66, 11)")
+                                 f"attention sites, not (66, 11), or rematerialises {g['again']}")
         got = check_profiled_launches("flagship", flag, GRAPH_PROFILED_STEPS)
         parts = {"flagship": time.perf_counter() - phase_start}
         ours = sorted((c / GRAPH_PROFILED_STEPS, k[:60]) for k, c in g["kernels"].items()
                       if any(n in k for ns in GRAPH_KERNELS.values() for v in ns.values()
                              for n in v))
         runs["train_graphs_flagship"] = {"launches": g["launches"], "path_launches": g["paths"]}
-        log("train_graphs", f"DEMO_TRAIN_PARAMS bf16 at batch 16, K = {GRAPH_K}, "
+        log("train_graphs", f"DEMO_TRAIN_PARAMS bf16 at batch 16, remat off, K = {GRAPH_K}, "
             f"{GRAPH_STEPS} steps eager against graphed from the same masters, cuDNN "
             f"deterministic: bit-equal ({flag['tensors']} tensors of masters, EMA and Adam "
             f"moments; step, count and {len(g['metrics'])} launches' metrics)")
@@ -4003,17 +4211,29 @@ def phase_train_graphs(smi):
             f"{update['port'][0]:.1f} kernels, {update['port'][1]:.4f} device ms an update; "
             f"with host scalars {update['host_scalars'][0]:.1f} kernels, "
             f"{update['host_scalars'][1]:.4f} ms; bit-equal")
+        on = graph_pair(with_unet(DEMO_TRAIN_PARAMS, **REMAT_ON), "flagship_remat",
+                        GRAPH_STEPS, GRAPH_TIMED_STEPS, GRAPH_PROFILED_STEPS)
+        if on["graph"]["again"] != (66 - 1, 11):  # every norm but the head's
+            raise AssertionError(f"train_graphs: remat on recomputes {on['graph']['again']} "
+                                 f"sites a step, not (65, 11)")
+        on_got = check_profiled_launches("flagship_remat", on, GRAPH_PROFILED_STEPS)
+        same = remat_equal("flagship", flag, on)
+        runs["train_graphs_flagship_remat"] = {"launches": on["graph"]["launches"],
+                                               "path_launches": on["graph"]["paths"]}
+        parts["flagship_remat"] = time.perf_counter() - phase_start - sum(parts.values())
+        log_remat("flagship", flag, on, same, on_got, smi)
 
         # (b) Cityscapes with DINO trainable, on phase 18's tree (untimed: its
-        # host loader paces it, phase 19)
+        # host loader paces it, phase 19), remat off, then on
         tree = CS_TRAIN_DIR / "tree"
         if not (tree / "leftImg8bit").is_dir():
             write_cityscapes_tree(tree, 32, "train", CS_TREE_HW, seed=EVAL_SEED + 1)
             write_cityscapes_tree(tree, 4, "val", CS_TREE_HW, seed=EVAL_SEED + 2)
         os.environ["CCDM_CITYSCAPES_PATH"] = str(tree)
         fce = dict(CITYSCAPES_DINO_TRAIN_PARAMS["feature_cond_encoder"], train=True)
-        cs = graph_pair(dict(CITYSCAPES_DINO_TRAIN_PARAMS, feature_cond_encoder=fce,
-                             dataset_val_max_size=4), "cs_dino", GRAPH_CS_STEPS,
+        cs_params = dict(CITYSCAPES_DINO_TRAIN_PARAMS, feature_cond_encoder=fce,
+                         dataset_val_max_size=4)
+        cs = graph_pair(with_unet(cs_params, **REMAT_OFF), "cs_dino", GRAPH_CS_STEPS,
                         profiled=GRAPH_CS_PROFILED_STEPS)
         e, g = cs["eager"], cs["graph"]
         if g["sites"] != (81, 16):
@@ -4023,7 +4243,7 @@ def phase_train_graphs(smi):
         parts["cityscapes"] = time.perf_counter() - phase_start - sum(parts.values())
         runs["train_graphs_cs_dino"] = {"launches": g["launches"], "path_launches": g["paths"]}
         log("train_graphs", f"CITYSCAPES_DINO_TRAIN_PARAMS, DINO ViT-S/8 trainable, batch 16, "
-            f"K = {GRAPH_K}, {GRAPH_CS_STEPS} steps eager against graphed: bit-equal "
+            f"remat off, K = {GRAPH_K}, {GRAPH_CS_STEPS} steps eager against graphed: bit-equal "
             f"({cs['tensors']} tensors, step, count, metrics) ({smi}): capture "
             f"{g['capture_s']:.3f} s; peak above start eager {e['peak'] / 2**30:.3f} GiB, "
             f"graph {g['peak'] / 2**30:.3f} GiB; profiler ({GRAPH_CS_PROFILED_STEPS} steps, "
@@ -4031,9 +4251,17 @@ def phase_train_graphs(smi):
             f"graph {g['device_ms']:.3f}, busy share eager {e['busy']:.3f}, graph "
             f"{g['busy']:.3f}; kernel launches a step {cs_got} = the wrappers' counts = the "
             f"sites")
+        cs_on = graph_pair(with_unet(cs_params, **REMAT_ON), "cs_dino_remat", GRAPH_CS_STEPS,
+                           profiled=GRAPH_CS_PROFILED_STEPS)
+        cs_on_got = check_profiled_launches("cs_dino_remat", cs_on, GRAPH_CS_PROFILED_STEPS)
+        same = remat_equal("cs_dino", cs, cs_on)
+        runs["train_graphs_cs_dino_remat"] = {"launches": cs_on["graph"]["launches"],
+                                              "path_launches": cs_on["graph"]["paths"]}
+        parts["cityscapes_remat"] = time.perf_counter() - phase_start - sum(parts.values())
+        log_remat("cs_dino", cs, cs_on, same, cs_on_got, smi)
 
-        # (c) the flagship with dropout 0.1: the last step's masks of one
-        # Dropout, eager against replayed
+        # (c) the flagship with dropout 0.1, remat off and on: the last
+        # step's masks of one Dropout, eager against replayed
         def masks(run):
             drop = next(m for m in run.net.modules()
                         if isinstance(m, torch.nn.Dropout) and m.p > 0)
@@ -4041,17 +4269,25 @@ def phase_train_graphs(smi):
             drop.register_forward_hook(lambda mod, args, out: seen.append(out == 0))
             return lambda: seen[-1].cpu()
 
-        unet = dict(DEMO_TRAIN_PARAMS["unet_openai"], dropout=0.1)
-        drop = graph_pair(dict(DEMO_TRAIN_PARAMS, unet_openai=unet), "dropout", GRAPH_CS_STEPS,
-                          hook=masks)
-        me, mg = drop["eager"]["hooked"], drop["graph"]["hooked"]
-        share = float(mg.float().mean())
-        if not torch.equal(me, mg) or not 0.05 < share < 0.2:
-            raise AssertionError(f"train_graphs dropout: the replay's masks differ from the "
-                                 f"eager step's, or drop {share:.3f} of the units")
-        log("train_graphs", f"DEMO_TRAIN_PARAMS with dropout 0.1, {GRAPH_CS_STEPS} steps: "
-            f"bit-equal ({drop['tensors']} tensors, metrics); step {GRAPH_CS_STEPS}'s mask at "
-            f"the first Dropout ({tuple(mg.shape)}, {share:.3f} dropped) equal in the replay")
+        drops = {}
+        for name, keys in (("dropout", REMAT_OFF), ("dropout_remat", REMAT_ON)):
+            drop = drops[name] = graph_pair(with_unet(DEMO_TRAIN_PARAMS, dropout=0.1, **keys),
+                                            name, GRAPH_CS_STEPS, hook=masks)
+            me, mg = drop["eager"]["hooked"], drop["graph"]["hooked"]
+            share = float(mg.float().mean())
+            if not torch.equal(me, mg) or not 0.05 < share < 0.2:
+                raise AssertionError(f"train_graphs {name}: the replay's masks differ from the "
+                                     f"eager step's, or drop {share:.3f} of the units")
+            log("train_graphs", f"DEMO_TRAIN_PARAMS with dropout 0.1, remat "
+                f"{'on' if keys is REMAT_ON else 'off'}, {GRAPH_CS_STEPS} steps: bit-equal "
+                f"({drop['tensors']} tensors, metrics); step {GRAPH_CS_STEPS}'s mask at the "
+                f"first Dropout ({tuple(mg.shape)}, {share:.3f} dropped) equal in the replay")
+        same = remat_equal("dropout", drops["dropout"], drops["dropout_remat"])
+        if not torch.equal(drops["dropout"]["graph"]["hooked"],
+                           drops["dropout_remat"]["graph"]["hooked"]):
+            raise AssertionError("train_graphs dropout: remat on applied other masks")
+        log("train_graphs", f"dropout 0.1: the graphed run with remat on equals the one with "
+            f"remat off bit for bit ({same} tensors, metrics, the masks)")
 
         parts["dropout"] = time.perf_counter() - phase_start - sum(parts.values())
         # (d) two gloo ranks on cuda:0, as phase 24
@@ -4073,6 +4309,24 @@ def phase_train_graphs(smi):
     log("train_graphs", f"phase {time.perf_counter() - phase_start:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ", ranks the rest)")
     return runs
+
+
+def log_remat(name: str, off, on, same: int, got, smi) -> None:
+    """Phase 27's line for a config with remat on against off: eager
+    against graphed bit-equal, equal to remat off, the kernels a step, and
+    peak memory and device ms/step of each."""
+    e, g = on["eager"], on["graph"]
+    log("train_graphs", f"{name} remat on (use_checkpoint, remat_attention), {len(g['metrics'])} "
+        f"launches: graphed bit-equal to eager ({on['tensors']} tensors, metrics) and to the "
+        f"graphed run with remat off ({same} tensors, metrics); kernel launches a step {got} = "
+        f"the wrappers' counts = the sites and the {g['again']} recomputed ({smi}): peak above "
+        f"the start, eager, remat off {off['eager']['peak'] / 2**30:.3f} GiB, on "
+        f"{e['peak'] / 2**30:.3f} GiB (graphed, the pool included: off "
+        f"{off['graph']['peak'] / 2**30:.3f}, on {g['peak'] / 2**30:.3f}); device ms/step "
+        f"eager off {off['eager']['device_ms']:.3f}, on {e['device_ms']:.3f}; graphed off "
+        f"{off['graph']['device_ms']:.3f}, on {g['device_ms']:.3f}"
+        + (f"; warm ms/step graphed off {off['graph']['ms']:.2f}, on {g['ms']:.2f}"
+           if "ms" in g else ""))
 
 
 TP_DIR = Path("build/chip_smoke_tp")
@@ -4238,7 +4492,7 @@ def tp_train(params, steps: int, timed: bool, before=None, after=None):
     launch = run._launch
     run._launch = lambda batches: losses.append(launch(batches)) or losses[-1]
     reset_counts()
-    res = {"sites": sites}
+    res = {"sites": sites, "again": recomputed_sites(run.net)}
     # one process's masters at the start (its run's updates are compared)
     start_tree = run.state.tree()["model"] if timed and not run.state.sharded else None
     if not timed:
@@ -4272,7 +4526,7 @@ def tp_train(params, steps: int, timed: bool, before=None, after=None):
     res["seconds"] = [round(b - a, 2) for a, b in zip(clock, clock[1:])]
     res["launches"], res["paths"] = read_counts()
     check_train_launches(f"tensor_parallel {params['output_path']}", res["launches"], steps, 0,
-                         *sites)
+                         *sites, again=res["again"])
     res["losses"] = [float(m["loss"]) for m in losses]
     res["bytes"] = tp_state_bytes(run.state)
     res["split"] = dict(run.sharding.dims)
@@ -4518,10 +4772,12 @@ def phase_tensor_parallel(smi, masters):
         # (b) the bf16 TrainingRun: launches, losses, masters, memory, time
         t = r[0]["train"]
         want = refs[data]
+        (gn_sites, attn_sites), (gn_again, attn_again) = t["sites"], t["again"]
         for i, ri in enumerate(r):
             got = ri["train"]["kernels"]
-            if got[0] != got[1] or got[0] != {"group_norm": 66, "group_norm_backward": 66,
-                                              "flash_attention": 11}:
+            if (gn_sites, attn_sites) != (66, 11) or got[0] != got[1] or got[0] != {
+                    "group_norm": gn_sites + gn_again, "group_norm_backward": gn_sites,
+                    "flash_attention": attn_sites + attn_again}:
                 raise AssertionError(f"tensor_parallel {tag} rank {i}: the profile's kernels a "
                                      f"step {got[0]} != the wrappers' {got[1]} or the sites")
             if ri["train"]["launches"] != t["launches"]:
@@ -4614,7 +4870,7 @@ def phase_tensor_parallel(smi, masters):
     return runs
 
 
-SG_SHORT_STEPS = 50      # phase 29: the int8 and Cityscapes R = 3 samplers' K (of T = 250)
+SG_SHORT_STEPS = 50      # phase 29: the samplers' K (of T = 250)
 SG_PROFILED_STEPS = 10   # phase 29: the steps of each profiled sampler call
 # a sampler step's kernels in a profile, by the wrapper whose calls launch
 # them (K3's tile path adds an epilogue launch where it splits K)
@@ -4791,14 +5047,16 @@ def phase_sampler_graphs(smi, harness_rate: float):
     torch.backends.cudnn.deterministic = True
     runs, readings = {}, {}
     try:
-        # (a) the flagship float sampler at full depth, 8 x 16 x 250
+        # (a) the flagship float sampler, 8 x 16 at K 50 of T 250 (250 until
+        # PR 15; cut for the script's time)
         model, images = sg_flagship_model()
 
         def flagship(graphs, steps, m=model):
             return make_prob_sampler(m, SAMPLES, steps, graphs=graphs)
 
         res, p_graph, p_eager = sg_case("flagship float", flagship, (model.unet, images, 2),
-                                        STEPS, IMAGES * SAMPLES, "samples", sg_sites(66, 11))
+                                        SG_SHORT_STEPS, IMAGES * SAMPLES, "samples",
+                                        sg_sites(66, 11))
         readings["flagship"] = res
         runs["sampler_graphs_flagship"] = {"launches": res["launches"],
                                            "path_launches": res["paths"]}
@@ -4834,13 +5092,13 @@ def phase_sampler_graphs(smi, harness_rate: float):
         del model
         torch.cuda.empty_cache()
 
-        # (c) Cityscapes 2 x 1 at R = 1 (K 250) and R = 3 (K 50)
+        # (c) Cityscapes 2 x 1 at R = 1 and R = 3, K 50 (R = 1 ran K 250 until PR 15)
         ev = CityscapesEvaluator(CITYSCAPES_EVAL_PARAMS)
         ev.build((*CS_HW, 3), CS_IMAGES)
         unzero_(ev.model.unet, seed=5)
         gen = torch.Generator(device="cuda").manual_seed(6)
         cs_images = torch.randn(CS_IMAGES, *CS_HW, 3, generator=gen, device="cuda")
-        for reuse, steps in ((1, STEPS), (3, SG_SHORT_STEPS)):
+        for reuse, steps in ((1, SG_SHORT_STEPS), (3, SG_SHORT_STEPS)):
             def cityscapes(graphs, k, r=reuse):
                 return make_prob_sampler(ev.model, 1, k, ev.feature_fn, encoder_reuse=r,
                                          graphs=graphs)
@@ -4919,6 +5177,9 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--tensor-parallel-rank"]:  # one of phase 28's ranks
         tp_child(*(int(a) for a in sys.argv[2:5]))
+        return
+    if sys.argv[1:2] == ["--serving-child"]:  # phase 25's second serving process
+        serving_child(Path(sys.argv[2]))
         return
     import torch
 

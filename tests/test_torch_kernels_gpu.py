@@ -911,3 +911,91 @@ def test_a_sampler_capture_that_fails_raises_and_keeps_no_graphs(deterministic):
     out, _ = _sampled(graphed, model.unet, images)
     ref, _ = _sampled(make_prob_sampler(model, 4, graphs=False), model.unet, images)
     assert torch.equal(out, ref) and graphed.graphed.captures == 1
+
+
+# the served sampler's graphs (utils/serving.py), against its step loop and
+# the sampler, under cuDNN's deterministic algorithms: bit for bit
+@pytest.mark.parametrize("c,int8", [(2, False), (9, False), (2, True)],
+                         ids=["onehot", "index", "int8-static"])
+def test_served_graphs_equal_the_served_loop_and_the_sampler(deterministic, c, int8):
+    from ccdm_tpu_torch.diffusion import random
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.utils.serving import export_sampler, load_sampler
+
+    model = _sampler_model(c, seed=21 + c,
+                           **({"quantized_inference": "static"} if int8 else {}))
+    images = _sampler_images(2)
+    if int8:
+        model = quant.calibrate_static_scales(model, model.unet, images)
+    ref, ref_launches = _sampled(make_prob_sampler(model, 3, graphs=False), model.unet,
+                                 images, key=5)
+    serve = load_sampler(export_sampler(model, model.unet, (32, 32, 1), num_samples=3,
+                                        batch_size=2))
+    seed = random.seed_words(5).cuda()
+    served = [_sampled(lambda net, x, key: serve(x, seed), None, images) for _ in range(2)]
+    g = serve.graphed
+    assert (g.captures, g.eager_steps, g.replays) == (1, 2, 2 * SAMPLER_T - 2)
+    for out, launches in served:  # a first call (2 eager steps, the capture), then replays
+        assert torch.equal(out, ref)
+        assert launches[:3] == ref_launches[:3] and ref_launches[0] > 0
+    assert torch.equal(serve(images, seed, graphs=False), ref)
+    other = serve(images, random.seed_words(6).cuda())
+    assert not torch.equal(other, ref)  # the seed reaches the graph's static buffer
+    assert torch.equal(other, serve(images, random.seed_words(6).cuda(), graphs=False))
+
+
+def test_a_served_capture_that_fails_raises_and_keeps_no_graph(deterministic):
+    """A host sync inside the served step breaks its capture: the call
+    raises naming the step, nothing runs eagerly in its place, and the next
+    call captures afresh."""
+    from ccdm_tpu_torch.diffusion import random
+    from ccdm_tpu_torch.utils.serving import export_sampler, load_sampler
+
+    model = _sampler_model(2, seed=31)
+    images = _sampler_images(2)
+    serve = load_sampler(export_sampler(model, model.unet, (32, 32, 1), num_samples=2,
+                                        batch_size=2))
+    seed = random.seed_words(3).cuda()
+    g = serve.graphed
+    step = g.step
+    g.step = lambda x, *args: step(x, *args) if float(x.sum()) == float(x.sum()) else None
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the served sampler's step"):
+        serve(images, seed)
+    assert g.graph is None and g.captures == 0
+    g.step = step
+    g.body = None  # the body holds the step it was made with
+    assert torch.equal(serve(images, seed), serve(images, seed, graphs=False))
+    assert g.captures == 1
+
+
+def test_graphed_train_step_with_remat_equals_the_plain_eager_step(cuda):
+    """`use_checkpoint` and `remat_attention` on, dropout 0.1: the graphed
+    step (rematerialised blocks recomputed inside the captured backward,
+    the dropout's kept units drawn in front of each ResBlock) gives the
+    eager step's states and metrics with both keys off, bit for bit."""
+    params, model, masters, batches = _graph_setup()
+    unet = dict(params["unet_openai"], dropout=0.1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name, keys in (("plain", {"use_checkpoint": False, "remat_attention": False}),
+                           ("remat", {"use_checkpoint": True, "remat_attention": True})):
+            from ccdm_tpu_torch.models.builder import build_model
+
+            p = dict(params, unet_openai=dict(unet, **keys))
+            m = build_model(p, 2, 1, 32, generator=torch.Generator().manual_seed(3))
+            runs[name] = _graph_run(p, m, masters, batches, graphed=name == "remat")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (_, e_state, _, e_metrics, e_launches), (step, g_state, _, g_metrics, g_launches) = \
+        runs["plain"], runs["remat"]
+    assert (step.eager_steps, step.captures, step.replays) == (2, 1, 3)
+    for a, b in ((e_state.params, g_state.params), (e_state.opt_state["mu"],
+                                                    g_state.opt_state["mu"])):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    for a, b in zip(e_metrics, g_metrics):
+        assert all(torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+    # every norm and attention forward but the head's runs twice a step
+    assert g_launches[1] == e_launches[1] and g_launches[0] > e_launches[0]
+    assert g_launches[2] == 2 * e_launches[2]

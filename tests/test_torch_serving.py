@@ -31,7 +31,7 @@ from ccdm_tpu_torch.eval.lidc_uncertainty import build_eval_feature_fn, make_pro
 from ccdm_tpu_torch.models.builder import build_model
 from ccdm_tpu_torch.models.layers import AttentionBlock, GroupNorm32
 from ccdm_tpu_torch.ops import quant
-from ccdm_tpu_torch.utils.serving import export_sampler, load_sampler, save_sampler
+from ccdm_tpu_torch.utils.serving import StepBody, export_sampler, load_sampler, save_sampler
 from torch_port_util import load_port_weights, unzero
 
 torch.set_num_threads(4)
@@ -143,6 +143,33 @@ def test_tensor_steps_draw_the_bits_of_int_steps():
                        random.element_keys(SEED, torch.arange(7), 0))
     with pytest.raises(ValueError):
         random.seed_words(2 ** 64)
+
+
+@pytest.mark.parametrize("name", ["onehot", "index_dino", "int8_static"])
+def test_the_step_body_gives_the_loop_as_written_before_it(cases, name):
+    """`StepBody` called K times from Python (the CPU's loop, and the unit a
+    card's CUDA graph captures, its `t` read from the device grid at its
+    device `k`) against the loop the loader walked before the body: the
+    step program called with `k` and `t` from the host, its state rebound.
+    The maps are bit-equal, and equal the eager sampler's."""
+    case = cases(name)
+    start, step, final = (program.module() for program, _ in _programs(case.blob).values())
+    seed = random.seed_words(SEED)
+    t_grid = case.serve.manifest["t_grid"]
+    with torch.inference_mode():
+        x, *cond = start(case.images, seed)
+        for k, t in zip(torch.arange(len(t_grid)), torch.tensor(t_grid, dtype=torch.int64)):
+            x, probs = step(x, seed, k, t, *cond)
+        before = final(x, probs)
+        x, *cond = start(case.images, seed)
+        body = StepBody(step, torch.tensor(t_grid, dtype=torch.int64), x, seed, cond)
+        for _ in t_grid:
+            probs = body()
+        assert int(body.k) == len(t_grid) == K
+        ours = final(body.x, probs)
+    assert torch.equal(ours, before)
+    assert torch.equal(ours.reshape(case.eager.shape), case.eager)
+    assert case.serve.graphed is None  # a CPU artifact walks the loop
 
 
 def test_wrong_batch_shape_rejected(cases):

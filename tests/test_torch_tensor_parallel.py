@@ -336,6 +336,21 @@ def test_tp_gradients_and_masters_match_one_process(ranks, layout):
                 assert torch.equal(v, results[0]["tree"][key][name]), (key, name)
 
 
+def test_tp_step_with_use_checkpoint_equals_one_process(ranks):
+    """`use_checkpoint` on over {data 1, model 2}: every ResBlock and
+    attention block recomputed in the backward, its split convs gathering
+    again. The loss, `grad_norm` and gathered gradients against the port's
+    one-process step (no ResBlock remat) at 1e-4, the tolerance of the step
+    without it (the split sums round apart from one process's)."""
+    ref_loss, ref_norm, ref_grads, _ = _one_process(ranks)
+    for r in ranks.results()[(1, 2)]:
+        np.testing.assert_allclose(r["remat"]["loss"], ref_loss, rtol=1e-5)
+        np.testing.assert_allclose(r["remat"]["grad_norm"], ref_norm, rtol=1e-4)
+        assert set(r["remat"]["grads"]) == set(ref_grads)
+        for name, g in ref_grads.items():
+            assert _err_to_max(r["remat"]["grads"][name], g) <= 1e-4, name
+
+
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda l: f"data{l[0]}_model{l[1]}")
 def test_tp_step_with_nothing_split_equals_one_process(ranks, layout):
     """A UNet too narrow for the rule over the same meshes: nothing splits,

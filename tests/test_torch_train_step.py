@@ -25,6 +25,8 @@ from ccdm_tpu.train.step import train_loss as jax_train_loss
 from ccdm_tpu_torch.diffusion.categorical import categorical_kl
 from ccdm_tpu_torch.models.builder import build_model
 from ccdm_tpu_torch.models.convert import flax_params_to_state_dict, flax_train_state_to_tree
+from ccdm_tpu_torch.models.layers import AttentionBlock, ResBlock
+from ccdm_tpu_torch.models.unet import TimestepBlock
 from ccdm_tpu_torch.train.optimizer import build_optimizer
 from ccdm_tpu_torch.train.state import create_train_state, master_params
 from ccdm_tpu_torch.train.step import make_train_step, train_loss
@@ -126,6 +128,77 @@ def test_train_loss_and_grads_match_jax(models):
         _close(grads[name].grad.numpy(), g.numpy(), 1e-4, name)
 
 
+KEYS_ON = {"use_checkpoint": True, "remat_attention": True}
+
+
+def _with_keys(keys, **unet):
+    return dict(PARAMS, unet_openai=dict(PARAMS["unet_openai"], **keys, **unet))
+
+
+def test_remat_keys_loss_and_grads_match_jax(models):
+    """`use_checkpoint` and `remat_attention` on in both packages: the
+    port's rematerialised training forward and backward against
+    `jax.value_and_grad` of the JAX model built with the same keys."""
+    _, jparams, _ = models
+    params = _with_keys(KEYS_ON)
+    jmodel = jax_build_model(params, num_classes=C, image_channels=1)
+    batch, rng = _batch(2), jax.random.PRNGKey(8)
+    cw = np.ones(C, np.float32)
+    (ref_loss, _), ref_grads = jax.jit(jax.value_and_grad(
+        lambda p: jax_train_loss(jmodel, p, jax.tree.map(jnp.asarray, batch), rng,
+                                 jnp.asarray(cw)), has_aux=True))(jparams)
+    pmodel = build_model(params, C, 1, device="cpu")
+    net = load_port_weights(pmodel.unet, jparams).train()
+    assert all(b.remat_resblocks and b.remat_attention
+               for b in net.modules() if isinstance(b, TimestepBlock))
+    t, xt = _draws(jmodel, batch, rng)
+    loss, _ = train_loss(pmodel, net, _torch_batch(batch), None, torch.from_numpy(cw),
+                         t=t, xt=xt)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
+    ref = flax_params_to_state_dict(jax.device_get(ref_grads))
+    grads = dict(net.named_parameters())
+    assert set(ref) == set(grads)
+    for name, g in ref.items():
+        _close(grads[name].grad.numpy(), g.numpy(), 1e-4, name)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_remat_gradients_equal_the_plain_steps_bit_for_bit(models, dropout):
+    """The train step's gradients and metrics with both remat keys on equal
+    those with both off, bit for bit, from the same weights and seed,
+    dropout included: a rematerialised ResBlock applies the units drawn in
+    front of it. The keys-on step did recompute its blocks."""
+    _, _, pmodel = models
+    out = {}
+    for name, keys in (("on", KEYS_ON), ("off", {"remat_attention": False})):
+        model = build_model(_with_keys(keys, dropout=dropout), C, 1, device="cpu")
+        net = model.unet
+        net.load_state_dict(pmodel.unet.state_dict())
+        tx, _ = build_optimizer(PARAMS, steps_per_epoch=4)
+        state = create_train_state(master_params(net), tx, polyak_alpha=0.9)
+        recomputed, dropped = [], []
+        hooks = [m.register_forward_pre_hook(
+            lambda *_: recomputed.append(torch._C._current_graph_task_id() != -1))
+            for m in net.modules() if isinstance(m, torch.nn.Conv1d)]  # attention's qkv, proj
+        hooks += [m.register_forward_hook(
+            lambda mod, args, y: dropped.append(float((y == 0).float().mean())))
+            for m in net.modules() if isinstance(m, torch.nn.Dropout)]
+        grads, metrics = make_train_step(model, torch.ones(C)).gradients(
+            state, net, _torch_batch(_batch(9)), seed=5)
+        for h in hooks:
+            h.remove()
+        out[name] = grads, metrics, sum(recomputed)
+        assert all(0.05 < d < 0.2 for d in dropped) if dropout else not any(dropped)
+    (g_on, m_on, again), (g_off, m_off, none) = out["on"], out["off"]
+    assert again > 0 and none == 0
+    assert g_on.keys() == g_off.keys()
+    for k in g_on:
+        assert torch.equal(g_on[k], g_off[k]), k
+    for k in ("loss", "kl_min", "grad_norm"):
+        assert torch.equal(m_on[k], m_off[k]), k
+
+
 def test_three_steps_from_a_converted_state_match_jax(models):
     jmodel, jparams, pmodel = models
     cw = np.ones(C, np.float32)
@@ -214,6 +287,12 @@ def test_the_step_and_the_sampler_compute_fp32_convolutions_in_fp32(models):
     convs = [m for m in net.modules() if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d))]
     hooks = [h for m in convs for h in (m.register_forward_pre_hook(record),
                                         m.register_full_backward_hook(record))]
+    # the blocks the step rematerialises (`remat_attention`, on by default)
+    # run their convs' forwards again inside the backward
+    again = [m for block in net.modules() if isinstance(block, TimestepBlock) for layer in block
+             if (block.remat_attention and isinstance(layer, AttentionBlock))
+             or (block.remat_resblocks and isinstance(layer, ResBlock))
+             for m in layer.modules() if m in convs]
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -221,7 +300,8 @@ def test_the_step_and_the_sampler_compute_fp32_convolutions_in_fp32(models):
         state = create_train_state(master_params(net), tx, polyak_alpha=0.9)
         step = make_train_step(pmodel, torch.ones(C), schedule)
         step(state, net, _torch_batch(_batch(7)), seed=3)
-        assert len(seen) == 2 * len(convs) and not any(any(s) for s in seen), seen[:4]
+        assert again and len(seen) == 2 * len(convs) + len(again)
+        assert not any(any(s) for s in seen), seen[:4]
         assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == \
             (True, True)
         seen.clear()

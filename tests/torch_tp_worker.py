@@ -5,7 +5,7 @@
         python tests/torch_tp_worker.py <dir> <data> <model>
 
 Joins a `gloo` group, lays the ranks out as a `data x model` mesh, runs the
-step jobs (and, with `data == 1`, the DINO and training-run jobs) on the inputs the
+step jobs (and, with `data == 1`, the remat, DINO and training-run jobs) on the inputs the
 test wrote into `<dir>`, and saves this rank's results as
 `<dir>/<data>x<model>_rank<r>.pt`. Imports torch, numpy and the port only
 (no jax).
@@ -52,23 +52,20 @@ def narrow_job(spec, layout, out):
     out["narrow"] = {"split": split, "loss": float(m["loss"]), "grads": grads}
 
 
-def step_job(spec, layout, out):
-    """The step over the mesh from the test's whole masters: the loss and
-    the gathered gradients under the injected draws of this rank's data
-    rows, then the state after `ADAM_STEPS` steps with the step's own draws
-    (gathered whole, and this rank's own shares and whole leaves)."""
+def _mesh_step(params, inputs, layout):
+    """The model of `params` with the test's whole masters, split over the
+    mesh, and its step's loss and gradients (this rank's shares gathered
+    whole) under the injected draws of this rank's data rows: `(model,
+    sharding, state, step, rows, metrics, gathered gradients)`."""
     from ccdm_tpu_torch.models.builder import build_model
     from ccdm_tpu_torch.parallel.tensor import Sharding, shard_modules
     from ccdm_tpu_torch.train.optimizer import build_optimizer
     from ccdm_tpu_torch.train.state import create_train_state, master_params
     from ccdm_tpu_torch.train.step import make_train_step
 
-    params = spec["step_params"]
-    inputs = torch.load(Path(spec["dir"]) / "step_inputs.pt")
     model = build_model(params, 2, 1, device="cpu")
     model.unet.load_state_dict(inputs["masters"])
-    split = shard_modules(model.unet, layout)
-    sharding = Sharding(split, layout)
+    sharding = Sharding(shard_modules(model.unet, layout), layout)
     d, n = layout.data_index, layout.data_count
     rows = {k: v[d::n] for k, v in inputs["batch"].items()}
     tx, schedule = build_optimizer(params, steps_per_epoch=20)
@@ -77,13 +74,38 @@ def step_job(spec, layout, out):
     step = make_train_step(model, torch.ones(2), schedule, sharding=sharding)
     grads, m = step.gradients(state, model.unet, rows, 0, t=inputs["t"][d::n],
                               xt=inputs["xt"][d::n])
-    out["split"] = split
+    gathered = {**grads, **sharding.gather({k: grads[k] for k in sharding.dims})}
+    return model, sharding, state, step, rows, m, gathered
+
+
+def step_job(spec, layout, out):
+    """The step over the mesh from the test's whole masters: the loss and
+    the gathered gradients under the injected draws of this rank's data
+    rows, then the state after `ADAM_STEPS` steps with the step's own draws
+    (gathered whole, and this rank's own shares and whole leaves)."""
+    inputs = torch.load(Path(spec["dir"]) / "step_inputs.pt")
+    model, sharding, state, step, rows, m, grads = _mesh_step(spec["step_params"], inputs,
+                                                              layout)
+    out["split"] = dict(sharding.dims)
     out["injected"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                       "grads": {**grads, **sharding.gather({k: grads[k] for k in split})}}
+                       "grads": grads}
     for _ in range(ADAM_STEPS):
         step(state, model.unet, rows, 7)
     out["local"] = {k: v.clone() for k, v in state.params.items()}
     out["tree"] = state.tree()
+
+
+def remat_job(spec, layout, out):
+    """The step of `step_job` with `use_checkpoint` on: every ResBlock (and,
+    by default, every attention block) recomputed in the backward, its
+    split convs gathering again. The loss and the gathered gradients under
+    the injected draws."""
+    params = dict(spec["step_params"],
+                  unet_openai=dict(spec["step_params"]["unet_openai"], use_checkpoint=True))
+    inputs = torch.load(Path(spec["dir"]) / "step_inputs.pt")
+    *_, m, grads = _mesh_step(params, inputs, layout)
+    out["remat"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "grads": grads}
 
 
 def dino_job(layout, out):
@@ -143,6 +165,7 @@ def main():
     step_job(spec, layout, out)
     narrow_job(spec, layout, out)
     if data == 1:
+        remat_job(spec, layout, out)
         dino_job(layout, out)
         run_job(spec, out)
     torch.save(out, root / f"{data}x{model}_rank{mesh.process_index()}.pt")
