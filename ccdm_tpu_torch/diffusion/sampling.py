@@ -57,6 +57,7 @@ from ccdm_tpu_torch.diffusion.categorical import (
 )
 from ccdm_tpu_torch.ops import graphs
 from ccdm_tpu_torch.ops.precision import fp32_precision
+from ccdm_tpu_torch.utils import trace
 
 LOGGER = logging.getLogger(__name__)
 # DenoiseFn: (xt [B,H,W,C] one-hot, t [B] int 1-based) -> p0 probs [B,H,W,C].
@@ -176,9 +177,10 @@ class ReverseStep:
     - `initial(xt)`: the state of a one-hot prior draw;
     - `unet_input(x)`: the one-hot UNet input of a state;
     - `posterior(x, p0, t)`: the posterior probabilities `[B,H,W,C]`;
-    - `draw(step, probs)`: the next state, from element b's stream
-      `element_keys[b]` at `step` (an int or a 0-d tensor) or from the
-      injected `gumbel[step]` / `uniforms[step]`;
+    - `draw(step, probs)`: the next state, `sample(probs, noise(step,
+      probs))`: the noise of element b's stream `element_keys[b]` at
+      `step` (an int or a 0-d tensor), or the injected `gumbel[step]` /
+      `uniforms[step]`, and the draw that reads it;
     - `finish(x, probs, drew)`: the sampler's output after the last step,
       the drawn state as one-hot where the last step drew (`t > 1`, only for
       K == 1 < T), else the probabilities resolved by `step_T_sample`.
@@ -202,14 +204,21 @@ class ReverseStep:
             return theta_post_prob_from_idx(self.d, x, p0.float(), t).clamp_min(1e-12)
         return theta_post_prob(self.d, x, p0.float(), t).clamp_min(1e-12)
 
-    def draw(self, step, probs: torch.Tensor) -> torch.Tensor:
+    def noise(self, step, probs: torch.Tensor) -> torch.Tensor:
+        """Uniforms `[N,H,W]` (index state) or Gumbel noise `[N,H,W,C]`."""
         if self.state == "index":
-            u = (_at(self.uniforms, step) if self.uniforms is not None
-                 else random.uniform(self.keys, step, probs.shape[1:-1]))
-            return sample_categorical_icdf(probs, u)
-        g = (_at(self.gumbel, step) if self.gumbel is not None
-             else random.gumbel(self.keys, step, probs.shape[1:]))
-        return sample_onehot(probs, gumbel=g)
+            return (_at(self.uniforms, step) if self.uniforms is not None
+                    else random.uniform(self.keys, step, probs.shape[1:-1]))
+        return (_at(self.gumbel, step) if self.gumbel is not None
+                else random.gumbel(self.keys, step, probs.shape[1:]))
+
+    def sample(self, probs: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        if self.state == "index":
+            return sample_categorical_icdf(probs, noise)
+        return sample_onehot(probs, gumbel=noise)
+
+    def draw(self, step, probs: torch.Tensor) -> torch.Tensor:
+        return self.sample(probs, self.noise(step, probs))
 
     def finish(self, x: torch.Tensor, probs: torch.Tensor, drew: bool) -> torch.Tensor:
         if drew:
@@ -240,7 +249,13 @@ class StepBody:
     runs (`full`, with encoder reuse) and whether the step is the last.
     The last step draws only where `t_grid[-1] > 1` (K == 1 < T) and
     returns `ReverseStep.finish`'s maps; the others return None. `x`, the
-    carried state, is written in place."""
+    carried state, is written in place.
+
+    With tracing on (`utils/trace.py`) the step records a device mark at
+    its start and after each part, so the gaps are its parts' device ms:
+    `unet` (the timestep, the one-hot input, the UNet call), `posterior`,
+    `noise` (the Threefry stream; absent where the step does not draw) and
+    `draw` (the draw, its copy into the state, k's increment)."""
 
     def __init__(self, rs: ReverseStep, denoise: _Denoiser, t_grid: np.ndarray,
                  x: torch.Tensor):
@@ -251,11 +266,18 @@ class StepBody:
 
     def __call__(self, full: bool, last: bool) -> Optional[torch.Tensor]:
         rs, x, k = self.rs, self.x, self.k
+        trace.mark("step", x.device)
         t = self.t_grid.index_select(0, k.reshape(1)).repeat(x.shape[0])
-        probs = rs.posterior(x, self.denoise(full, rs.unet_input(x), t, keep=not last), t)
+        p0 = self.denoise(full, rs.unet_input(x), t, keep=not last)
+        trace.mark("unet", x.device)
+        probs = rs.posterior(x, p0, t)
+        trace.mark("posterior", x.device)
         if not last or self.drew_last:
-            x.copy_(rs.draw(k, probs))
+            noise = rs.noise(k, probs)
+            trace.mark("noise", x.device)
+            x.copy_(rs.sample(probs, noise))
         k.add_(1)
+        trace.mark("draw", x.device)
         return rs.finish(x, probs, self.drew_last) if last else None
 
 
@@ -300,7 +322,8 @@ def _storage_state(net: torch.nn.Module):
 class _Captured:
     """The graphs of one cache key (see `GraphedSampler`): static buffers for
     the state, the chain keys and the conditioning, the step body over them,
-    and `graphs[(full, last)] = (graph, launches a replay)`."""
+    `graphs[(full, last)] = (graph, launches a replay)`, and, where tracing
+    was on at the capture, `marks[(full, last)]`: each graph's step marks."""
 
     def __init__(self, d: CategoricalDiffusion, config: SamplerConfig, state: str,
                  t_grid: np.ndarray, xt: torch.Tensor, element_keys: torch.Tensor,
@@ -314,6 +337,7 @@ class _Captured:
                              torch.empty_like(rs.initial(xt)))
         self.plan = step_plan(len(t_grid), config.encoder_reuse)
         self.graphs: Dict = {}
+        self.marks: Dict = {}
         self.out: Optional[torch.Tensor] = None
         self.warmed = False
 
@@ -329,6 +353,11 @@ class _Captured:
         body.k.zero_()
 
 
+def graph_label(full: bool, last: bool) -> str:
+    """A step graph's name among the sets of marks a traced call attaches."""
+    return "graph.last" if last else "graph.drawing" if full else "graph.reuse"
+
+
 class GraphedSampler:
     """`ancestral_sampler` on the card as CUDA graphs of its `StepBody`: the
     port of the JAX sampler's `lax.scan` inside `jax.jit`.
@@ -342,9 +371,10 @@ class GraphedSampler:
     calling `net`.
 
     Graphs are cached per key: the device, the state, R, the t-grid, the
-    shapes and dtypes of `xt`, the keys and `inputs`, and the storage and
-    versions of `net`'s parameters and buffers (a weight written in place is
-    a new key). The first call of a key runs the first `WARMUP_STEPS` steps
+    shapes and dtypes of `xt`, the keys and `inputs`, whether tracing is on
+    (a traced capture holds the step's marks), and the storage and versions
+    of `net`'s parameters and buffers (a weight written in place is a new
+    key). The first call of a key runs the first `WARMUP_STEPS` steps
     eagerly on the capture stream (real steps of its trajectory: they build
     the kernels and the cuDNN and cuBLAS handles, and under R > 1 both UNet
     variants), then captures, on that stream and one private memory pool, a
@@ -362,7 +392,16 @@ class GraphedSampler:
     move at the warm-up steps and at each replay, by the sites the graphs
     recorded, never at a capture. `captures` (keys), `capture_s` (seconds
     of each), `graphs_captured` (step bodies a capture ran in Python without
-    launching them), `eager_steps` and `replays` count what ran."""
+    launching them), `eager_steps` and `replays` count what ran.
+
+    Spans (`utils/trace.py`): `sampler.load`, `sampler.capture` (a first
+    call's eager steps and captures) and `sampler.steps` (the replays),
+    which a traced call hands the graphs' marks (`graph.drawing`,
+    `graph.reuse`, `graph.last`: each graph's last replay). `capture_s`
+    stays beside `sampler.capture`: it is kept with tracing off too and
+    logged, and times the captures alone, where the span also holds the
+    eager warm-up steps, which a call's host time outside its steps leaves
+    out with the captures."""
 
     MAX_KEYS = 3  # a run's full batch, its short last batch, one more
 
@@ -379,7 +418,8 @@ class GraphedSampler:
         shapes = (xt.device, _resolve_state(self.config, xt.shape[-1]),
                   int(self.config.encoder_reuse), tuple(self.t_grid.tolist()),
                   tuple(xt.shape), xt.dtype, tuple(element_keys.shape),
-                  tuple((name, tuple(v.shape), v.dtype) for name, v in sorted(inputs.items())))
+                  tuple((name, tuple(v.shape), v.dtype) for name, v in sorted(inputs.items())),
+                  trace.enabled())
         return (shapes, *_storage_state(net))
 
     def __call__(self, net: torch.nn.Module, xt: torch.Tensor, element_keys: torch.Tensor,
@@ -393,7 +433,8 @@ class GraphedSampler:
             entry = self._add(key, xt, element_keys, inputs, make_denoise)
         self._cache.move_to_end(key)
         with fp32_precision():
-            entry.load(xt, element_keys, inputs)
+            with trace.span("sampler.load"):
+                entry.load(xt, element_keys, inputs)
             start = 0
             if not entry.graphs:
                 k = len(self.t_grid)
@@ -401,16 +442,20 @@ class GraphedSampler:
                 # it eagerly and the next call captures
                 start = 0 if entry.warmed else k if k == 1 else min(graphs.WARMUP_STEPS, k - 1)
                 try:
-                    out = self._warm_and_capture(entry, start, capture=start < k)
+                    with trace.span("sampler.capture"):
+                        out = self._warm_and_capture(entry, start, capture=start < k)
                 except BaseException:
                     del self._cache[key]  # a capture that failed leaves no graphs behind
                     raise
                 if start == k:
                     return out.clone()
-            for full, last in entry.plan[start:]:
-                graph, launches = entry.graphs[full, last]
-                graph.replay()
-                graphs.count_launches(launches)
+            with trace.span("sampler.steps"):
+                for full, last in entry.plan[start:]:
+                    graph, launches = entry.graphs[full, last]
+                    graph.replay()
+                    graphs.count_launches(launches)
+                for (full, last), marks in entry.marks.items():
+                    trace.attach(graph_label(full, last), marks)
             self.replays += len(entry.plan) - start
             return entry.out.clone()
 
@@ -457,9 +502,12 @@ class GraphedSampler:
             before = graphs.launch_counts()
             what = (f"the sampler's {'last' if last else 'drawing'} step"
                     + ("" if denoise.r == 1 else " (full UNet)" if full else " (encoder reuse)"))
-            graph, out = graphs.capture_graph(lambda: body(full, last), entry.stream, pool,
-                                              [], what)
+            with trace.marking(trace.Marks()) as marks:
+                graph, out = graphs.capture_graph(lambda: body(full, last), entry.stream, pool,
+                                                  [], what)
             entry.graphs[kind] = (graph, graphs.captured_launches(before))
+            if marks.names:
+                entry.marks[kind] = marks
             if last:
                 entry.out = out
         if eager_skips is not None and denoise.skips is not eager_skips:

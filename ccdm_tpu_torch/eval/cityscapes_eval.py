@@ -47,6 +47,7 @@ from ccdm_tpu_torch.eval.metrics import ConfusionMatrix
 from ccdm_tpu_torch.models.builder import build_model
 from ccdm_tpu_torch.models.dino import resize_bilinear
 from ccdm_tpu_torch.parallel import mesh
+from ccdm_tpu_torch.utils import trace
 from ccdm_tpu_torch.utils.png import write_png
 
 LOGGER = logging.getLogger(__name__)
@@ -115,13 +116,16 @@ class CityscapesEvaluator:
         `[B,H,W,C]`. Image b's votes draw from the streams of `key` and its
         global index `indices[b]` (default `arange(B)`); `noise` (`prior`,
         `uniforms`, `gumbel`) injects the draws instead, as
-        `make_prob_sampler`'s run takes them."""
+        `make_prob_sampler`'s run takes them. The span `evaluator.predict`
+        (`utils/trace.py`) holds the sampler's `sampler.call` and the vote
+        mean."""
         if images.shape[0] > self.batch_size:
             raise ValueError(f"a batch of {images.shape[0]} images; built for "
                              f"{self.batch_size}")
-        probs = self.sampler(self.model.unet, images, key, indices,
-                             feature_net=self.feature_net, **noise)
-        return probs.mean(dim=1)
+        with trace.span("evaluator.predict"):
+            probs = self.sampler(self.model.unet, images, key, indices,
+                                 feature_net=self.feature_net, **noise)
+            return probs.mean(dim=1)
 
     def predict_labels(self, probs: torch.Tensor,
                        original_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:

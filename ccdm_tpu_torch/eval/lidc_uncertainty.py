@@ -51,6 +51,7 @@ from ccdm_tpu_torch.ops.precision import fp32_precision
 from ccdm_tpu_torch.parallel import mesh
 from ccdm_tpu_torch.parallel.tensor import is_split
 from ccdm_tpu_torch.parallel.mesh import pad_chunk  # noqa: F401  (re-exported)
+from ccdm_tpu_torch.utils import trace
 
 LOGGER = logging.getLogger(__name__)
 
@@ -94,6 +95,11 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     conditioning are made for each call outside the graphs.
     `encoder_reuse` R > 1 replays the UNet encoder's activations on the
     steps between every R-th.
+
+    Spans (`utils/trace.py`): `sampler.call` around each call, with the
+    children `sampler.conditioning` (with `dino.features`, between two
+    device marks), `sampler.prior` (the prior and the chain keys) and the
+    steps: `sampler.steps` around the eager loop, or `GraphedSampler`'s.
     """
     cfg = SamplerConfig(num_steps=num_steps or model.time_steps,
                         step_T_sample=model.step_T_sample,
@@ -112,16 +118,18 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
             gumbel: Optional[torch.Tensor] = None,
             uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, _ = images.shape
-        if indices is None:
-            indices = torch.arange(b)
-        indices = torch.as_tensor(indices, dtype=torch.int64).to(images.device)
-        ids = _element_ids(indices, num_samples)
         nonlocal logged
-        with torch.inference_mode():
-            cond, fc = _conditioning(images, num_samples, feature_fn, feature_net)
-            xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
-                  if prior is None else prior)
-            keys = random.element_keys(key, ids, random.CHAIN)
+        with torch.inference_mode(), trace.span("sampler.call"):
+            with trace.span("sampler.conditioning"):
+                cond, fc = _conditioning(images, num_samples, feature_fn, feature_net)
+            with trace.span("sampler.prior"):
+                if indices is None:
+                    indices = torch.arange(b)
+                indices = torch.as_tensor(indices, dtype=torch.int64).to(images.device)
+                ids = _element_ids(indices, num_samples)
+                xt = (sample_prior_per_key(random.element_keys(key, ids, random.PRIOR), h, w, c)
+                      if prior is None else prior)
+                keys = random.element_keys(key, ids, random.CHAIN)
             inputs = {"cond": cond} if fc is None else {"cond": cond, "fc": fc}
             route = sampler_route(net, images.device, graphed is not None,
                                   any(v is not None for v in (prior, gumbel, uniforms)))
@@ -131,8 +139,10 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
                             "hold collectives, which a CUDA graph cannot capture)")
             if route != "graphs":
                 fn, pair = denoisers(net, inputs)
-                out = ancestral_sampler(model.diffusion, fn, xt, cfg, element_keys=keys,
-                                        gumbel=gumbel, uniforms=uniforms, denoise_pair=pair)
+                with trace.span("sampler.steps"):
+                    out = ancestral_sampler(model.diffusion, fn, xt, cfg, element_keys=keys,
+                                            gumbel=gumbel, uniforms=uniforms,
+                                            denoise_pair=pair)
             else:
                 quant.prepare_capture(net, images.device)
                 out = graphed(net, xt, keys, inputs, lambda static: denoisers(net, static))
@@ -171,12 +181,16 @@ def _conditioning(images: torch.Tensor, num_samples: int, feature_fn, feature_ne
     """The UNet's conditioning of B images repeated S times, image-major:
     `(images [B*S,H,W,Ci], DINO map [B*S,h,w,D] or None)`. DINO's patch
     embedding is an fp32 convolution, which cuDNN runs in TF32 by default:
-    it runs in fp32 here, as in the train step and the calibration."""
+    it runs in fp32 here, as in the train step and the calibration. With
+    tracing on, the span `dino.features` holds two device marks around the
+    encoder: its `dino` gap is DINO's device ms."""
     cond = images.repeat_interleave(num_samples, dim=0)
     if feature_fn is None:
         return cond, None
-    with fp32_precision():
+    with fp32_precision(), trace.span("dino.features"):
+        trace.mark("start", images.device)
         fc = feature_fn(feature_net, images)
+        trace.mark("dino", images.device)
     return cond, fc.repeat_interleave(num_samples, dim=0)
 
 
@@ -293,6 +307,7 @@ def load_eval_params(params: Dict[str, Any], net: torch.nn.Module) -> torch.nn.M
     return net
 
 
+@trace.span("setup.dino")
 def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
                           generator: Optional[torch.Generator] = None):
     """Eval-time DINO conditioning: `(feature_fn, feature_shape, encoder
@@ -303,7 +318,8 @@ def build_eval_feature_fn(params: Dict[str, Any], image_shape, *, device=None,
     `average_feature_cond_encoder`, then its `feature_cond_encoder`, then
     the converted `.npz` named by `weights:` (numpy only), else random
     weights from `generator` (default: seed 7), with a warning. The net is
-    built on `device` (default: the CUDA card).
+    built on `device` (default: the CUDA card). Its span
+    (`utils/trace.py`) is `setup.dino`.
     """
     fce = params.get("feature_cond_encoder") or {"type": "none"}
     if fce.get("type") != "dino":

@@ -36,6 +36,7 @@ from ccdm_tpu_torch.models.dino import VIT_CONFIGS
 from ccdm_tpu_torch.models.layers import GroupNorm32
 from ccdm_tpu_torch.models.unet import UNetModel, create_unet
 from ccdm_tpu_torch.ops import quant
+from ccdm_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +154,7 @@ def init_weights_(net: nn.Module, generator: torch.Generator) -> nn.Module:
     return net
 
 
+@trace.span("setup.model")
 def build_model(
     params: Dict[str, Any],
     num_classes: int,
@@ -164,7 +166,8 @@ def build_model(
 ) -> DenoisingModel:
     """Assemble diffusion + UNet from a reference-format `params` dict, on
     `device` (default: the CUDA card; the CPU only when asked for with
-    `device="cpu"`), with weights drawn from `generator` (default: seed 0)."""
+    `device="cpu"`), with weights drawn from `generator` (default: seed 0).
+    Its span (`utils/trace.py`) is `setup.model`."""
     backbone = params.get("backbone", "unet_openai")
     if backbone != "unet_openai":
         raise ValueError(f"unsupported backbone {backbone!r}")

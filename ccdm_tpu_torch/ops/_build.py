@@ -131,18 +131,24 @@ def build(force: bool = False) -> float:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed: the first call's
+    build and load are the span `setup.kernels` (`utils/trace.py`)."""
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(LIB_PATH))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.ccdm_error_string.argtypes = [ctypes.c_int]
-            lib.ccdm_error_string.restype = ctypes.c_char_p
+            # imported at the first load, not with this module: importing the
+            # served loader (utils/serving.py) loads torch and the kernels' modules
+            from ccdm_tpu_torch.utils import trace
+
+            with trace.span("setup.kernels"):
+                build()
+                lib = ctypes.CDLL(str(LIB_PATH))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                lib.ccdm_error_string.argtypes = [ctypes.c_int]
+                lib.ccdm_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 

@@ -5,6 +5,7 @@
                                                     [--encoder-reuse R] [--root DIR]
                                                     [--quant off|dynamic|static]
                                                     [--sampler both|graphs|eager]
+                                                    [--split]
 
 `--config flagship` (the default): the model `chip_smoke.py` runs (flagship
 LIDC config, bf16, seeded random weights with the zero-initialised leaves
@@ -15,8 +16,7 @@ UNet's zero leaves redrawn), the protocol batch of 2 images x 1 vote,
 with encoder reuse R (default 1).
 `--quant dynamic|static` builds either with `quantized_inference` (int8
 convs, `ops/quant.py`): dynamic scales, or static scales calibrated on the
-run's first two images; the profile's `quant_conv` family is the int8
-kernel, beside `conv_compute` (cuDNN) of `--quant off`, the default.
+run's first two images; `--quant off` is the default.
 
 - `sites`: the GroupNorm and attention calls of one UNet call, by shape,
   each timed alone through its wrapper (`chip_smoke.time_ms`: device time of
@@ -24,17 +24,28 @@ kernel, beside `conv_compute` (cuDNN) of `--quant off`, the default.
   Cityscapes also the DINO encoder's time per run;
 - `cold`, `warm`: wall time of 250-step runs (the process's first, then
   `WARM_RUNS` more), samples or images per second, and the SM clock after
-  each;
-- `profile`: one 10-step run under `torch.profiler` (after a warm one):
-  device time by kernel family per step, the device's busy share of the
-  wall, and the `aten::add` calls per step.
+  each.
+
+`--split` runs the `split` phase instead: the program's own spans and
+marks (`utils/trace.py`), read back, with tracing on from before the
+kernels' load. `setup`: the set-up's stages (`setup_stages`); `call`:
+`SPLIT_CALLS` traced calls, each split by `call_split` into its host ms
+outside the reverse steps, its spans, DINO's device ms and each step
+graph's unet / posterior / noise / draw device ms; `host_ms`: their
+median and range; `cost`: `SPLIT_CALLS` calls with tracing off and as
+many on, in turns; `profiled`: one traced call under `torch.profiler`,
+its host ms, and the marked steps plus the call's other device time over
+K beside the device's busy ms a step (`profiled_check`).
+
+Device time by kernel and the device's idle share come from the
+benchmark's traced runs (`python3 benchmark/run.py ... --trace 1`: its
+breakdown and per-layer metrics).
 
 `--sampler` picks how the sampler runs: `graphs`, the default of
 `make_prob_sampler` on the card (CUDA graphs of the step, replayed; the
 cold run captures them), `eager` (`graphs=False`, the loop that launches
 every op from the host), or `both` (the default here: eager, then graphs,
-each on its own sampler); every line says which in `sampler`, so each
-mode's busy share is its `profile` line's.
+each on its own sampler); every line says which in `sampler`.
 
 `--root DIR` imports `ccdm_tpu_torch` from another checkout (an earlier
 commit unpacked with `git archive`, say), so two versions are measured by
@@ -54,22 +65,13 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 REPO = Path(__file__).resolve().parents[2]
 WARM_RUNS = 2
-PROFILE_STEPS = 10
-
-# kernel families of the profile, by a substring of the device kernel's name
-FAMILIES = [
-    ("quant_conv", ("quant_conv_ring", "quant_conv_tile", "quant_conv_epilogue")),
-    ("group_norm", ("gn_small", "gn_cluster", "gn_partial_stats", "gn_apply")),
-    ("attention", ("attn_fwd",)),
-    ("conv_layout", ("nchwToNhwc", "nhwcToNchw", "transpose")),
-    ("conv_compute", ("xmma_fprop", "implicit_gemm", "fprop", "conv", "dgrad", "winograd")),
-    ("gemm", ("gemm", "cublas", "cutlass")),
-    ("add", ("CUDAFunctor_add", "AddFunctor")),
-]
+SPLIT_CALLS = 6
+STEP_SPANS = ("sampler.steps", "sampler.capture")  # a call's reverse steps
+SETUP_SPANS = ("setup.kernels", "setup.model", "setup.dino")
 
 
 def emit(kind: str, **fields) -> None:
@@ -81,19 +83,13 @@ def smi(query: str) -> str:
                           capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def family(name: str) -> str:
-    for fam, keys in FAMILIES:
-        if any(k in name for k in keys):
-            return fam
-    return "other"
-
-
 class Workload(NamedTuple):
     unet: object          # the UNet module, for the site hooks
     unit: str             # what a run yields: "samples" or "images"
     count: int            # how many of them a run yields
     make_run: Callable    # (steps, graphs) -> a callable that runs the sampler once
     forward: Callable     # one UNet call at the run's shapes
+    dino: Optional[Callable] = None  # the DINO encoder on the run's images
 
 
 def sampler_kwargs(graphs: bool) -> dict:
@@ -157,9 +153,6 @@ def cityscapes(smoke, reuse: int, quant: str = "off") -> Workload:
 
         ev.model = q.calibrate_static_scales(ev.model, ev.model.unet, images,
                                              feature_fn=ev.feature_fn, feature_net=ev.feature_net)
-    with torch.inference_mode():
-        emit("dino", ms=smoke.time_ms(lambda: ev.feature_fn(ev.feature_net, images),
-                                      reps=3, calls=5), shape=[smoke.CS_IMAGES, *smoke.CS_HW, 3])
 
     def make_run(steps, graphs):
         # predict_batch's sampler, built here so that eager can be asked for
@@ -173,7 +166,8 @@ def cityscapes(smoke, reuse: int, quant: str = "off") -> Workload:
                               torch.zeros(smoke.CS_IMAGES, *smoke.CS_HW, 20, device="cuda"),
                               images, torch.full((smoke.CS_IMAGES,), 5, device="cuda"), feats)
 
-    return Workload(ev.model.unet, "images", smoke.CS_IMAGES, make_run, forward)
+    return Workload(ev.model.unet, "images", smoke.CS_IMAGES, make_run, forward,
+                    lambda: ev.feature_fn(ev.feature_net, images))
 
 
 def sites(work: Workload, smoke) -> None:
@@ -238,6 +232,9 @@ def sites(work: Workload, smoke) -> None:
     emit("sites_per_step", **{k: v for k, v in totals.items()},
          group_norm_sites=sum(c for k, c in calls.items() if k[0] == "gn"),
          attention_sites=sum(c for k, c in calls.items() if k[0] == "attn"))
+    if work.dino is not None:
+        with torch.inference_mode():
+            emit("dino", ms=smoke.time_ms(work.dino, reps=3, calls=5))
 
 
 def runs(work: Workload, smoke, warm: int, graphs: bool) -> None:
@@ -259,45 +256,169 @@ def mode_name(graphs: bool) -> str:
     return "graphs" if graphs else "eager"
 
 
-def profile(work: Workload, steps: int, graphs: bool) -> None:
+def setup_stages(records) -> Dict[str, float]:
+    """The set-up's stages in seconds from a traced process's spans:
+    `kernels` (`setup.kernels`: the kernels' build or load), `model`
+    (`setup.model` and `setup.dino`) and `first_call` (the first
+    `sampler.call`: its eager steps and captures), each less the stages
+    nested in it, so that they do not overlap."""
+    from ccdm_tpu_torch.utils import trace
+
+    first = next((r for r in records if r.name == "sampler.call"), None)
+    stages = {"kernels": 0.0, "model": 0.0, "first_call": 0.0}
+    for r in records:
+        stage = ("kernels" if r.name == "setup.kernels" else
+                 "model" if r.name in ("setup.model", "setup.dino") else
+                 "first_call" if r is first else None)
+        if stage is not None:
+            stages[stage] += trace.self_ms(r, records, SETUP_SPANS) * 1e-3
+    return stages
+
+
+def call_split(call, records, replays: Dict[str, int]) -> Dict:
+    """One traced sampler call (its `sampler.call` span), read after the
+    device has finished it: `host_ms`, its host time outside the reverse
+    steps; `spans_ms`, each span inside it; `dino_ms`, DINO's device ms
+    between its marks (None without DINO); `parts_ms`, each step graph's
+    parts (its last replay), or under "eager" the eager loop's, summed over
+    the steps; `marked_steps_ms`, the parts of every step of the call, by
+    `replays`: how often each graph label (or "eager", once) runs a call.
+    The eager loop's `step` gaps (between one step's end and the next
+    one's start) are no part of a step."""
+    from ccdm_tpu_torch.utils import trace
+
+    inner = []
+    for r in records:
+        p = r.parent
+        while p is not None and p is not call:
+            p = p.parent
+        if p is call:
+            inner.append(r)
+    by_name = {r.name: r for r in inner}
+    steps = by_name.get("sampler.steps")
+    if steps is None:
+        parts = {}
+    elif steps.attached:
+        parts = {label: marks.ms() for label, marks in steps.attached.items()}
+    else:
+        parts = {"eager": steps.marks.ms()}
+    dino = by_name.get("dino.features")
+    return {"host_ms": trace.self_ms(call, records, STEP_SPANS),
+            "spans_ms": {r.name: r.ms for r in inner},
+            "dino_ms": dino.marks.ms().get("dino") if dino is not None else None,
+            "parts_ms": parts,
+            "marked_steps_ms": sum(replays.get(label, 0) * sum(
+                v for k, v in ms.items() if k != "step") for label, ms in parts.items())}
+
+
+def graph_replays(steps: int, reuse: int, graphs: bool) -> Dict[str, int]:
+    """How often each step graph replays in a warm call (`call_split`)."""
+    if not graphs:
+        return {"eager": 1}
+    from ccdm_tpu_torch.diffusion.sampling import graph_label, step_plan
+
+    return dict(collections.Counter(graph_label(*kind) for kind in step_plan(steps, reuse)))
+
+
+def union_ms(intervals: List) -> float:
+    """The length of the union of `(start_ns, end_ns)` intervals, in ms."""
+    total, reach = 0, None
+    for a, b in sorted(intervals):
+        a = a if reach is None else max(a, reach)
+        if b > a:
+            total += b - a
+            reach = b
+    return total * 1e-6
+
+
+def profiled_check(events, split: Dict, steps: int) -> Dict:
+    """One traced call under `torch.profiler`: its host ms outside the steps
+    (the spans', which the profiler's events of the same names match: what
+    the benchmark's `call_host_ms.*` read), and the device's busy ms a step
+    (the union of the call's device operations over K, as
+    `step_device_ms.*`) beside the marked steps plus the call's other device
+    ms over K, where `other` is the busy time of the device operations that
+    no graph replay launched."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in events if e.device_type() != cuda]
+    dev = [e for e in events if e.device_type() == cuda and not e.is_user_annotation()]
+    launches = {e.correlation_id() for e in host if e.name() == "cudaGraphLaunch"}
+    replayed = [e for e in dev if launches & {e.correlation_id(), e.linked_correlation_id()}]
+    busy = union_ms([(e.start_ns(), e.end_ns()) for e in dev])
+    other = busy - union_ms([(e.start_ns(), e.end_ns()) for e in replayed]) if replayed else None
+    return {"host_ms": split["host_ms"],
+            "step_device_ms": busy / steps,
+            "replay_kernels": len(replayed), "other_device_ms": other,
+            "predicted_step_device_ms": (None if other is None else
+                                         (split["marked_steps_ms"] + other) / steps)}
+
+
+def split(work: Workload, smoke, graphs: bool, reuse: int, since: float, stages: bool) -> None:
+    """The `split` phase (see the module's docstring) on one sampler mode;
+    tracing is on. `stages`: the first call is the process's, so the
+    set-up's stages end with it (`since`: `perf_counter` at `main`'s start)."""
+    import statistics
+
     import torch
     from torch.profiler import ProfilerActivity
 
-    run = work.make_run(steps, graphs)
-    run()  # warm
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from ccdm_tpu_torch.utils import trace
+
+    calls = SPLIT_CALLS
+    mode = mode_name(graphs)
+    replays = graph_replays(smoke.STEPS, reuse, graphs)
+
+    def traced_call():
+        trace.clear()  # each call's records are read, then dropped
         start = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    # device time: the kernels', memcpys' and memsets' own time; the CPU-side
-    # rows (cudaLaunchKernel and the like) are not device time
-    by_family = collections.Counter()
-    by_kernel = collections.Counter()
-    device_ms = 0.0
-    adds = {}
-    for evt in prof.key_averages():
-        self_dev = getattr(evt, "self_device_time_total", None)
-        if self_dev is None:
-            self_dev = evt.self_cuda_time_total
-        if evt.key in ("aten::add", "aten::add_"):
-            adds[evt.key] = {"calls_per_step": evt.count / steps}
-        if evt.device_type == torch.autograd.DeviceType.CUDA and self_dev > 0:
-            ms = self_dev / 1e3
-            device_ms += ms
-            by_family[family(evt.key)] += ms / steps
-            by_kernel[evt.key] += ms / steps
-    emit("profile", sampler=mode_name(graphs), steps=steps, wall_ms=wall * 1e3,
-         device_ms=device_ms,
-         busy_share=device_ms / (wall * 1e3), ms_per_step_by_family=dict(by_family),
-         adds=adds)
-    for name, ms in by_kernel.most_common(25):
-        emit("profile_kernel", sampler=mode_name(graphs), name=name[:160], ms_per_step=ms,
-             family=family(name))
+        records = trace.records()
+        call = next(r for r in records if r.name == "sampler.call")
+        return wall, call_split(call, records, replays)
+
+    run = work.make_run(smoke.STEPS, graphs)
+    run()  # the first call: the eager steps and captures
+    torch.cuda.synchronize()
+    if stages:
+        emit("setup", seconds_since_main=time.perf_counter() - since,
+             **{f"{k}_s": v for k, v in setup_stages(trace.records()).items()})
+    host = []
+    for i in range(calls):
+        wall, parts = traced_call()
+        host.append(parts["host_ms"])
+        emit("call", sampler=mode, call=i, wall_s=wall, **parts)
+    emit("host_ms", sampler=mode, calls=calls, median=statistics.median(host),
+         low=min(host), high=max(host))
+
+    walls: Dict[bool, list] = {False: [], True: []}
+    for i in range(calls + 1):  # the first untraced call captures its own graphs
+        for on in (False, True):
+            (trace.enable if on else trace.disable)()
+            trace.clear()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i:
+                walls[on].append(time.perf_counter() - start)
+    trace.enable()
+    off, on = statistics.median(walls[False]), statistics.median(walls[True])
+    emit("cost", sampler=mode, off_s=walls[False], on_s=walls[True],
+         on_over_off_pct=100.0 * (on / off - 1.0))
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, parts = traced_call()
+    emit("profiled", sampler=mode, steps=smoke.STEPS,
+         **profiled_check(list(prof.profiler.kineto_results.events()), parts, smoke.STEPS))
+    trace.clear()
 
 
 def main() -> None:
+    since = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=("flagship", "cityscapes"), default="flagship")
     ap.add_argument("--encoder-reuse", type=int, default=1,
@@ -309,6 +430,8 @@ def main() -> None:
     ap.add_argument("--sampler", choices=("both", "graphs", "eager"), default="both",
                     help="the sampler's CUDA graphs, its eager loop, or both in turn "
                          "(default both)")
+    ap.add_argument("--split", action="store_true",
+                    help="the split phase alone: the program's spans and marks, read back")
     args = ap.parse_args()
 
     root = args.root.resolve()
@@ -333,13 +456,23 @@ def main() -> None:
          sampler=args.sampler)
     from ccdm_tpu_torch.ops import _build
 
-    emit("build", seconds=_build.build())
+    if args.split:
+        from ccdm_tpu_torch.utils import trace
+
+        trace.enable()
+        _build.library()  # the build or the load: the span `setup.kernels`
+    else:
+        emit("build", seconds=_build.build())
     workload = {"flagship": flagship, "cityscapes": cityscapes}[args.config]
     work = workload(smoke, args.encoder_reuse, args.quant)
-    for graphs in {"both": (False, True), "graphs": (True,), "eager": (False,)}[args.sampler]:
-        runs(work, smoke, WARM_RUNS, graphs)
-        profile(work, PROFILE_STEPS, graphs)
-    sites(work, smoke)
+    modes = {"both": (False, True), "graphs": (True,), "eager": (False,)}[args.sampler]
+    for i, graphs in enumerate(modes):
+        if args.split:
+            split(work, smoke, graphs, args.encoder_reuse, since, stages=i == 0)
+        else:
+            runs(work, smoke, WARM_RUNS, graphs)
+    if not args.split:
+        sites(work, smoke)
     print(json.dumps({"done": True}), flush=True)
 
 

@@ -41,7 +41,9 @@ over a `data x model` grid of ranks, one process per card.
   SIGTERM saves and returns at the end of the launch. `profile_steps: N`
   writes a `torch.profiler` trace of steps 10 .. 10 + N (whole launches)
   under `<output_path>/profile` (rank 0's only: the other ranks run
-  untraced).
+  untraced), which holds the spans `train.batch_wait` (the wait for the
+  loader's next batches) and `train.launch` (enqueueing a launch;
+  `utils/trace.py`).
 
 Data parallel (`parallel/mesh.py`; `cli/train.py --multihost` under
 torchrun): every rank builds the same masters from the seed (or loads the
@@ -107,6 +109,7 @@ from ccdm_tpu_torch.train.step import (
     make_train_step,
     step_seed,
 )
+from ccdm_tpu_torch.utils import trace
 from ccdm_tpu_torch.utils.archive import archive_code
 from ccdm_tpu_torch.utils.logging import setup_logger
 from ccdm_tpu_torch.utils.metrics_log import MetricsLogger
@@ -518,11 +521,13 @@ class TrainingRun:
             raw = self.loader.epoch(epoch, start_batch=skip)
             batches = device_prefetch(({k: b[k] for k in STEP_KEYS} for b in raw), self.device,
                                       buffer_size=k_launch + 1)
-            for group in launch_groups(batches, spe - skip, k_launch):
+            groups = launch_groups(batches, spe - skip, k_launch)
+            for group in trace.each("train.batch_wait", groups):
                 if profile_steps and self.is_main and total >= 10 and not profiled:
                     self._start_profile()
                     profiled = True
-                metrics = self._launch(group)
+                with trace.span("train.launch"):
+                    metrics = self._launch(group)
                 total += len(group)
                 step = step0 + total
                 pending.append((step, metrics))

@@ -999,3 +999,45 @@ def test_graphed_train_step_with_remat_equals_the_plain_eager_step(cuda):
     # every norm and attention forward but the head's runs twice a step
     assert g_launches[1] == e_launches[1] and g_launches[0] > e_launches[0]
     assert g_launches[2] == 2 * e_launches[2]
+
+
+@pytest.mark.parametrize("c", [2, 9], ids=["onehot", "index"])
+def test_traced_graphed_sampler_keeps_its_bits_and_its_marks_time_a_replay(deterministic, c):
+    """With tracing on, the captured step holds its marks as graph nodes:
+    the maps are the untraced graphs' bit for bit, and the drawing step's
+    four parts sum to an event-timed replay of its graph within 3%."""
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.utils import trace
+
+    model = _sampler_model(c, seed=20 + c)
+    images = _sampler_images(4)
+    ref, _ = _sampled(make_prob_sampler(model, 4), model.unet, images)
+    trace.clear()
+    trace.enable()
+    try:
+        run = make_prob_sampler(model, 4)
+        first, _ = _sampled(run, model.unet, images)   # 2 eager steps, the captures
+        second, _ = _sampled(run, model.unet, images)  # all replays
+        assert torch.equal(first, ref) and torch.equal(second, ref)
+        steps = [r for r in trace.records() if r.name == "sampler.steps"]
+        assert len(steps) == 2 and any(r.name == "sampler.capture" for r in trace.records())
+        assert set(steps[-1].attached) == {"graph.drawing", "graph.last"}
+        drawing = steps[-1].attached["graph.drawing"]
+        parts = drawing.ms()
+        assert set(parts) == {"unet", "posterior", "noise", "draw"}
+        assert all(v > 0 for v in parts.values()) and parts["unet"] > parts["draw"]
+        assert set(steps[-1].attached["graph.last"].ms()) == {"unet", "posterior", "draw"}
+        entry = next(iter(run.graphed._cache.values()))
+        graph, _ = entry.graphs[True, False]
+        with torch.inference_mode():  # the sampler's buffers are inference tensors
+            entry.body.k.zero_()  # the replay reads t_grid[k]: past the last step, out of range
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        whole, marked = start.elapsed_time(end), sum(drawing.ms().values())
+        assert marked <= whole and whole - marked <= 0.03 * whole, (marked, whole)
+    finally:
+        trace.disable()
+        trace.clear()
