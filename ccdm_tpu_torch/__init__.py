@@ -26,7 +26,10 @@ kernels: fused GroupNorm(+SiLU), with a hand-written backward for
 training, and attention; a third is the int8 convolution.
 
 Layouts: public sampler functions keep the JAX layout (`[B,H,W,C]` states
-and probabilities, `[B,H,W,Ci]` images); the UNet is NCHW inside.
+and probabilities, `[B,H,W,Ci]` images); inside, the UNet follows its
+float convs' weights: channels-last where the samplers and the served
+artifact lay them out, NCHW as built (so in training) and in its int8 form
+(`models/unet.py`).
 """
 
 __version__ = "0.1.0"

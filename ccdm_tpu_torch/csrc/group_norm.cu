@@ -39,6 +39,28 @@
 //      then a second launch folds them in a fixed order and normalises: two
 //      reads, one write, but many blocks an SM; on 1 MB slabs it ran faster
 //      than a cluster of 8 blocks of 128 KB, one block an SM.
+//
+// Channels-last inputs (NHWC: x [B, HW, C], channels innermost, as the UNet's
+// inference torso holds its activations) take paths of their own. There a
+// group is `cpg` adjacent channels of every pixel, so a 16-byte vector of
+// channels may span two groups and a (sample, group) slab is not contiguous.
+// The unit of work is a (sample, channel tile): `tile` channels (whole
+// groups, a multiple of the vector) of every pixel of one sample, whose rows
+// of tile * itemsize bytes lie C * itemsize apart (contiguous where tile ==
+// C). Each thread owns one channel vector of the tile and a set of pixel
+// rows, so it accumulates per-channel fp32 sums and sums of squares (after
+// the [B, C] add) and reads the add, gamma and beta of its channels once; a
+// block reduces them over its rows and folds the channels into groups, in a
+// fixed order.
+//   M  gn_cluster_nhwc: units that fit a cluster of up to 16 blocks of at
+//      most 64 KB: each thread copies its pixel rows into shared memory
+//      (cp.async, 16 bytes a copy), the blocks read each other's group sums
+//      over distributed shared memory, and each normalises its rows from
+//      shared memory: one read and one write of x, one launch.
+//   L  gn_partial_stats_nhwc + gn_apply_nhwc: larger units (the Cityscapes
+//      torso's 32-64 MB samples). Clusters of stats blocks stream x and fold
+//      their partials over distributed shared memory into one partial per
+//      cluster; apply blocks fold those in order and normalise.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -480,6 +502,474 @@ int dispatch_vec(int path, int vec, const Args& a) {
   return dispatch_path<T, kVec>(path, a);
 }
 
+// ---- channels-last (NHWC) paths ---------------------------------------------
+
+// Geometry of the NHWC paths. Unit u is sample u / tiles, channels c0 .. c0 +
+// tile - 1 with c0 = (u % tiles) * tile; a thread owns channel vector `cv` of
+// the tile and pixel rows row, row + rows, ... of its block's pixels.
+struct GeomN {
+  int hw, channels, cpg, tile;
+  __host__ __device__ __forceinline__ int tiles() const { return channels / tile; }
+  __host__ __device__ __forceinline__ int groups() const { return tile / cpg; }  // a tile
+};
+
+constexpr int kMaxTileGroups = 32;  // G <= 32 (models/layers.group_count)
+constexpr int kMaxCluster = 16;     // blocks a cluster: the non-portable size
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTileM = 128;      // path M: channels a tile (the warps' sums: 8 KB)
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Path L's stats blocks: the thread's channel sums s[VEC] (thread `row *
+// vectors + cv` of `active`, so `red` holds rows x tile values row-major)
+// folded into the tile's groups, out[g] for g < groups, in a fixed order: a
+// group's `per` threads (an aligned warp segment) each add every per-th
+// (row, channel) of the group, then a shuffle tree. Every thread of the
+// block calls it; `red` holds kThreads * VEC floats.
+template <int VEC>
+__device__ __forceinline__ void fold_rows(const float (&s)[VEC], float* red, float* out,
+                                          int active, int rows, const GeomN& g) {
+  for (int e = 0; e < VEC; ++e) red[threadIdx.x * VEC + e] = threadIdx.x < active ? s[e] : 0.f;
+  __syncthreads();
+  const int groups = g.groups();
+  int per = 32;
+  while (per * groups > kThreads) per >>= 1;
+  const int grp = threadIdx.x / per, lane = threadIdx.x % per;
+  float acc = 0.f;
+  if (grp < groups) {
+    const int n = rows * g.cpg;  // (row, channel of the group) pairs
+    for (int k = lane; k < n; k += per)
+      acc += red[(k / g.cpg) * g.tile + grp * g.cpg + k % g.cpg];
+  }
+  for (int o = per >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (grp < groups && lane == 0) out[grp] = acc;
+  __syncthreads();  // `red` is free again, `out` is written
+}
+
+// The lanes of a row: a row's channel vectors take `lanes` adjacent threads,
+// the least power of 2 that holds them (at most 32; the spare ones idle).
+// So the threads of one channel vector in a warp are lanes apart by `lanes`.
+__device__ __forceinline__ int row_lanes(int vectors) {
+  int lanes = 1;
+  while (lanes < vectors) lanes <<= 1;
+  return lanes;
+}
+
+// Path M: the block's (sum, sum of squares) of each tile group into
+// part[0][g], part[1][g], from the thread's channel sums s1, s2 (thread
+// (row, cv) with `lanes` threads a row, `on` for cv < vectors): a shuffle
+// tree adds a warp's rows, a table (`wsum`) holds each warp's channel sums,
+// and a group's `per` threads (an aligned warp segment) add its channels
+// over the warps, then a shuffle tree: a fixed order. Every thread of the
+// block calls it.
+template <int VEC>
+__device__ __forceinline__ void fold_groups(float (&s1)[VEC], float (&s2)[VEC],
+                                            float (*wsum)[kWarps][kMaxTileM],
+                                            float (*part)[kMaxTileGroups], int lanes, bool on,
+                                            int cl, const GeomN& g) {
+  for (int o = 16; o >= lanes; o >>= 1) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], o);
+      s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], o);
+    }
+  }
+  const int warp = threadIdx.x >> 5;
+  if (on && (threadIdx.x & 31) < lanes) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      wsum[0][warp][cl + e] = s1[e];
+      wsum[1][warp][cl + e] = s2[e];
+    }
+  }
+  __syncthreads();
+  const int groups = g.groups();
+  int per = 32;
+  while (per * groups > kThreads) per >>= 1;
+  const int grp = threadIdx.x / per, k = threadIdx.x % per;
+  float a = 0.f, q = 0.f;
+  if (grp < groups) {
+    for (int i = k; i < kWarps * g.cpg; i += per) {
+      const int c = grp * g.cpg + i % g.cpg;
+      a += wsum[0][i / g.cpg][c];
+      q += wsum[1][i / g.cpg][c];
+    }
+  }
+  for (int o = per >> 1; o > 0; o >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    q += __shfl_xor_sync(0xffffffffu, q, o);
+  }
+  if (grp < groups && k == 0) {
+    part[0][grp] = a;
+    part[1][grp] = q;
+  }
+  __syncthreads();
+}
+
+// The add ([B, C]) of the thread's channels, read once
+template <typename T, int VEC>
+struct Lane {
+  float a[VEC];
+  __device__ __forceinline__ void load_add(const T* add, long long at) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) a[e] = add ? to_float(add[at + e]) : 0.f;
+  }
+};
+
+// x + add rounded to T, accumulated into s1, s2; the sum written back into p
+template <typename T, int VEC>
+__device__ __forceinline__ void accumulate(Pack<T, VEC>& p, const float (&a)[VEC], bool add,
+                                           float (&s1)[VEC], float (&s2)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    float v = to_float(p.v[e]);
+    if (add) {
+      v = add_rounded<T>(v, a[e]);
+      p.v[e] = from_float<T>(v);
+    }
+    s1[e] += v;
+    s2[e] += v * v;
+  }
+}
+
+// The thread's channels' mean, rstd * gamma and beta from the tile groups' stats
+template <int VEC>
+__device__ __forceinline__ void channel_affine(const Stats* st, const float* gamma,
+                                               const float* beta, int c0, int cl,
+                                               const GeomN& g, float (&mean)[VEC],
+                                               float (&mul)[VEC], float (&shift)[VEC]) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const Stats s = st[(cl + e) / g.cpg];
+    mean[e] = s.mean;
+    mul[e] = s.rstd * gamma[c0 + cl + e];
+    shift[e] = beta[c0 + cl + e];
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> normalise_pack(const Pack<T, VEC>& p,
+                                                       const float (&mean)[VEC],
+                                                       const float (&mul)[VEC],
+                                                       const float (&shift)[VEC], int silu) {
+  Pack<T, VEC> o;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e)
+    o.v[e] = from_float<T>(normalise(to_float(p.v[e]), mean[e], mul[e], shift[e], silu));
+  return o;
+}
+
+// Path M: grid = units x cluster blocks, a cluster a unit; block `rank` holds
+// pixels rank * chunk .. + chunk - 1 of its unit in shared memory, each
+// thread copying its own rows (cp.async) and reading back only those. A
+// row's channel vectors take `lanes` adjacent threads (a power of 2, the
+// spare ones idle), so the threads of one channel vector in a warp are the
+// lanes apart by `lanes`: a shuffle tree adds their rows, one table a warp
+// holds the sums, and a group's threads add the warps' channels.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gn_cluster_nhwc(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ gamma,
+                const float* __restrict__ beta, const T* __restrict__ add, int chunk, GeomN g,
+                float eps, int silu) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  __shared__ float wsum[2][kWarps][kMaxTileM];
+  __shared__ float part[2][kMaxTileGroups];
+  __shared__ Stats stats[kMaxTileGroups];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const long long unit = blockIdx.x / ranks;
+  const int tiles = g.tiles(), groups = g.groups();
+  const long long b = unit / tiles;
+  const int c0 = static_cast<int>(unit % tiles) * g.tile;
+  const int vectors = g.tile / VEC, lanes = row_lanes(vectors);
+  const int rows = kThreads / lanes;
+  const int cv = threadIdx.x % lanes, row = threadIdx.x / lanes, cl = cv * VEC;
+  const bool on = cv < vectors;
+  const int p0 = rank * chunk;
+  const int n = max(0, min(chunk, g.hw - p0));  // this block's pixels
+  const T* src = x + (b * g.hw + p0) * g.channels + c0 + cl;
+
+  if (on) {
+    for (int r = row; r < n; r += rows) {
+      if constexpr (VEC > 1) {
+        cp_async16(xs + r * g.tile + cl, src + static_cast<long long>(r) * g.channels);
+      } else {
+        xs[r * g.tile + cl] = src[static_cast<long long>(r) * g.channels];
+      }
+    }
+  }
+  if constexpr (VEC > 1) cp_async_wait_all();
+
+  float s1[VEC] = {}, s2[VEC] = {};
+  if (on) {
+    Lane<T, VEC> ln;
+    ln.load_add(add, b * g.channels + c0 + cl);
+    for (int r = row; r < n; r += rows) {
+      Pack<T, VEC>* at = reinterpret_cast<Pack<T, VEC>*>(xs + r * g.tile + cl);
+      Pack<T, VEC> p = *at;
+      accumulate<T, VEC>(p, ln.a, add != nullptr, s1, s2);
+      if (add) *at = p;
+    }
+  }
+  fold_groups<VEC>(s1, s2, wsum, part, lanes, on, cl, g);
+  const float count = static_cast<float>(g.hw) * g.cpg;
+  if (ranks > 1) cluster.sync();  // every rank's sums are written
+  if (threadIdx.x < groups) {
+    float a = 0.f, q = 0.f;
+    for (int r = 0; r < ranks; ++r) {  // rank order: the same sum on every rank
+      const float(*pr)[kMaxTileGroups] = ranks > 1 ? cluster.map_shared_rank(part, r) : part;
+      a += pr[0][threadIdx.x];
+      q += pr[1][threadIdx.x];
+    }
+    stats[threadIdx.x] = finish(a, q, count, eps);
+  }
+  // no rank leaves while another reads its sums
+  if (ranks > 1) cluster.sync(); else __syncthreads();
+
+  if (on) {
+    float mean[VEC], mul[VEC], shift[VEC];
+    channel_affine<VEC>(stats, gamma, beta, c0, cl, g, mean, mul, shift);
+    T* dst = y + (b * g.hw + p0) * g.channels + c0 + cl;
+    for (int r = row; r < n; r += rows) {
+      const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xs + r * g.tile + cl);
+      *reinterpret_cast<Pack<T, VEC>*>(dst + static_cast<long long>(r) * g.channels) =
+          normalise_pack<T, VEC>(p, mean, mul, shift, silu);
+    }
+  }
+}
+
+// Path L, pass 1: grid = units x splits blocks in clusters of `ranks`; block
+// s streams pixels s * chunk .. + chunk - 1 of its unit. The cluster's rank 0
+// writes the cluster's group sums, added in rank order, to
+// partial[unit][s / ranks][2][groups].
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gn_partial_stats_nhwc(const T* __restrict__ x, const T* __restrict__ add,
+                      float* __restrict__ partial, int splits, int chunk, GeomN g) {
+  __shared__ float red[kThreads * VEC];
+  __shared__ float part[2][kMaxTileGroups];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const long long unit = blockIdx.x / splits;
+  const int split = static_cast<int>(blockIdx.x % splits);
+  const int tiles = g.tiles(), groups = g.groups();
+  const long long b = unit / tiles;
+  const int c0 = static_cast<int>(unit % tiles) * g.tile;
+  const int vectors = g.tile / VEC, rows = kThreads / vectors, active = rows * vectors;
+  const int cv = threadIdx.x % vectors, row = threadIdx.x / vectors, cl = cv * VEC;
+  const long long p0 = static_cast<long long>(split) * chunk;
+  const int n = static_cast<int>(max(0LL, min(static_cast<long long>(chunk), g.hw - p0)));
+  const T* src = x + (b * g.hw + p0) * g.channels + c0 + cl;
+
+  Lane<T, VEC> ln;
+  ln.load_add(add, b * g.channels + c0 + cl);
+  float s1[VEC] = {}, s2[VEC] = {};
+  if (threadIdx.x < active) {
+#pragma unroll 4
+    for (int r = row; r < n; r += rows) {
+      Pack<T, VEC> p =
+          *reinterpret_cast<const Pack<T, VEC>*>(src + static_cast<long long>(r) * g.channels);
+      accumulate<T, VEC>(p, ln.a, add != nullptr, s1, s2);
+    }
+  }
+  fold_rows<VEC>(s1, red, part[0], active, rows, g);
+  fold_rows<VEC>(s2, red, part[1], active, rows, g);
+  if (ranks > 1) cluster.sync();  // every rank's sums are written
+  if (rank == 0 && threadIdx.x < 2 * groups) {
+    const int k = threadIdx.x / groups, grp = threadIdx.x % groups;
+    float acc = 0.f;
+    for (int r = 0; r < ranks; ++r)  // rank order
+      acc += (ranks > 1 ? cluster.map_shared_rank(part, r) : part)[k][grp];
+    partial[((unit * (splits / ranks) + split / ranks) * 2 + k) * groups + grp] = acc;
+  }
+  if (ranks > 1) cluster.sync();  // no rank leaves while rank 0 reads its sums
+}
+
+// Path L, pass 2: grid = units x applies blocks; block a normalises pixels
+// a * chunk .. + chunk - 1 of its unit after folding the unit's `parts`
+// partials, in order. The blocks run the units' pixels from the last: the
+// stats pass read those last, so the first apply blocks find them in L2.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+gn_apply_nhwc(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ gamma,
+              const float* __restrict__ beta, const T* __restrict__ add,
+              const float* __restrict__ partial, int parts, int applies, int chunk, GeomN g,
+              float eps, int silu) {
+  __shared__ Stats stats[kMaxTileGroups];
+  const long long block = gridDim.x - 1 - blockIdx.x;
+  const long long unit = block / applies;
+  const int tiles = g.tiles(), groups = g.groups();
+  const long long b = unit / tiles;
+  const int c0 = static_cast<int>(unit % tiles) * g.tile;
+  {
+    // a group's threads: an aligned warp segment, each summing every
+    // per-th part from its own, then a shuffle tree
+    int per = 32;
+    while (per * groups > kThreads) per >>= 1;
+    const int grp = threadIdx.x / per, lane = threadIdx.x % per;
+    float a = 0.f, q = 0.f;
+    if (grp < groups) {
+      const float* pu = partial + unit * parts * 2 * groups;
+      for (int k = lane; k < parts; k += per) {
+        a += pu[(k * 2) * groups + grp];
+        q += pu[(k * 2 + 1) * groups + grp];
+      }
+    }
+    for (int o = per >> 1; o > 0; o >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    if (grp < groups && lane == 0)
+      stats[grp] = finish(a, q, static_cast<float>(g.hw) * g.cpg, eps);
+  }
+  __syncthreads();
+  const int vectors = g.tile / VEC, rows = kThreads / vectors, active = rows * vectors;
+  if (threadIdx.x >= active) return;
+  const int cv = threadIdx.x % vectors, row = threadIdx.x / vectors, cl = cv * VEC;
+  const long long p0 = (block % applies) * chunk;
+  const int n = static_cast<int>(max(0LL, min(static_cast<long long>(chunk), g.hw - p0)));
+  const long long base = (b * g.hw + p0) * g.channels + c0 + cl;
+  Lane<T, VEC> ln;
+  ln.load_add(add, b * g.channels + c0 + cl);
+  float mean[VEC], mul[VEC], shift[VEC];
+  channel_affine<VEC>(stats, gamma, beta, c0, cl, g, mean, mul, shift);
+#pragma unroll 4
+  for (int r = row; r < n; r += rows) {
+    const long long at = base + static_cast<long long>(r) * g.channels;
+    Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(x + at);
+    if (add) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        p.v[e] = from_float<T>(add_rounded<T>(to_float(p.v[e]), ln.a[e]));
+    }
+    *reinterpret_cast<Pack<T, VEC>*>(y + at) = normalise_pack<T, VEC>(p, mean, mul, shift, silu);
+  }
+}
+
+struct ArgsN {
+  const void *x, *gamma, *beta, *add;
+  void *y, *partial;
+  long long batch;
+  GeomN g;
+  int cluster;  // M: blocks a unit; L: stats blocks a cluster
+  int splits;   // L: stats blocks a unit
+  int chunk;    // M: pixels a block; L: pixels a stats block
+  int apply;    // L: pixels an apply block
+  float eps;
+  int silu;
+  cudaStream_t stream;
+};
+
+// The kernel's attributes, set once per device (and again for more shared
+// memory): the attribute call on every launch would cost host time that the
+// sampler's hundreds of launches a step cannot spare. Clusters of up to 16
+// blocks need the non-portable size allowed.
+template <typename K>
+cudaError_t raise_smem(K kernel, size_t smem, size_t* raised) {
+  constexpr int kMaxDevices = 64;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && raised[dev] >= smem + 1) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) raised[dev] = smem + 1;
+  return err;
+}
+
+template <typename K, typename... A>
+cudaError_t launch_clustered(K kernel, unsigned int blocks, int cluster, size_t smem,
+                             cudaStream_t stream, A... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_nhwc(int path, const ArgsN& a) {
+  const long long units = a.batch * a.g.tiles();
+  const T* x = static_cast<const T*>(a.x);
+  const T* add = static_cast<const T*>(a.add);
+  if (path == kCluster) {
+    auto kernel = gn_cluster_nhwc<T, VEC>;
+    static size_t raised[64] = {};
+    const size_t smem = static_cast<size_t>(a.chunk) * a.g.tile * sizeof(T);
+    cudaError_t err = raise_smem(kernel, smem, raised);
+    if (err != cudaSuccess) return err;
+    return launch_clustered(kernel, static_cast<unsigned int>(units * a.cluster), a.cluster,
+                            smem, a.stream, x, static_cast<T*>(a.y),
+                            static_cast<const float*>(a.gamma),
+                            static_cast<const float*>(a.beta), add, a.chunk, a.g, a.eps,
+                            a.silu);
+  }
+  auto stats = gn_partial_stats_nhwc<T, VEC>;
+  static size_t raised[64] = {};
+  cudaError_t err = raise_smem(stats, 0, raised);
+  if (err != cudaSuccess) return err;
+  err = launch_clustered(stats, static_cast<unsigned int>(units * a.splits), a.cluster, 0,
+                         a.stream, x, add, static_cast<float*>(a.partial), a.splits, a.chunk,
+                         a.g);
+  if (err != cudaSuccess) return err;
+  const int applies = static_cast<int>((a.g.hw + a.apply - 1) / a.apply);
+  gn_apply_nhwc<T, VEC><<<static_cast<unsigned int>(units * applies), kThreads, 0,
+                          a.stream>>>(
+      x, static_cast<T*>(a.y), static_cast<const float*>(a.gamma),
+      static_cast<const float*>(a.beta), add, static_cast<const float*>(a.partial),
+      a.splits / a.cluster, applies, a.apply, a.g, a.eps, a.silu);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_nhwc(int path, int vec, const ArgsN& a) {
+  constexpr int kVec = 16 / sizeof(T);
+  const GeomN& g = a.g;
+  if (vec != 1 && vec != kVec) return cudaErrorInvalidValue;
+  if (g.tile <= 0 || g.channels % g.tile || g.tile % g.cpg || g.tile % vec ||
+      g.tile / vec > kThreads || g.tile / g.cpg > kMaxTileGroups || a.cluster < 1 ||
+      a.cluster > kMaxCluster || a.chunk <= 0)
+    return cudaErrorInvalidValue;
+  if (vec == kVec && (reinterpret_cast<uintptr_t>(a.x) % 16 ||
+                      reinterpret_cast<uintptr_t>(a.y) % 16))
+    return cudaErrorMisalignedAddress;
+  if (path == kCluster) {
+    if (g.tile > kMaxTileM || g.tile / vec > 32 ||
+        static_cast<long long>(a.chunk) * a.cluster < g.hw ||
+        static_cast<size_t>(a.chunk) * g.tile * sizeof(T) > 200 * 1024)
+      return cudaErrorInvalidValue;
+  } else if (path == kLarge) {
+    if (a.splits % a.cluster || static_cast<long long>(a.chunk) * a.splits < g.hw ||
+        a.apply <= 0)
+      return cudaErrorInvalidValue;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return vec == 1 ? launch_nhwc<T, 1>(path, a) : launch_nhwc<T, kVec>(path, a);
+}
+
 }  // namespace
 
 // x, y: [batch, channels, hw] contiguous, dtype per `dtype`; gamma, beta:
@@ -505,5 +995,32 @@ extern "C" int ccdm_group_norm(const void* x, void* y, const void* gamma, const 
          param, chunk, eps, silu, static_cast<cudaStream_t>(stream)};
   if (dtype == kFloat32) return dispatch_vec<float>(path, vec, a);
   if (dtype == kBFloat16) return dispatch_vec<__nv_bfloat16>(path, vec, a);
+  return cudaErrorInvalidValue;
+}
+
+// x, y: [batch, hw, channels] contiguous (channels innermost), dtype per
+// `dtype`; gamma, beta: [channels] fp32; add: [batch, channels] in x's dtype,
+// or null; tile: channels a unit (whole groups, a multiple of vec, dividing
+// channels). path 1 (M): `cluster` blocks a unit of `chunk` pixels each;
+// path 2 (L): `splits` stats blocks a unit of `chunk` pixels each, in
+// clusters of `cluster`, then apply blocks of `apply` pixels; partial: fp32
+// scratch of batch * (channels / tile) * (splits / cluster) * 2 * (tile /
+// cpg) floats (path L only, else unused). vec: 1 or 16 / sizeof(dtype).
+// Launches on `stream`, allocates nothing, returns a cudaError_t.
+extern "C" int ccdm_group_norm_nhwc(const void* x, void* y, const void* gamma,
+                                    const void* beta, const void* add, void* partial,
+                                    int dtype, long long batch, long long channels,
+                                    long long hw, int groups, int path, int vec, int tile,
+                                    int cluster, int splits, int chunk, int apply, float eps,
+                                    int silu, void* stream) {
+  if (groups <= 0 || channels % groups != 0 || batch <= 0 || hw <= 0 ||
+      hw > 0x7fffffffLL || channels > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  ArgsN a{x, gamma, beta, add, y, partial, batch,
+          GeomN{static_cast<int>(hw), static_cast<int>(channels),
+                static_cast<int>(channels / groups), tile},
+          cluster, splits, chunk, apply, eps, silu, static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return dispatch_nhwc<float>(path, vec, a);
+  if (dtype == kBFloat16) return dispatch_nhwc<__nv_bfloat16>(path, vec, a);
   return cudaErrorInvalidValue;
 }

@@ -65,7 +65,9 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
     is drawn, and the ancestral sampler runs under `torch.inference_mode()`
     with the model's `step_T_sample` mode for the final step ("confidence"
     yields probability maps). `net` is the module holding the weights (the
-    JAX version's `params`).
+    JAX version's `params`); each call holds its float convs' weights
+    channels-last (`UNetModel.lay_out_weights`, in place, once), so that
+    the UNet's inference torso runs channels-last.
 
     On the card the reverse process replays CUDA graphs of its step
     (`diffusion/sampling.GraphedSampler`, the JAX version's `lax.scan`
@@ -119,6 +121,7 @@ def make_prob_sampler(model: DenoisingModel, num_samples: int,
             uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, h, w, _ = images.shape
         nonlocal logged
+        net.lay_out_weights(True)
         with torch.inference_mode(), trace.span("sampler.call"):
             with trace.span("sampler.conditioning"):
                 cond, fc = _conditioning(images, num_samples, feature_fn, feature_net)
@@ -266,7 +269,10 @@ def sampler_programs(model: DenoisingModel, net: torch.nn.Module, num_samples: i
     `seed` is `random.seed_words` of the run's seed, `k` and `t` 0-d int64
     tensors. Returns `(start, step, final, t_grid, state)`; every step is
     `ReverseStep`'s, as in `ancestral_sampler`, so the maps equal
-    `make_prob_sampler`'s bit for bit where the device repeats its sums."""
+    `make_prob_sampler`'s bit for bit where the device repeats its sums.
+    `net`'s float convs' weights are held channels-last, as that sampler
+    holds them."""
+    net.lay_out_weights(True)
     t_grid = subsampled_t_values(model.time_steps, num_steps or model.time_steps)
     state = _resolve_state(SamplerConfig(len(t_grid)), model.diffusion.num_classes)
     return (_StartProgram(model, num_samples, state, feature_fn, feature_net),

@@ -1,7 +1,8 @@
-"""UNet building blocks (port of `ccdm_tpu/models/layers.py`), NCHW.
+"""UNet building blocks (port of `ccdm_tpu/models/layers.py`).
 
-Activations inside the UNet are NCHW (attention tokens `[B, C, T]`), as
-PyTorch's convolutions expect. The torso runs in the compute dtype (bf16 on
+Activations inside the UNet are indexed `[B, C, H, W]` (attention tokens
+`[B, C, T]`), laid out NCHW or channels-last as the UNet's forward chose
+(`models/unet.py`). The torso runs in the compute dtype (bf16 on
 the card); GroupNorm parameters are fp32 and its statistics and normalise
 run in fp32 (the JAX package's `norm_fp32`, either value: see
 `GroupNorm32`).
@@ -201,7 +202,15 @@ class AttentionBlock(nn.Module):
     """Spatial self-attention over the H·W tokens: pre-norm, fused qkv 1x1
     projection, per-head attention through the kernel, zero-init output
     projection, residual add. The qkv channels are ordered
-    (heads, [q|k|v], dh), the reference's legacy packing."""
+    (heads, [q|k|v], dh), the reference's legacy packing.
+
+    In a channels-last torso (`channels_last`, the UNet's choice; not read
+    from x's strides, which a `torch.export` trace does not always give as
+    the card does) the 1x1 projections are batched matrix products over the
+    same `Conv1d` weights: the qkv product writes the `[B, 3C, T]` layout
+    the attention kernel reads, and the output projection writes
+    token-major `[B, T, C]` with the residual and its bias added, so the
+    block's output is channels-last again and no layout transpose runs."""
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
                  dtype=torch.bfloat16):
@@ -217,11 +226,21 @@ class AttentionBlock(nn.Module):
         self.qkv = nn.Conv1d(channels, 3 * channels, 1, dtype=dtype)
         self.proj_out = zero_init(nn.Conv1d(channels, channels, 1, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_last: bool = False) -> torch.Tensor:
         b, c, h, w = x.shape
         dh = c // self.num_heads
         tokens = x.reshape(b, c, h * w)
-        qkv = self.qkv(self.norm(tokens)).reshape(b * self.num_heads, 3 * dh, h * w)
+        if channels_last:
+            qkv = torch.baddbmm(self.qkv.bias[:, None], self.qkv.weight[:, :, 0].expand(b, -1, -1),
+                                self.norm(tokens))
+        else:
+            qkv = self.qkv(self.norm(tokens))
+        qkv = qkv.reshape(b * self.num_heads, 3 * dh, h * w)
         out = flash_attention(qkv[:, :dh], qkv[:, dh:2 * dh], qkv[:, 2 * dh:])
-        out = self.proj_out(out.reshape(b, c, h * w))
-        return (tokens + out).reshape(b, c, h, w)
+        out = out.reshape(b, c, h * w)
+        if channels_last:  # [B, T, C]: tokens + bias + out^T W^T
+            out = torch.baddbmm(tokens.transpose(1, 2) + self.proj_out.bias,
+                                out.transpose(1, 2),
+                                self.proj_out.weight[:, :, 0].t().expand(b, -1, -1))
+            return out.transpose(1, 2).reshape(b, c, h, w)
+        return (tokens + self.proj_out(out)).reshape(b, c, h, w)

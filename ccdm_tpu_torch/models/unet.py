@@ -1,8 +1,15 @@
 """The image-conditioned diffusion UNet (port of `ccdm_tpu/models/unet.py`).
 
 At its boundary the UNet keeps the JAX layout: `x` `[B,H,W,C]`, `condition`
-`[B,H,W,Ci]`, and `diffusion_out` `[B,H,W,C]` (a permuted view of the NCHW
-result). Inside it is NCHW.
+`[B,H,W,Ci]`, and `diffusion_out` `[B,H,W,C]`. Inside, activations are
+indexed `[B, C, H, W]` and laid out as the float convs' weights are
+(`UNetModel.channels_last`). The samplers and the served artifact hold a
+float UNet's weights channels-last (`lay_out_weights`), so its inference
+forwards keep the activations channels-last (NHWC in memory) from the
+input concat to the head: cuDNN's NHWC convs and K2's NHWC paths read and
+write them with no layout transpose, and `diffusion_out` is a contiguous
+NHWC tensor. A UNet as built, so the trainer's (K2's backward takes
+NCHW), and a `quantize_convs` UNet (K3 takes NCHW) run NCHW.
 
 Structure: input = concat([x_t one-hot, condition]); sinusoidal timestep
 embedding -> 2-layer SiLU MLP; encoder of `num_res_blocks` ResBlocks per
@@ -63,6 +70,18 @@ def default_channel_mult(image_size: int) -> Tuple[float, ...]:
     return table[image_size]
 
 
+def _cat_channels(parts, channels_last: bool) -> torch.Tensor:
+    """`torch.cat(parts, dim=1)` in the torso's layout: channels-last where
+    `channels_last` (cat alone falls back to NCHW when an input's layout
+    reads as ambiguous, as a batch-1 tensor's may)."""
+    if not channels_last:
+        return torch.cat(parts, dim=1)
+    b, _, *spatial = parts[0].shape
+    out = torch.empty((b, sum(p.shape[1] for p in parts), *spatial), dtype=parts[0].dtype,
+                      device=parts[0].device, memory_format=torch.channels_last)
+    return torch.cat(parts, dim=1, out=out)
+
+
 def _remat(fn, *args):
     """`fn(*args)` with its activations dropped after the forward and
     recomputed in the backward (`nn.remat`). No generator's state is stashed
@@ -84,7 +103,10 @@ class TimestepBlock(nn.Sequential):
     remat_resblocks = False
     remat_attention = False
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor,
+                channels_last: bool = False) -> torch.Tensor:
+        """`channels_last`: the torso's layout, which the attention blocks
+        follow (`UNetModel.channels_last`)."""
         remat = self.training and torch.is_grad_enabled()
         for layer in self:
             if isinstance(layer, ResBlock):
@@ -92,8 +114,11 @@ class TimestepBlock(nn.Sequential):
                     x = _remat(layer, x, emb, layer.dropout_keep(x))
                 else:
                     x = layer(x, emb)
-            elif remat and self.remat_attention and isinstance(layer, AttentionBlock):
-                x = _remat(layer, x)
+            elif isinstance(layer, AttentionBlock):
+                if remat and self.remat_attention:
+                    x = _remat(layer, x, channels_last)
+                else:
+                    x = layer(x, channels_last)
             else:
                 x = layer(x)
         return x
@@ -114,7 +139,7 @@ class UNetModel(nn.Module):
                  remat_resblocks: bool = False, remat_attention: bool = True):
         super().__init__()
         self.dtype = dtype
-        q = quantize_convs
+        self.quantize_convs = q = quantize_convs
         self.softmax_output = softmax_output
         # the input block the feature map is concatenated in front of, if any
         self.feature_block: Optional[int] = None
@@ -178,6 +203,32 @@ class UNetModel(nn.Module):
         for block in self.modules():
             if isinstance(block, TimestepBlock):
                 block.remat_resblocks, block.remat_attention = remat_resblocks, remat_attention
+        # the float 2-d convs (not the int8 `QuantConv2d`s): the weights
+        # `lay_out_weights` converts
+        self._float_convs = [m for m in self.modules() if type(m) is nn.Conv2d]
+
+    @property
+    def channels_last(self) -> bool:
+        """Whether forwards hold their activations channels-last, as read
+        from the float convs' weights (`lay_out_weights`; the input conv's,
+        whose 3x3 kernel over two or more channels tells the layouts apart).
+        A `quantize_convs` UNet runs NCHW, as K3 takes it."""
+        return not self.quantize_convs and self.input_blocks[0][0].weight.is_contiguous(
+            memory_format=torch.channels_last)
+
+    def lay_out_weights(self, channels_last: bool) -> None:
+        """Hold the float convs' weights channels-last, so that forwards run
+        the inference torso channels-last (the samplers and the served
+        artifact ask for it: `eval/lidc_uncertainty.py`), or contiguous, so
+        that they run NCHW (as built, and as training needs: K2's backward
+        takes NCHW). Converted in place (`.data`: parameters, optimizers and
+        state dicts keep their tensors; no second copy is kept). A
+        `quantize_convs` UNet stays NCHW."""
+        fmt = (torch.channels_last if channels_last and not self.quantize_convs
+               else torch.contiguous_format)
+        for c in self._float_convs:
+            if not c.weight.is_contiguous(memory_format=fmt):
+                c.weight.data = c.weight.data.contiguous(memory_format=fmt)
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor, t: torch.Tensor,
                 feature_condition: Optional[torch.Tensor] = None, *,
@@ -186,6 +237,7 @@ class UNetModel(nn.Module):
         """`feature_condition` `[B,h,w,Cf]` is the DINO map; `cached_skips`
         (a `return_skips` result) skips the encoder; `return_skips` adds
         `"skips"` to the result."""
+        cl = self.channels_last
         emb = self.time_embed(
             timestep_embedding(t, self.time_embed[0].in_features).to(self.dtype))
         if cached_skips is not None:
@@ -195,26 +247,29 @@ class UNetModel(nn.Module):
             if (feature_condition is None) != (self.feature_block is None):
                 raise ValueError("feature_condition must be given exactly when the UNet "
                                  "was built with a feature concat")
-            # NHWC in, NCHW inside; contiguous so the kernels see dense NCHW
-            h = torch.cat([x, condition], dim=-1).to(self.dtype).permute(0, 3, 1, 2).contiguous()
+            # NHWC in: a channels-last view as it is, or made dense NCHW
+            h = torch.cat([x, condition], dim=-1).to(self.dtype).permute(0, 3, 1, 2)
+            if not cl:
+                h = h.contiguous()
             skips = []
             for i, block in enumerate(self.input_blocks):
                 if i == self.feature_block:
-                    h = torch.cat([h, feature_condition.to(self.dtype).permute(0, 3, 1, 2)],
-                                  dim=1)
-                h = block(h, emb)
+                    h = _cat_channels([h, feature_condition.to(self.dtype).permute(0, 3, 1, 2)],
+                                      cl)
+                h = block(h, emb, cl)
                 skips.append(h)
         encoder_skips = tuple(skips) if return_skips else None
-        h = self.middle_block(h, emb)
+        h = self.middle_block(h, emb, cl)
         for block in self.output_blocks:
-            h = block(torch.cat([h, skips.pop()], dim=1), emb)
+            h = block(_cat_channels([h, skips.pop()], cl), emb, cl)
 
         h = h.float()
         norm, _, conv = self.out
-        out = conv(norm(h, silu=True))
+        # [B,H,W,C]: contiguous where the torso is channels-last
+        out = conv(norm(h, silu=True)).permute(0, 2, 3, 1)
         if self.softmax_output:
-            out = torch.softmax(out, dim=1)
-        ret = {"diffusion_out": out.permute(0, 2, 3, 1), "logits": None}
+            out = torch.softmax(out, dim=-1)
+        ret = {"diffusion_out": out, "logits": None}
         if return_skips:
             ret["skips"] = encoder_skips
         if self.out_ce is not None:

@@ -44,6 +44,10 @@ _SIGNATURES = {
     # param, chunk, eps, silu, stream
     "ccdm_group_norm": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I, _I,
                         _I, _LL, _F, _I, _P],
+    # x, y, gamma, beta, add, partial, dtype, batch, channels, hw, groups, path, vec,
+    # tile, cluster, splits, chunk, apply, eps, silu, stream
+    "ccdm_group_norm_nhwc": [_P, _P, _P, _P, _P, _P, _I, _LL, _LL, _LL, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _F, _I, _P],
     # x, dy, gamma, beta, add, dx, dadd, scratch, counter, dgamma, dbeta, dtype, batch,
     # channels, hw, groups, path, vec, param, chunk, eps, silu, stream
     "ccdm_group_norm_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL,

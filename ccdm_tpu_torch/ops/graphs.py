@@ -26,7 +26,8 @@ WARMUP_STEPS = 2  # eager steps on the capture stream before a capture
 
 # The kernel wrappers' launch counts, by module: K2 (forward and backward),
 # K1 and K3
-COUNTED = ((gn, ("launches", "path_launches", "launches_bwd", "path_launches_bwd")),
+COUNTED = ((gn, ("launches", "path_launches", "layout_launches", "launches_bwd",
+                 "path_launches_bwd")),
            (fa, ("launches", "path_launches")),
            (quant, ("launches", "path_launches")))
 

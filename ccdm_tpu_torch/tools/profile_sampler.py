@@ -23,8 +23,9 @@ run's first two images; `--quant off` is the default.
   back-to-back calls), with the per-step sum over all sites; for
   Cityscapes also the DINO encoder's time per run;
 - `cold`, `warm`: wall time of 250-step runs (the process's first, then
-  `WARM_RUNS` more), samples or images per second, and the SM clock after
-  each.
+  `WARM_RUNS` more), samples or images per second, K2's launches a step by
+  the input's layout (`ops/group_norm.layout_launches`: NCHW, or
+  channels-last on the inference torso), and the SM clock after each.
 
 `--split` runs the `split` phase instead: the program's own spans and
 marks (`utils/trace.py`), read back, with tracing on from before the
@@ -178,13 +179,17 @@ def sites(work: Workload, smoke) -> None:
     from ccdm_tpu_torch.ops import flash_attention as fa
     from ccdm_tpu_torch.ops import group_norm as gn
 
+    if hasattr(work.unet, "lay_out_weights"):  # a checkout without it: as built
+        work.unet.lay_out_weights(True)  # the layout the sampler gives the forward
     calls = collections.Counter()
     hooks = []
 
     def on_norm(mod, args, kwargs):
-        calls[("gn", tuple(args[0].shape), args[0].dtype, mod.groups,
+        x = args[0]
+        nhwc = not x.is_contiguous() and x.movedim(1, -1).is_contiguous()
+        calls[("gn", tuple(x.shape), x.dtype, mod.groups,
                bool(kwargs.get("silu", args[1] if len(args) > 1 else False)),
-               kwargs.get("add") is not None)] += 1
+               kwargs.get("add") is not None, nhwc)] += 1
 
     def on_attn(mod, args):
         b, c, h, w = args[0].shape
@@ -205,17 +210,20 @@ def sites(work: Workload, smoke) -> None:
     totals = collections.Counter()
     for key, count in sorted(calls.items(), key=lambda kv: str(kv[0])):
         if key[0] == "gn":
-            _, shape, dtype, groups, silu, with_add = key
+            _, shape, dtype, groups, silu, with_add, nhwc = key
             x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            if nhwc:  # the site's layout: channels innermost
+                x = x.movedim(1, -1).contiguous().movedim(-1, 1)
             w = torch.ones(shape[1], device="cuda")
             b = torch.zeros(shape[1], device="cuda")
             # without the add: the one form both versions' wrappers take
             ms = smoke.time_ms(lambda: gn.group_norm(x, w, b, groups, silu=silu))
             nbytes = 2 * x.numel() * x.element_size() + 8 * shape[1]
             bound, _ = smoke.bound_ms(nbytes, x.numel() * (6 + 3 * silu), "float32")
+            plan = gn._plan(shape, dtype, groups, **({"nhwc": True} if nhwc else {}))
             emit("site", kernel="group_norm", shape=list(shape), dtype=str(dtype)[6:],
-                 silu=silu, add_site=with_add, count=count, ms=ms, bound_ms=bound,
-                 path=gn._plan(shape, dtype, groups).path)
+                 silu=silu, add_site=with_add, layout="nhwc" if nhwc else "nchw", count=count,
+                 ms=ms, bound_ms=bound, path=plan.path)
             totals["group_norm"] += count * ms
             totals["group_norm_bound"] += count * bound
         else:
@@ -240,15 +248,22 @@ def sites(work: Workload, smoke) -> None:
 def runs(work: Workload, smoke, warm: int, graphs: bool) -> None:
     import torch
 
+    from ccdm_tpu_torch.ops import group_norm as gn
+
     run = work.make_run(smoke.STEPS, graphs)
     for i in range(warm + 1):
+        layouts = dict(getattr(gn, "layout_launches", {}))  # a checkout without it: none
         torch.cuda.synchronize()
         start = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+        # K2's launches a step by the input's layout (NCHW or channels-last)
+        per_step = {k: (v - layouts[k]) / smoke.STEPS
+                    for k, v in getattr(gn, "layout_launches", {}).items()}
         emit("cold" if i == 0 else "warm", sampler=mode_name(graphs), wall_s=wall,
              unit=work.unit, per_s=work.count / wall, ms_per_step=wall / smoke.STEPS * 1e3,
+             group_norm_layouts_per_step=per_step,
              clock_temp=smi("clocks.sm,temperature.gpu"))
 
 

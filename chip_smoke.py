@@ -18,7 +18,14 @@ without printing its result:
    at the Cityscapes sampler's sites (B = 2 images x 1 vote, 256x512,
    base 128: path L at 768 KB-2 MB slabs, the DINO concat's 640 channels),
    and at the Cityscapes train step's (batch 16 at 128x256, base 32, the
-   DINO concat's 448 channels at ds 8).
+   DINO concat's 448 channels at ds 8). Then every site of the samplers'
+   channels-last torso (`inference_norm_sites`: the flagship at 8 x 16,
+   Cityscapes at 2 x 1, read by hooks on a forward of each UNet laid out as
+   the samplers lay it out) on channels-last x: the plan's layout is NHWC
+   and its path is the one the launch counts show, the output is
+   channels-last, the same error bounds against the plain version; kernel,
+   plain, the NCHW kernel on the same values and bound times, and the sites'
+   sum over one UNet call (each site times its count).
 4. attention: the attention kernel against its plain version at the
    flagship's attention shapes, at T = 70 (element loads), at T = 2048 (many
    K/V tiles), with 64-channel heads, at the Cityscapes sites (BH 16 x
@@ -583,7 +590,117 @@ def phase_group_norm(gen):
             f"library {library}, bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of bound")
         del x, e
     torch.cuda.empty_cache()
-    return worst, rows[128], rows[2], rows[16]
+    nhwc = {}
+    for config in ("flagship", "cityscapes"):
+        sites = inference_norm_sites(config)
+        nhwc[config], worst = group_norm_nhwc_sites(gen, config, sites, worst)
+    return worst, rows[128], rows[2], rows[16], nhwc
+
+
+def inference_norm_sites(config: str):
+    """(shape at the sampler's batch, dtype, groups, SiLU, has the add) ->
+    the GroupNorm calls of one UNet call of the config's sampler (flagship
+    8 images x 16 samples, Cityscapes 2 x 1 with its DINO map), read by
+    hooks on a batch-1 forward of the UNet laid out as the samplers lay it
+    out (`UNetModel.lay_out_weights`). Every input must be channels-last."""
+    import torch
+
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, FLAGSHIP_PARAMS
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.models.layers import GroupNorm32
+    from ccdm_tpu_torch.ops import group_norm as gn
+
+    params, classes, channels, hw, features, batch = {
+        "flagship": (FLAGSHIP_PARAMS, 2, 1, (128, 128), 0, IMAGES * SAMPLES),
+        "cityscapes": (CITYSCAPES_EVAL_PARAMS, 20, 3, CS_HW, 384, CS_IMAGES)}[config]
+    model = build_model(params, classes, channels, min(hw), device="cuda")
+    model.unet.lay_out_weights(True)
+    calls = collections.Counter()
+
+    def on_norm(mod, args, kwargs):
+        x = args[0]
+        if not gn.channels_last(x):
+            raise AssertionError(f"group_norm_nhwc: a {config} site's input {tuple(x.shape)} "
+                                 f"strides {x.stride()} is not channels-last")
+        calls[((batch, *x.shape[1:]), x.dtype, mod.groups,
+               bool(kwargs.get("silu", args[1] if len(args) > 1 else False)),
+               kwargs.get("add", args[2] if len(args) > 2 else None) is not None)] += 1
+
+    hooks = [m.register_forward_pre_hook(on_norm, with_kwargs=True)
+             for m in model.unet.modules() if isinstance(m, GroupNorm32)]
+    feats = (torch.zeros(1, hw[0] // 8, hw[1] // 8, features, device="cuda")
+             if features else None)
+    with torch.inference_mode():
+        model.unet(torch.zeros(1, *hw, classes, device="cuda"),
+                   torch.zeros(1, *hw, channels, device="cuda"),
+                   torch.tensor([5], device="cuda"), feats)
+    for h in hooks:
+        h.remove()
+    del model
+    torch.cuda.empty_cache()
+    return calls
+
+
+def group_norm_nhwc_sites(gen, config: str, sites, worst: float):
+    """Phase 3's channels-last cases: each site of `inference_norm_sites`
+    on channels-last x of unit scale. Returns the rows of the kernels line
+    and the largest error so far."""
+    import torch
+
+    from ccdm_tpu_torch.ops import group_norm as gn
+
+    rows, total = [], collections.Counter()
+    for (shape, dtype, groups, silu, with_add), count in sorted(sites.items(), key=str):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        x = x.movedim(1, -1).contiguous().movedim(-1, 1)  # channels innermost
+        w = 1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        e = torch.randn(shape[:2], generator=gen, device="cuda").to(dtype) if with_add else None
+        plan = gn._plan(shape, dtype, groups, aligned=x.data_ptr() % 16 == 0, nhwc=True)
+        name = f"{config} {list(shape)} {str(dtype)[6:]} silu={silu} add={with_add}"
+        before = dict(gn.path_launches), dict(gn.layout_launches)
+        out = gn.group_norm(x, w, b, groups, silu=silu, add=e)
+        launched = ({k: v - before[0][k] for k, v in gn.path_launches.items()},
+                    {k: v - before[1][k] for k, v in gn.layout_launches.items()})
+        if plan.layout != "nhwc" or launched != (
+                {p: int(p == plan.path) for p in gn.path_launches}, {"nchw": 0, "nhwc": 1}):
+            raise AssertionError(f"group_norm_nhwc {name}: planned {plan}, launched {launched}")
+        if not gn.channels_last(out):
+            raise AssertionError(f"group_norm_nhwc {name}: output strides {out.stride()}")
+        ref = gn.torch_group_norm(x, w, b, groups, silu=silu, add=e)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        if dtype == torch.float32 and not err <= 2e-5:
+            raise AssertionError(f"group_norm_nhwc {name}: max err {err} > 2e-5")
+        if dtype == torch.bfloat16 and bf16_excess(out.float(), ref.float()) > 0:
+            raise AssertionError(f"group_norm_nhwc {name}: max err {err} beyond "
+                                 f"max(3e-2, 1 ulp)")
+        del out, ref
+        worst = max(worst, err)
+        ms = time_ms(lambda: gn.group_norm(x, w, b, groups, silu=silu, add=e))
+        plain_ms = time_ms(lambda: gn.torch_group_norm(x, w, b, groups, silu=silu, add=e))
+        xc = x.contiguous()
+        nchw_ms = time_ms(lambda: gn.group_norm(xc, w, b, groups, silu=silu, add=e))
+        del xc
+        bound, bound_by = group_norm_bound(shape, x.element_size(), silu, e is not None)
+        rows.append({"shape": list(shape), "dtype": str(dtype)[6:], "silu": silu,
+                     "add": with_add, "count": count, "path": plan.path, "tile": plan.tile,
+                     "blocks": plan.param, "ms": ms, "plain_ms": plain_ms,
+                     "nchw_ms": nchw_ms, "bound_ms": bound, "bound_by": bound_by})
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("nchw_ms", nchw_ms),
+                       ("bound_ms", bound)):
+            total[key] += count * v
+        log("group_norm", f"NHWC {name} x{count} path {plan.path} (vec {plan.vec}, tile "
+            f"{plan.tile}, blocks {plan.param}): max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, NCHW kernel {nchw_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by}), {bound / ms:.1%} of bound")
+        del x, e
+    torch.cuda.empty_cache()
+    log("group_norm", f"NHWC {config}: {sum(sites.values())} sites a UNet call, kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, NCHW kernel "
+        f"{total['nchw_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms, "
+        f"{total['bound_ms'] / total['ms']:.1%} of bound")
+    return {"sites": rows, "per_unet_call": dict(total)}, worst
 
 
 def phase_attention(gen):
@@ -5194,7 +5311,8 @@ def main() -> None:
     smi = timed("device", phase_device)
     timed("build", phase_build)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gn_err, gn_row, gn_cs_row, gn_train_row = timed("group_norm", phase_group_norm, gen)
+    gn_err, gn_row, gn_cs_row, gn_train_row, gn_nhwc = timed("group_norm", phase_group_norm,
+                                                             gen)
     attn_err, attn_row, attn_cs_row, attn_train_row = timed("attention", phase_attention, gen)
     runs = {}
     runs["flagship"], bare_rate = timed("slice", phase_slice, smi)
@@ -5243,7 +5361,8 @@ def main() -> None:
          "replaces": "ccdm_tpu/ops/group_norm.py:40",
          "launches": sum(r["launches"]["group_norm"] for r in runs.values()),
          "max_abs_err": gn_err, **gn_row, "cityscapes_case": gn_cs_row,
-         "cityscapes_train_case": gn_train_row, "serving_host_us": host_us["group_norm"], "runs": by_run("group_norm")},
+         "cityscapes_train_case": gn_train_row, "nhwc_cases": gn_nhwc,
+         "serving_host_us": host_us["group_norm"], "runs": by_run("group_norm")},
         {"name": "flash_attention", "route": "cuda",
          "source": "ccdm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "ccdm_tpu/ops/flash_attention.py:34",

@@ -151,3 +151,97 @@ def test_splits_cover_the_card():
     # a single small sample is spread over more blocks
     assert gn._splits(32, 64 * 64, 4) == 4
     assert gn._splits(1, 8, 4) == 1
+
+
+def _channels_last(x):
+    return x.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("shape,groups,add", [
+    ((2, 64, 8, 8), 32, False),
+    ((2, 96, 5, 7), 32, True),    # 3 channels a group
+    ((3, 48, 16), 24, True),      # attention tokens [B, C, T]
+])
+def test_plain_path_on_channels_last_equals_it_on_the_nchw_copy(shape, groups, add, dtype):
+    """A channels-last input gives the values of its NCHW copy, in its own
+    layout (the strides `torch.empty_like` gives it)."""
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randn(shape, generator=gen) * 3 + 1).to(dtype)
+    w, b = torch.randn(shape[1], generator=gen) + 1, torch.randn(shape[1], generator=gen)
+    e = torch.randn(shape[:2], generator=gen).to(dtype) if add else None
+    xc = _channels_last(x)
+    assert gn.channels_last(xc) and not gn.channels_last(x)
+    ours = gn.group_norm(xc, w, b, groups, silu=True, add=e)
+    ref = gn.group_norm(x, w, b, groups, silu=True, add=e)
+    assert ours.stride() == xc.stride() and ref.is_contiguous()
+    assert torch.equal(ours, ref)
+
+
+def test_the_autograd_path_refuses_a_channels_last_input():
+    """K2's backward takes NCHW only: a channels-last x that autograd would
+    record raises instead of computing."""
+    x = _channels_last(torch.randn(2, 64, 4, 4)).requires_grad_()
+    w, b = torch.ones(64), torch.zeros(64)
+    with pytest.raises(ValueError, match="autograd path takes contiguous"):
+        gn.group_norm(x, w, b, 32)
+    with torch.no_grad():  # nothing records: the forward alone takes it
+        assert gn.group_norm(x, w, b, 32).stride() == x.stride()
+
+
+H100_SMEM_PER_SM = 228 * 1024  # of which each block reserves 1 KB
+
+
+@pytest.mark.parametrize("shape,dtype,plan", [
+    # channels-last, the flagship's sites at B = 8 x 16: a sample's pixels
+    # over a tile of channels, in one block ...
+    ((128, 96, 16, 16), BF16, gn.Plan("M", 8, 1, 256, "nhwc", 48)),       # two tiles a sample
+    ((128, 96, 256), BF16, gn.Plan("M", 8, 1, 256, "nhwc", 48)),          # attention tokens
+    ((128, 256, 8, 8), BF16, gn.Plan("M", 8, 1, 64, "nhwc", 128)),
+    ((128, 128, 32, 32), BF16, gn.Plan("M", 8, 1, 1024, "nhwc", 32)),
+    ((2, 512, 8, 16), BF16, gn.Plan("M", 8, 1, 128, "nhwc", 32)),         # few units: still one
+    # ... in a cluster of blocks of 32 KB ...
+    ((128, 32, 64, 64), BF16, gn.Plan("M", 8, 8, 512, "nhwc", 32)),       # rows whole pixels
+    ((128, 160, 32, 32), BF16, gn.Plan("M", 8, 6, 171, "nhwc", 80)),      # 5 channels a group
+    # ... or of blocks of 64 KB, up to 16 (the non-portable cluster size)
+    ((128, 32, 128, 128), BF16, gn.Plan("M", 8, 16, 1024, "nhwc", 32)),
+    ((128, 64, 128, 128), BF16, gn.Plan("M", 8, 16, 1024, "nhwc", 32)),   # two tiles a sample
+    ((128, 32, 128, 128), F32, gn.Plan("M", 4, 16, 1024, "nhwc", 16)),    # the fp32 head
+    ((128, 96, 64, 64), BF16, gn.Plan("M", 8, 7, 586, "nhwc", 48)),       # 3 channels a group
+    # Cityscapes' at 2 x 1: the DINO concat (20 channels a group) and the
+    # pre-norm at ds 8, and path L for its 8-64 MB samples
+    ((2, 640, 32, 64), BF16, gn.Plan("M", 8, 6, 342, "nhwc", 40)),
+    ((2, 256, 2048), BF16, gn.Plan("M", 8, 8, 256, "nhwc", 64)),
+    ((2, 128, 256, 512), BF16, gn.Plan("L", 8, 8, 497, "nhwc", 128, 264, 497)),
+    ((2, 256, 256, 512), BF16, gn.Plan("L", 8, 8, 497, "nhwc", 256, 264, 256)),
+    ((2, 128, 256, 512), F32, gn.Plan("L", 4, 8, 497, "nhwc", 128, 264, 256)),
+    ((2, 128, 128, 256), BF16, gn.Plan("M", 8, 16, 2048, "nhwc", 16)),     # 8 MB: 32-byte rows
+    # 12 channels: no 16-byte vectors, element loads; a small unit in one
+    # block
+    ((3, 12, 5, 7), BF16, gn.Plan("M", 1, 1, 35, "nhwc", 12)),
+])
+def test_plan_nhwc_per_shape(shape, dtype, plan):
+    groups = 4 if shape[1] == 12 else 32
+    got = gn._plan(shape, dtype, groups, nhwc=True)
+    assert got == plan
+    b, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    cpg = c // groups
+    # a tile is whole groups and whole vectors, no more vectors than threads
+    assert c % got.tile == 0 and got.tile % cpg == 0 and got.tile % got.vec == 0
+    assert got.tile // got.vec <= gn._THREADS and got.tile // cpg <= gn._MAX_TILE_GROUPS
+    if got.path == "M":
+        assert got.param * got.chunk >= hw > (got.param - 1) * got.chunk
+        assert 1 <= got.param <= gn._MN_MAX_CLUSTER
+        assert got.tile <= gn._MN_MAX_TILE and got.tile // got.vec <= 32
+        # the rows, the warps' sums (2 x 8 warps x 128 floats): three blocks an SM
+        smem = got.chunk * got.tile * dtype.itemsize + 2 * 8 * gn._MN_MAX_TILE * 4
+        assert got.chunk * got.tile * dtype.itemsize <= gn._M_CHUNK_BYTES
+        assert 3 * (smem + 1024) <= H100_SMEM_PER_SM
+    else:
+        assert got.splits % got.param == 0 and got.splits * got.chunk >= hw
+        assert got.apply >= 1
+    # the contiguous plan of the same shape is NCHW's, unchanged
+    assert gn._plan(shape, dtype, groups).layout == "nchw"
+    # an address that is not 16-byte aligned takes element loads
+    assert gn._plan(shape, dtype, groups, aligned=False, nhwc=True).vec == 1

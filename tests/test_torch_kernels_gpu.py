@@ -88,6 +88,136 @@ def test_group_norm_kernel_matches_plain(cuda, shape, dtype, groups, silu, path,
         assert bf16_within(out.float(), ref.float())
 
 
+def _channels_last(x):
+    """x `[B, C, *spatial]` with its channels innermost in memory."""
+    return x.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+def _check_nhwc(x, w, b, groups, silu, e, path):
+    """The channels-last kernel on x against the plain version: the path,
+    the launch counts, the output's layout, the bound of
+    `test_group_norm_kernel_matches_plain`, and the same bits again."""
+    assert gn.channels_last(x)
+    plan = gn._plan(x.shape, x.dtype, groups, aligned=x.data_ptr() % 16 == 0, nhwc=True)
+    assert (plan.layout, plan.path) == ("nhwc", path)
+    before = gn.launches, gn.path_launches[path], dict(gn.layout_launches)
+    out = gn.group_norm(x, w, b, groups, silu=silu, add=e)
+    torch.cuda.synchronize()
+    assert (gn.launches, gn.path_launches[path]) == (before[0] + 1, before[1] + 1)
+    assert gn.layout_launches == {"nchw": before[2]["nchw"], "nhwc": before[2]["nhwc"] + 1}
+    ref = gn.torch_group_norm(x, w, b, groups, silu=silu, add=e)
+    assert out.dtype == x.dtype and out.shape == x.shape and out.stride() == x.stride()
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+    else:
+        assert bf16_within(out.float(), ref.float())
+    assert torch.equal(out, gn.group_norm(x, w, b, groups, silu=silu, add=e))
+
+
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("shape,dtype,groups,silu,path", [
+    ((4, 32, 64, 64), BF16, 32, True, "M"),       # 1 channel a group
+    ((4, 64, 128, 128), BF16, 32, True, "M"),     # the flagship's largest: 2 a group
+    ((4, 32, 128, 128), F32, 32, True, "M"),      # the fp32 head: tiles of 16 channels
+    ((8, 96, 16, 16), BF16, 32, True, "M"),       # 3 a group: vectors span two groups
+    ((8, 96, 256), BF16, 32, False, "M"),         # attention tokens [B, C, T], 3 a group
+    ((4, 128, 32, 32), BF16, 32, True, "M"),      # 4
+    ((4, 160, 16, 16), BF16, 32, True, "M"),      # 5
+    ((4, 192, 16, 16), F32, 32, True, "M"),       # 6
+    ((4, 224, 8, 8), BF16, 32, True, "M"),        # 7
+    ((2, 256, 2048), BF16, 32, False, "M"),       # 8: the Cityscapes pre-norm at ds 8
+    ((2, 384, 128, 256), BF16, 32, True, "L"),    # 12: the level-1 skip concat
+    ((2, 512, 8, 16), BF16, 32, True, "M"),       # 16: ds 32
+    ((2, 640, 32, 64), BF16, 32, True, "M"),      # 20: the DINO concat
+    ((2, 768, 32, 64), BF16, 32, True, "M"),      # 24: the ds-8 skip concat
+    ((2, 1024, 8, 16), BF16, 32, True, "M"),      # 32: 1024 channels
+    ((2, 128, 128, 256), BF16, 32, True, "M"),    # Cityscapes level 1: 8 MB, 32-byte rows
+    ((2, 128, 256, 512), BF16, 32, True, "L"),    # Cityscapes level 0
+    ((2, 256, 256, 512), BF16, 32, True, "L"),    # its skip concat
+    ((2, 128, 256, 512), F32, 32, True, "L"),     # its fp32 head
+    ((3, 12, 5, 7), BF16, 4, True, "M"),          # 12 channels: element loads
+    ((3, 30, 9, 9), F32, 10, False, "M"),         # 30 channels: element loads
+    ((2, 36, 300, 300), BF16, 12, True, "L"),     # path L in element loads
+])
+def test_group_norm_nhwc_kernel_matches_plain(cuda, shape, dtype, groups, silu, path, add):
+    x = _channels_last((torch.randn(shape, generator=cuda, device="cuda") * 3 + 1).to(dtype))
+    w = torch.randn(shape[1], generator=cuda, device="cuda") + 1
+    b = torch.randn(shape[1], generator=cuda, device="cuda")
+    e = torch.randn(shape[:2], generator=cuda, device="cuda").to(dtype) if add else None
+    _check_nhwc(x, w, b, groups, silu, e, path)
+
+
+def test_group_norm_nhwc_misaligned_input_takes_element_loads(cuda):
+    """A channels-last view 2 bytes into its storage cannot take 16-byte loads."""
+    base = torch.randn(2 * 64 * 16 * 16 + 1, generator=cuda, device="cuda").to(BF16)
+    x = base[1:].view(2, 16, 16, 64).permute(0, 3, 1, 2)
+    assert x.data_ptr() % 16 and gn._plan(x.shape, BF16, 32, False, nhwc=True).vec == 1
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    _check_nhwc(x, w, b, 32, True, None, "M")
+
+
+def _inference_sites(params, classes, channels, hw, features, batch):
+    """(shape at `batch`, dtype, groups, SiLU, has the add, channels-last)
+    -> GroupNorm calls of one inference forward of the config's UNet, from
+    hooks on a batch-1 forward on the card."""
+    from ccdm_tpu_torch.models.builder import build_model
+    from ccdm_tpu_torch.models.layers import GroupNorm32
+
+    model = build_model(params, classes, channels, min(hw), device="cuda")
+    model.unet.lay_out_weights(True)  # as the samplers lay it out
+    calls = {}
+
+    def on_norm(mod, args, kwargs):
+        add = kwargs.get("add", args[2] if len(args) > 2 else None)
+        silu = kwargs.get("silu", args[1] if len(args) > 1 else False)
+        key = ((batch, *args[0].shape[1:]), args[0].dtype, mod.groups, bool(silu),
+               add is not None, gn.channels_last(args[0]))
+        calls[key] = calls.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(on_norm, with_kwargs=True)
+             for m in model.unet.modules() if isinstance(m, GroupNorm32)]
+    feats = (torch.zeros(1, hw[0] // 8, hw[1] // 8, features, device="cuda")
+             if features else None)
+    with torch.inference_mode():
+        model.unet(torch.zeros(1, *hw, classes, device="cuda"),
+                   torch.zeros(1, *hw, channels, device="cuda"),
+                   torch.tensor([5], device="cuda"), feats)
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def _site_configs():
+    from ccdm_tpu_torch import CITYSCAPES_EVAL_PARAMS, FLAGSHIP_PARAMS
+
+    return {"flagship": (FLAGSHIP_PARAMS, 2, 1, (128, 128), 0, 128),
+            "cityscapes": (CITYSCAPES_EVAL_PARAMS, 20, 3, (256, 512), 384, 2)}
+
+
+@pytest.mark.parametrize("config", ["flagship", "cityscapes"])
+def test_group_norm_nhwc_kernel_matches_plain_at_every_inference_site(cuda, config):
+    """Every GroupNorm site of the config's inference forward at the
+    benchmark's batch (flagship 8 x 16, Cityscapes 2 x 1), channels-last,
+    in bf16 and fp32, with and without SiLU and the add."""
+    params, classes, channels, hw, features, batch = _site_configs()[config]
+    sites = _inference_sites(params, classes, channels, hw, features, batch)
+    assert sum(sites.values()) == {"flagship": 66, "cityscapes": 81}[config]
+    shapes = sorted({(k[0], k[2]) for k in sites if k[5]})
+    assert shapes
+    for shape, groups in shapes:
+        c = shape[1]
+        for dtype in (BF16, F32):
+            x = _channels_last(
+                (torch.randn(shape, generator=cuda, device="cuda") * 3 + 1).to(dtype))
+            w = torch.randn(c, generator=cuda, device="cuda") + 1
+            b = torch.randn(c, generator=cuda, device="cuda")
+            path = gn._plan(shape, dtype, groups, nhwc=True).path
+            for silu, add in ((False, False), (True, True)):
+                e = torch.randn(shape[:2], generator=cuda, device="cuda").to(dtype) if add else None
+                _check_nhwc(x, w, b, groups, silu, e, path)
+            del x
+
+
 def _close_to_max(out, ref, rel):
     """|out - ref| <= rel x the largest |ref| of the tensor."""
     err = (out.float() - ref.float()).abs().max().item()
@@ -786,7 +916,7 @@ def _sampler_images(b: int, seed: int = 1):
 
 def _launches():
     return (gn.launches, fa.launches, quant.launches, dict(gn.path_launches),
-            dict(quant.path_launches))
+            dict(quant.path_launches), dict(gn.layout_launches))
 
 
 def _sampled(run, net, images, key: int = 3):
@@ -826,6 +956,8 @@ def test_graphed_sampler_is_bit_equal_to_the_eager_loop(deterministic, c, reuse)
     assert torch.equal(first, ref) and torch.equal(second, ref)
     # the wrappers count each replay's launches, none at the capture
     assert first_launches == second_launches == ref_launches and ref_launches[0] > 0
+    # the float torso is channels-last: every K2 site took an NHWC path
+    assert ref_launches[-1] == {"nchw": 0, "nhwc": ref_launches[0]}
     other, _ = _sampled(graphed, model.unet, images, key=4)
     assert not torch.equal(other, ref)  # the keys reach the graphs' static buffers
     assert torch.equal(other, _sampled(eager, model.unet, images, key=4)[0])
@@ -841,10 +973,38 @@ def test_graphed_int8_static_sampler_is_bit_equal_to_the_eager_loop(deterministi
     graphed = make_prob_sampler(model, 4, encoder_reuse=2)
     ref, ref_launches = _sampled(eager, model.unet, images)
     assert ref_launches[2] > 0  # K3 ran
+    assert ref_launches[-1] == {"nchw": ref_launches[0], "nhwc": 0}  # an int8 UNet: NCHW
     for _ in range(2):
         out, launches = _sampled(graphed, model.unet, images)
         assert torch.equal(out, ref) and launches == ref_launches
     assert graphed.graphed.captures == 1
+
+
+@pytest.mark.parametrize("config", ["flagship", "cityscapes"])
+def test_a_replayed_step_runs_every_norm_site_channels_last(cuda, config):
+    """The graphed sampler at the benchmark's geometry (flagship 8 images x
+    16 samples, Cityscapes 2 x 1 with a DINO map): every replayed step runs
+    all its K2 sites (66, 81) on the NHWC paths, none on NCHW."""
+    from ccdm_tpu_torch.eval.lidc_uncertainty import make_prob_sampler
+    from ccdm_tpu_torch.models.builder import build_model
+
+    params, classes, channels, hw, features, batch = _site_configs()[config]
+    steps, samples = 3, {"flagship": 16, "cityscapes": 1}[config]
+    model = build_model(dict(params, time_steps=steps, step_T_sample="confidence"), classes,
+                        channels, min(hw), device="cuda")
+    images = torch.randn(batch // samples, *hw, channels, generator=cuda, device="cuda")
+    feats = (torch.randn(batch // samples, hw[0] // 8, hw[1] // 8, features, generator=cuda,
+                         device="cuda") if features else None)
+    run = make_prob_sampler(model, samples,
+                            feature_fn=(lambda net, im: feats) if features else None)
+    run(model.unet, images, 1)  # eager steps and the capture
+    before = dict(gn.layout_launches)
+    run(model.unet, images, 2)
+    torch.cuda.synchronize()
+    assert run.graphed.replays == steps + (steps - 2)
+    sites = {"flagship": 66, "cityscapes": 81}[config]
+    assert {k: v - before[k] for k, v in gn.layout_launches.items()} == {
+        "nchw": 0, "nhwc": sites * steps}
 
 
 def test_graphed_sampler_captures_a_short_batch_as_a_second_key(deterministic):

@@ -199,6 +199,11 @@ def test_the_artifact_holds_one_unet(cases, name):
     unet = case.model.unet
     programs = _programs(case.blob)
     step = programs["step"][0].graph
+    # the attention blocks' 1x1 projections: Conv1d calls in an int8 UNet,
+    # which runs NCHW, and batched matrix products over the same weights in a
+    # float one, whose inference torso is channels-last (models/layers.py)
+    projections = sum(type(m) is torch.nn.Conv1d for m in unet.modules())
+    nhwc = not unet.quantize_convs
     sites = {
         torch.ops.ccdm.group_norm.default: sum(isinstance(m, GroupNorm32) for m in unet.modules()),
         torch.ops.ccdm.flash_attention.default:
@@ -206,7 +211,8 @@ def test_the_artifact_holds_one_unet(cases, name):
         torch.ops.ccdm.quant_conv.default:
             sum(isinstance(m, quant.QuantConv2d) for m in unet.modules()),
         torch.ops.aten.conv2d.default: sum(type(m) is torch.nn.Conv2d for m in unet.modules()),
-        torch.ops.aten.conv1d.default: sum(type(m) is torch.nn.Conv1d for m in unet.modules()),
+        torch.ops.aten.conv1d.default: 0 if nhwc else projections,
+        torch.ops.aten.baddbmm.default: projections if nhwc else 0,
     }
     assert sites[torch.ops.ccdm.group_norm.default] == 31  # 24 in ResBlocks, 6 attention, head
     assert (sites[torch.ops.ccdm.quant_conv.default] > 0) == (name == "int8_static")

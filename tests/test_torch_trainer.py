@@ -74,6 +74,10 @@ def test_run_train_smoke(tmp_path, tiny_synthetic):
     val = [e for e in events if e["tag"] == "val"]
     assert len(val) == 1 and 0 <= val[0]["GED"] <= 2 and 0 <= val[0]["HMIoU"] <= 1
     assert [e["step"] for e in events if e["tag"] == "train"] == [2, 4]
+    # the training state stays contiguous: validation lays out only the EMA
+    # copy it samples with channels-last
+    for tree in (state.params, state.ema_params, state.opt_state["mu"], state.opt_state["nu"]):
+        assert all(v.is_contiguous() for v in tree.values())
 
     # resume from the checkpoint and take 2 more steps
     state2 = _train(tmp_path, "run2", max_steps=2, load_from=str(run))

@@ -86,3 +86,68 @@ def test_timestep_embedding_matches_jax():
         ref = np.asarray(jax_embedding(jnp.asarray(t), dim))
         # cos/sin of arguments up to 250 rad: libm ulps of the argument
         np.testing.assert_allclose(ours, ref, atol=2e-5, rtol=0)
+
+
+def _norm_inputs(net):
+    """Hooks that record whether each GroupNorm's input is channels-last."""
+    from ccdm_tpu_torch.ops.group_norm import channels_last
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(
+        "nhwc" if channels_last(a[0]) else "nchw" if a[0].is_contiguous() else "other"))
+        for m in net.modules() if isinstance(m, GroupNorm32)]
+    return seen, hooks
+
+
+def test_the_channels_last_forward_equals_the_nchw_forward():
+    """A UNet as built runs NCHW, and its training forward hands K2's
+    backward NCHW; with its float convs' weights laid out channels-last (as
+    the samplers lay them out) its forward runs channels-last from the
+    input concat to the head; at fp32 the two agree within the JAX parity
+    bound."""
+    *_, port, xt, cond = _build(False, True)
+    args = (torch.from_numpy(xt), torch.from_numpy(cond), torch.tensor([7, 201]))
+    assert not port.channels_last
+    assert all(c.weight.is_contiguous() for c in port._float_convs)
+    seen, hooks = _norm_inputs(port)
+    nchw = port(*args)  # the parameters require grad: autograd records
+    sites = len(seen)
+    assert seen == ["nchw"] * sites
+    nchw["diffusion_out"].sum().backward()  # K2's backward takes what it saved: NCHW
+    seen.clear()
+    port.lay_out_weights(True)
+    assert port.channels_last
+    assert all(c.weight.is_contiguous(memory_format=torch.channels_last)
+               for c in port._float_convs)
+    with torch.no_grad():
+        cl = port(*args)
+    assert seen == ["nhwc"] * sites and cl["diffusion_out"].is_contiguous()
+    port.lay_out_weights(False)
+    for h in hooks:
+        h.remove()
+    assert not port.channels_last
+    for key in ("diffusion_out", "logits"):
+        np.testing.assert_allclose(cl[key].numpy(), nchw[key].detach().numpy(), atol=2e-5,
+                                   rtol=0)
+
+
+def test_an_int8_unet_hands_its_kernels_nchw():
+    """A `quantize_convs` UNet's inference forward stays NCHW: K3's int8
+    convs and K2 take contiguous inputs."""
+    from ccdm_tpu_torch.ops.quant import QuantConv2d
+
+    kw = dict(image_size=TINY_UNET["image_size"], base_channels=TINY_UNET["base_channels"],
+              out_channels=C, channel_mult=TINY_UNET["channel_mult"],
+              attention_resolutions=TINY_UNET["attention_resolutions"],
+              num_head_channels=TINY_UNET["num_head_channels"], dtype=torch.float32)
+    net = create_unet(**kw, quantize_convs=True).eval()
+    convs = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: convs.append(a[0].is_contiguous()))
+             for m in net.modules() if isinstance(m, QuantConv2d)]
+    seen, more = _norm_inputs(net)
+    with torch.no_grad():
+        net(torch.zeros(B, H, W, C), torch.zeros(B, H, W, 1), torch.tensor([3, 9]))
+    for h in hooks + more:
+        h.remove()
+    assert convs and all(convs)
+    assert seen and set(seen) == {"nchw"}
